@@ -28,3 +28,8 @@ def pytest_configure(config):
         "slow: long-running test — deselect with -m 'not slow' for the "
         "smoke subset (full suite stays the CI gate)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's hand-written "
+        "kernels); skips where torch sees no GPU",
+    )
