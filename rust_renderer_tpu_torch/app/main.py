@@ -1,13 +1,13 @@
 """Application: scene setup and the frame loop (rebuild of prototype/src/main.rs).
 
 Owns the Renderer + Graph + Camera + settings on one device, rebuilds the
-render graph every frame (main.rs:487-517) and keeps the progressive-
-accumulation protocol: total_samples grows by samples_per_frame each frame
-and `reset_accumulation` starts it over (main.rs:400-469). Frames render
-offscreen; `run` returns the last presented image as numpy.
+render graph of the active mode every frame (main.rs:487-517) and keeps the
+progressive-accumulation protocol: total_samples grows by samples_per_frame
+each frame and `reset_accumulation` starts it over (main.rs:400-469).
+Frames render offscreen; `run` returns the last presented image as numpy.
 
 Usage:
-    app = Application(512, 512, device="cuda")
+    app = Application(512, 512, RenderGraphMode.RASTERIZED, device="cuda")
     app.create_scene()
     img = app.run(num_frames=16)
 """
@@ -22,7 +22,13 @@ from rust_renderer_tpu_torch.graph import Graph
 from rust_renderer_tpu_torch.models import create_scene
 from rust_renderer_tpu_torch.ops import bvh as bvh_ops
 from rust_renderer_tpu_torch.renderer import Renderer
-from rust_renderer_tpu_torch.renderers import build_path_tracing_render_graph
+from rust_renderer_tpu_torch.ops.ibl import compute_environment
+from rust_renderer_tpu_torch.renderers import (
+    build_hybrid_render_graph,
+    build_minimal_forward_render_graph,
+    build_path_tracing_render_graph,
+    build_render_graph,
+)
 from rust_renderer_tpu_torch.settings import RenderGraphMode, RenderSettings, StaticConfig
 from rust_renderer_tpu_torch.utils import FpsTimer
 
@@ -48,8 +54,6 @@ class Application:
         cfg: StaticConfig | None = None,
         device="cpu",
     ):
-        if mode != RenderGraphMode.PATH_TRACED:
-            raise NotImplementedError(f"{mode}: only PATH_TRACED is ported")
         self.device = init_device(device)
         self.cfg = (cfg or StaticConfig()).replace(width=width, height=height)
         self.renderer = Renderer()
@@ -104,17 +108,45 @@ class Application:
             np.asarray(self.view.projection) @ np.asarray(self.view.view)
         ).astype(np.float32)
 
+    def _ensure_environment(self) -> None:
+        """Capture the environment (cubemaps, irradiance, LUT) into the
+        graph's persistent resources when a mode reads it and it is stale
+        (the reference's lazily-updated env maps, ibl.rs:63-66)."""
+        mode = self.render_graph_mode
+        needs_env = mode == RenderGraphMode.RASTERIZED or (
+            mode == RenderGraphMode.PATH_TRACED and self.cfg.sky_mode == "cubemap")
+        if needs_env and self.renderer.need_environment_map_update:
+            self.graph.state.update(compute_environment(self.cfg, self.sun_dir, self.device))
+            self.renderer.need_environment_map_update = False
+
     def _build_graph(self) -> None:
+        mode = self.render_graph_mode
         self.graph.new_frame()
         self.graph.clear()
-        build_path_tracing_render_graph(
-            self.graph, self.cfg, self.camera, self.scene_bvh, self.sun_dir,
-            num_lights=self.renderer.get_num_lights(),
-        )
+        if mode == RenderGraphMode.PATH_TRACED:
+            if int(self.view.marching_cubes_enabled):
+                raise NotImplementedError(
+                    "marching_cubes_enabled in PATH_TRACED: the traced isosurface "
+                    "(ops/mc_bvh.py) is not ported")
+            build_path_tracing_render_graph(
+                self.graph, self.cfg, self.camera, self.scene_bvh, self.sun_dir,
+                num_lights=self.renderer.get_num_lights())
+        elif mode == RenderGraphMode.RASTERIZED:
+            build_render_graph(
+                self.graph, self.cfg, self.camera, self.scene_bvh, self.sun_dir,
+                shadows_enabled=bool(int(self.view.shadows_enabled)),
+                marching_cubes_enabled=bool(int(self.view.marching_cubes_enabled)),
+                raytracing_supported=bool(int(self.view.raytracing_supported)))
+        elif mode == RenderGraphMode.MINIMAL:
+            build_minimal_forward_render_graph(
+                self.graph, self.cfg, self.camera, self.scene_bvh, self.sun_dir)
+        else:
+            build_hybrid_render_graph(self.graph)
 
     def render_frame(self) -> dict[str, torch.Tensor]:
         """One full frame; returns the resource dict."""
         self._refresh_view()
+        self._ensure_environment()
         self._build_graph()
         resources = self.graph.render(self.scene, self.view)
         # prev-frame matrix handoff for the next frame's temporal pass.
@@ -127,5 +159,5 @@ class Application:
         (H, W, 3) as numpy."""
         last = None
         for _ in range(num_frames):
-            last = self.render_frame()["present_output"]
+            last = self.render_frame().get("present_output")
         return None if last is None else last.cpu().numpy()

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from rust_renderer_tpu_torch.ops.bvh import BVH
+from rust_renderer_tpu_torch.ops.raster import VisibilityBuffer
 from rust_renderer_tpu_torch.renderer import PackedScene
 from rust_renderer_tpu_torch.settings import RenderSettings, to_tensor
 
@@ -59,3 +60,28 @@ def view_from_numpy(fields: Mapping, device) -> RenderSettings:
         for f in dataclasses.fields(RenderSettings)
         if f.name in fields
     })
+
+
+def shadow_cascades_from_numpy(matrices, splits, device):
+    """Cascade view-projections (C, 4, 4) and split depths (C,) as float32
+    tensors on `device`."""
+    return (_tensor(np.asarray(matrices, np.float32), device),
+            _tensor(np.asarray(splits, np.float32), device))
+
+
+def environment_from_numpy(resources: Mapping, device) -> dict[str, torch.Tensor]:
+    """The captured environment (env_cubemap_mip*, specular_map_mip*,
+    irradiance_map, brdf_lut) as float32 tensors on `device`."""
+    return {name: _tensor(np.asarray(value, np.float32), device)
+            for name, value in resources.items()}
+
+
+def visibility_from_numpy(vis, device) -> VisibilityBuffer:
+    """A visibility buffer (depth, tri, bary_u, bary_v) on `device`, the
+    `init` of a LOAD-op rasterization."""
+    depth, tri, bary_u, bary_v = (np.asarray(x) for x in vis)
+    return VisibilityBuffer(
+        depth=_tensor(depth.astype(np.float32), device),
+        tri=_tensor(tri.astype(np.int32), device),
+        bary_u=_tensor(bary_u.astype(np.float32), device),
+        bary_v=_tensor(bary_v.astype(np.float32), device))

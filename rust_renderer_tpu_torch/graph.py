@@ -1,7 +1,7 @@
 """Frame graph: passes as functions over named resources.
 
-The port of the subset of ``rust_renderer_tpu/graph.py`` that the path-traced
-graph needs (the reference's utopian/src/graph.rs + pass.rs). The graph is
+The port of the subset of ``rust_renderer_tpu/graph.py`` that the port's
+graphs need (the reference's utopian/src/graph.rs + pass.rs). The graph is
 recorded every frame (`new_frame`, `clear`, `add_pass(...)...build()`) over
 resources cached by name; `render` runs the passes in order.
 

@@ -12,3 +12,8 @@ def linear_to_srgb(linear: torch.Tensor) -> torch.Tensor:
         linear * 12.92,
         1.055 * torch.pow(torch.clamp_min(linear, 1e-12), 1.0 / 2.4) - 0.055,
     )
+
+
+def luminance(rgb: torch.Tensor) -> torch.Tensor:
+    """BT.709 luminance (view.glsl:47-51). rgb: (..., 3) -> (...)."""
+    return rgb[..., 0] * 0.2126 + rgb[..., 1] * 0.7152 + rgb[..., 2] * 0.0722

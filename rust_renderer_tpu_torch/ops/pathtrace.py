@@ -106,12 +106,15 @@ def _nee(scene, view, any_hit, rng_state, origin, throughput, active,
 
 def path_trace(scene, view, cfg, accumulation: torch.Tensor,
                reservoirs: restirops.Reservoir | None,
-               closest_hit: Callable, any_hit: Callable) -> PathTraceResult:
+               closest_hit: Callable, any_hit: Callable,
+               sky_fn: Callable | None = None) -> PathTraceResult:
     """One frame of the reference path tracer over the full image.
 
     accumulation: (H, W, 3) f32 linear accumulation of the previous frames.
     reservoirs: spatial-reuse output for reservoir NEE (None = uniform only).
     closest_hit / any_hit: the scene's hit queries (ops/bvh.py).
+    sky_fn(origin, unit direction, view): the miss radiance; None
+    integrates the atmosphere per miss ray.
     """
     height, width = accumulation.shape[:2]
     dev = accumulation.device
@@ -140,9 +143,13 @@ def path_trace(scene, view, cfg, accumulation: torch.Tensor,
             hit = closest_hit(scene, origin, direction)
             missed = ~hit.is_hit
 
-            # Miss shader (reference.rmiss): the atmosphere sky, clamped.
-            sky = atmosphere.sky_radiance(origin, rayops.normalize(direction),
-                                          sun_dir, view.sky_enabled)
+            # Miss shader (reference.rmiss): the atmosphere sky, clamped,
+            # or the captured environment.
+            if sky_fn is not None:
+                sky = sky_fn(origin, rayops.normalize(direction), view)
+            else:
+                sky = atmosphere.sky_radiance(origin, rayops.normalize(direction),
+                                              sun_dir, view.sky_enabled)
 
             surf = intersect.surface_at_hit(scene, hit, origin, direction)
             rng_state, sc = materials.scatter(scene, surf.material, direction,

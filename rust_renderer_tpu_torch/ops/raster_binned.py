@@ -1,0 +1,378 @@
+"""Tile-binned rasterization: kernels K4 (depth) and K5 (visibility buffer),
+and the plain PyTorch version of each (the port of
+``rust_renderer_tpu/ops/raster_binned.py``).
+
+1. `tri_rows`: clip and screen-transform the triangles and precompute per
+   triangle three edge functions E_i(x, y) = A_i·x + B_i·y + C_i,
+   sign-normalized so that inside means all E >= 0 for both windings (cull
+   mode NONE), and the vertex depths. Invalid triangles become dead rows
+   (zero gradients, C = -1: never inside).
+2. `bin_triangles`: bin triangles to 32x256-pixel tiles by screen bounding
+   box. A triangle spanning at most SPAN_X x SPAN_Y tiles emits one
+   (tile, triangle) pair per tile it touches; a wider one goes to a global
+   list that every tile walks. Pairs are sorted by tile with a stable sort,
+   so each tile's segment lists its triangles by (span slot, triangle id).
+   The table a kernel reads is [segments | globals], rows contiguous:
+   (R, 16) f32 for depth, (R, 24) f32 for the visibility buffer.
+3. A tile walks the global list in triangle-id order, then its own segment.
+   K4 keeps the running minimum depth from a clear of 1.0; K5 keeps
+   (depth, triangle, u, v) and takes a triangle where it is inside, z <=
+   depth and z <= 1, so on equal depth the later triangle of the walk wins.
+
+`rasterize_depth_binned` / `rasterize_binned` launch K4 / K5 on CUDA
+tensors and take the plain versions on CPU tensors; any other device
+raises. `K4_LAUNCHES` and `K5_LAUNCHES` count kernel launches; nothing else
+changes them.
+
+The plain versions compute the same function over the same table without
+tiles' pixel blocks: every table row is tested only on the pixels of its
+triangle's bounding box widened by one pixel (and, for a segment row, inside
+its tile), and the tile's fold becomes a reduction over pixels: K4's minimum
+is exact in any order, and K5's in-order last-wins walk is the least
+(z, later walk position) key.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+from typing import NamedTuple
+
+import torch
+
+from rust_renderer_tpu_torch import native
+from rust_renderer_tpu_torch.ops.raster import (
+    INT64_MAX, VisibilityBuffer, clear_visibility, clip_to_screen,
+    clip_triangles_near, float_order_key, merge_visibility, pixel_box, pixel_pairs)
+from rust_renderer_tpu_torch.ops.traversal import _check, k1_build_command
+
+TILE_H = 32
+TILE_W = 256
+SPAN_X = 2  # tiles a triangle may span horizontally before going global
+SPAN_Y = 4
+DEPTH_STRIDE = 16  # f32 per depth row
+VIS_STRIDE = 24  # f32 per visibility row
+# Launch limits of raster_binned.cu: grid.y is at most 65535 tiles.
+MAX_TILES_Y = 65535
+_PAIR_BUDGET = 1 << 24
+
+SOURCE = os.path.join(native.PACKAGE_DIR, "csrc", "raster_binned.cu")
+
+K4_LAUNCHES = 0
+K5_LAUNCHES = 0
+
+
+class TriRows(NamedTuple):
+    rows: torch.Tensor  # (2T, 16 or 24) f32
+    tx0: torch.Tensor  # (2T,) i64 first tile column
+    ty0: torch.Tensor  # (2T,) i64 first tile row
+    span_w: torch.Tensor  # (2T,) tiles spanned horizontally
+    span_h: torch.Tensor
+    valid: torch.Tensor  # (2T,) bool: covers area and lies on screen
+    is_global: torch.Tensor  # (2T,) bool
+    box: tuple  # pixel bounding box (x0, x1, y0, y1), each (2T,) i64
+
+
+class Bins(NamedTuple):
+    """What K4 / K5 read, plus what the plain versions use to skip pixels."""
+
+    table: torch.Tensor  # (R, stride) f32: [segments | globals]
+    starts: torch.Tensor  # (ny*nx,) i32 first segment row of each tile
+    counts: torch.Tensor  # (ny*nx,) i32
+    g_base: int  # first global row
+    g_count: int
+    nx: int
+    ny: int
+    row_tile: torch.Tensor  # (R,) i64 tile of a segment row, -1 for globals
+    row_box: tuple  # pixel bounding box of each row's triangle, (R,) i64 x4
+
+
+def tri_rows(clip, indices, width: int, height: int, vis: bool = False) -> TriRows:
+    """Per-triangle rows and tile boxes (raster_binned.py:54-139).
+
+    Depth rows: [A0,B0,C0, A1,B1,C1, A2,B2,C2, z0,z1,z2, inv_abs_area, 0,0,0].
+    Visibility rows add [iw0,iw1,iw2, b0u,b0v,b1u,b1v,b2u,b2v, orig_id, 0]
+    after inv_abs_area, for perspective-correct original-triangle
+    barycentrics."""
+    tri_pos, tri_bary, tri_orig = clip_triangles_near(clip, indices)
+    t2 = tri_pos.shape[0]
+    screen, w = clip_to_screen(tri_pos.reshape(-1, 4), width, height)
+    s = screen.reshape(t2, 3, 3)
+    wv = w.reshape(t2, 3)
+    x0, y0, z0 = s[:, 0, 0], s[:, 0, 1], s[:, 0, 2]
+    x1, y1, z1 = s[:, 1, 0], s[:, 1, 1], s[:, 1, 2]
+    x2, y2, z2 = s[:, 2, 0], s[:, 2, 1], s[:, 2, 2]
+
+    area = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+    valid = (wv > 1e-6).all(-1) & (area.abs() > 1e-12)
+    sgn = torch.sign(area)
+    inv_area = torch.where(valid, 1.0 / torch.where(area.abs() < 1e-12, 1.0, area), 0.0)
+
+    def edge(xa, ya, xb, yb):
+        # E(x,y) = (xb-xa)(y-ya) - (yb-ya)(x-xa), sign-normalized.
+        return (-(yb - ya) * sgn, (xb - xa) * sgn,
+                ((yb - ya) * xa - (xb - xa) * ya) * sgn)
+
+    a0, b0, c0 = edge(x0, y0, x1, y1)
+    a1, b1, c1 = edge(x1, y1, x2, y2)
+    a2, b2, c2 = edge(x2, y2, x0, y0)
+    zeros = torch.zeros_like(x0)
+    cols = [a0, b0, c0, a1, b1, c1, a2, b2, c2, z0, z1, z2, inv_area.abs()]
+    if vis:
+        iw = 1.0 / torch.clamp_min(wv, 1e-9)
+        cols += [iw[:, 0], iw[:, 1], iw[:, 2],
+                 tri_bary[:, 0, 0], tri_bary[:, 0, 1], tri_bary[:, 1, 0],
+                 tri_bary[:, 1, 1], tri_bary[:, 2, 0], tri_bary[:, 2, 1],
+                 tri_orig.to(torch.float32), zeros]
+    else:
+        cols += [zeros, zeros, zeros]
+    rows = torch.stack(cols, dim=-1)
+    rows = torch.where(valid[:, None], rows, dead_row(rows.shape[1], rows.device))
+
+    xs, ys = s[..., 0], s[..., 1]
+    xmin, xmax = xs.amin(-1), xs.amax(-1)
+    ymin, ymax = ys.amin(-1), ys.amax(-1)
+    on_screen = (xmax >= 0) & (xmin < width) & (ymax >= 0) & (ymin < height)
+    valid = valid & on_screen
+    nx, ny = -(-width // TILE_W), -(-height // TILE_H)
+
+    def tile(v, size, n):
+        # floor, then clip: NaN corners belong to invalid rows only.
+        v = torch.nan_to_num(v, nan=0.0).clamp(-1e9, 1e9)
+        return torch.floor(v / size).to(torch.int64).clamp(0, n - 1)
+
+    tx0, tx1 = tile(xmin, TILE_W, nx), tile(xmax, TILE_W, nx)
+    ty0, ty1 = tile(ymin, TILE_H, ny), tile(ymax, TILE_H, ny)
+    span_w = tx1 - tx0 + 1
+    span_h = ty1 - ty0 + 1
+    is_global = valid & ((span_w > SPAN_X) | (span_h > SPAN_Y))
+    box = pixel_box(xs, ys, valid, width, height)
+    return TriRows(rows, tx0, ty0, span_w, span_h, valid, is_global, box)
+
+
+def dead_row(stride: int, device) -> torch.Tensor:
+    """A row that is never inside: zero gradients, C = -1."""
+    row = torch.zeros(stride, dtype=torch.float32, device=device)
+    row[2] = row[5] = row[8] = -1.0
+    if stride == VIS_STRIDE:
+        row[22] = -1.0
+    return row
+
+
+def bin_triangles(tr: TriRows, width: int, height: int) -> Bins:
+    """(tile, triangle) pairs sorted by tile, per-tile segments and the
+    global list (raster_binned.py:159-227, without the TPU's row packing).
+    Nothing is dropped: segments and the global list have no capacity."""
+    dev = tr.rows.device
+    nx, ny = -(-width // TILE_W), -(-height // TILE_H)
+    n_tiles = nx * ny
+    binned = tr.valid & ~tr.is_global
+    tiles, tris = [], []
+    for s in range(SPAN_X * SPAN_Y):
+        dy, dx = divmod(s, SPAN_X)
+        take = torch.nonzero(binned & (dy < tr.span_h) & (dx < tr.span_w)).squeeze(1)
+        tiles.append((tr.ty0[take] + dy) * nx + (tr.tx0[take] + dx))
+        tris.append(take)
+    tile_ids, order = torch.sort(torch.cat(tiles), stable=True)
+    tri_sorted = torch.cat(tris)[order]
+    grid = torch.arange(n_tiles, dtype=torch.int64, device=dev)
+    starts = torch.searchsorted(tile_ids, grid, right=False)
+    counts = torch.searchsorted(tile_ids, grid, right=True) - starts
+    glob = torch.nonzero(tr.is_global).squeeze(1)  # triangle-id order
+    row_tri = torch.cat([tri_sorted, glob])
+    if row_tri.numel() >= 2 ** 31:
+        raise ValueError(f"{row_tri.numel()} binned rows exceed int32 row offsets")
+    return Bins(
+        table=tr.rows[row_tri].contiguous(),
+        starts=starts.to(torch.int32), counts=counts.to(torch.int32),
+        g_base=int(tri_sorted.numel()), g_count=int(glob.numel()), nx=nx, ny=ny,
+        row_tile=torch.cat([tile_ids, torch.full_like(glob, -1)]),
+        row_box=tuple(b[row_tri] for b in tr.box),
+    )
+
+
+# -- the kernels ---------------------------------------------------------------
+
+
+def library() -> ctypes.CDLL:
+    """Build (at first use) and bind K4 and K5."""
+    lib = native.load_library("k45_raster_binned", [SOURCE], k1_build_command())
+    for fn, n_out in ((lib.k4_depth_binned, 1), (lib.k5_vis_binned, 4)):
+        if fn.argtypes is None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                           + [ctypes.c_void_p] * (n_out + 1))
+    return lib
+
+
+def _launch_args(bins: Bins, width: int, height: int):
+    """The C arguments of a K4 / K5 launch; raises on what the kernels do
+    not take (nothing is truncated)."""
+    if bins.nx != -(-width // TILE_W) or bins.ny != -(-height // TILE_H):
+        raise ValueError("bins were made for another image size")
+    if bins.ny > MAX_TILES_Y:
+        raise ValueError(f"{bins.ny} tile rows exceed the grid limit {MAX_TILES_Y}")
+    if width * height >= 2 ** 31 or bins.table.shape[0] >= 2 ** 31:
+        raise ValueError("image or table too large for int32 offsets")
+    dev = bins.table.device
+    if dev.type != "cuda":
+        raise ValueError(f"K4/K5 run on CUDA tensors, got {dev}")
+    n_tiles = bins.nx * bins.ny
+    _check("table", bins.table, torch.float32, (bins.table.shape[0], bins.table.shape[1]), dev)
+    _check("starts", bins.starts, torch.int32, (n_tiles,), dev)
+    _check("counts", bins.counts, torch.int32, (n_tiles,), dev)
+    return (bins.table.data_ptr(), bins.starts.data_ptr(), bins.counts.data_ptr(),
+            bins.g_base, bins.g_count, bins.nx, bins.ny, width, height)
+
+
+def depth_binned_cuda(bins: Bins, width: int, height: int) -> torch.Tensor:
+    """Launch K4; returns the (height, width) depth."""
+    global K4_LAUNCHES
+    if bins.table.shape[1] != DEPTH_STRIDE:
+        raise ValueError(f"K4 reads rows of {DEPTH_STRIDE} floats")
+    args = _launch_args(bins, width, height)
+    dev = bins.table.device
+    out = torch.empty((height, width), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = library().k4_depth_binned(*args, out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"K4 launch failed: cudaError {err}")
+    K4_LAUNCHES += 1
+    return out
+
+
+def vis_binned_cuda(bins: Bins, width: int, height: int) -> VisibilityBuffer:
+    """Launch K5; returns the visibility buffer before any `init` merge."""
+    global K5_LAUNCHES
+    if bins.table.shape[1] != VIS_STRIDE:
+        raise ValueError(f"K5 reads rows of {VIS_STRIDE} floats")
+    args = _launch_args(bins, width, height)
+    dev = bins.table.device
+    out = VisibilityBuffer(
+        depth=torch.empty((height, width), dtype=torch.float32, device=dev),
+        tri=torch.empty((height, width), dtype=torch.int32, device=dev),
+        bary_u=torch.empty((height, width), dtype=torch.float32, device=dev),
+        bary_v=torch.empty((height, width), dtype=torch.float32, device=dev))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = library().k5_vis_binned(*args, *(x.data_ptr() for x in out), stream)
+    if err != 0:
+        raise RuntimeError(f"K5 launch failed: cudaError {err}")
+    K5_LAUNCHES += 1
+    return out
+
+
+# -- the plain versions -------------------------------------------------------
+
+
+def _row_pixel_pairs(bins: Bins, width: int, height: int):
+    """(table row, px, py) for every pixel a row can cover: its triangle's
+    box, and for a segment row only inside the row's tile."""
+    x0, x1, y0, y1 = bins.row_box
+    seg = bins.row_tile >= 0
+    tx, ty = bins.row_tile % bins.nx, bins.row_tile // bins.nx
+    x0 = torch.where(seg, torch.maximum(x0, tx * TILE_W), x0)
+    x1 = torch.where(seg, torch.minimum(x1, tx * TILE_W + TILE_W - 1), x1)
+    y0 = torch.where(seg, torch.maximum(y0, ty * TILE_H), y0)
+    y1 = torch.where(seg, torch.minimum(y1, ty * TILE_H + TILE_H - 1), y1)
+    return pixel_pairs(x0, x1, y0, y1, _PAIR_BUDGET)
+
+
+def _edges(q, px, py):
+    """Edge functions of rows q (N, stride) at pixel centers, in the
+    kernels' operation order: (A·x + B·y) + C."""
+    xs, ys = px.to(torch.float32) + 0.5, py.to(torch.float32) + 0.5
+    e0 = q[:, 0] * xs + q[:, 1] * ys + q[:, 2]
+    e1 = q[:, 3] * xs + q[:, 4] * ys + q[:, 5]
+    e2 = q[:, 6] * xs + q[:, 7] * ys + q[:, 8]
+    return e0, e1, e2, (e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0)
+
+
+def depth_binned_plain(bins: Bins, width: int, height: int) -> torch.Tensor:
+    """K4's function in tensor ops: per pixel min(1, least inside z)."""
+    out = torch.ones(height * width, dtype=torch.float32, device=bins.table.device)
+    for row, px, py in _row_pixel_pairs(bins, width, height):
+        q = bins.table[row]
+        e0, e1, e2, inside = _edges(q, px, py)
+        z = (e1 * q[:, 9] + e2 * q[:, 10] + e0 * q[:, 11]) * q[:, 12]
+        out.scatter_reduce_(0, py * width + px, torch.where(inside, z, 3.0e38), "amin")
+    return out.reshape(height, width)
+
+
+def _vis_terms(q, px, py):
+    e0, e1, e2, inside = _edges(q, px, py)
+    ia = q[:, 12]
+    l0, l1, l2 = e1 * ia, e2 * ia, e0 * ia
+    z = l0 * q[:, 9] + l1 * q[:, 10] + l2 * q[:, 11]
+    return l0, l1, l2, z, inside
+
+
+def vis_binned_plain(bins: Bins, width: int, height: int) -> VisibilityBuffer:
+    """K5's function in tensor ops: per pixel the triangle of least z <= 1,
+    the latest of the walk on a tie, with its perspective-correct
+    original-triangle barycentrics."""
+    dev = bins.table.device
+    g = bins.g_count
+    key = torch.full((height * width,), INT64_MAX, dtype=torch.int64, device=dev)
+    starts = bins.starts.to(torch.int64)
+    for row, px, py in _row_pixel_pairs(bins, width, height):
+        q = bins.table[row]
+        _, _, _, z, inside = _vis_terms(q, px, py)
+        tile = bins.row_tile[row]
+        pos = torch.where(tile >= 0, g + row - starts[tile.clamp_min(0)], row - bins.g_base)
+        k = (float_order_key(z) << 32) | (0x7FFFFFFF - pos)
+        key.scatter_reduce_(0, py * width + px,
+                            torch.where(inside & (z <= 1.0), k, INT64_MAX), "amin")
+
+    pix = torch.nonzero(key != INT64_MAX).squeeze(1)
+    pos = 0x7FFFFFFF - (key[pix] & 0xFFFFFFFF)
+    py, px = pix // width, pix % width
+    tile = (py // TILE_H) * bins.nx + px // TILE_W
+    row = torch.where(pos < g, bins.g_base + pos, starts[tile] + pos - g)
+    q = bins.table[row]
+    l0, l1, l2, z, _ = _vis_terms(q, px, py)
+    lw0, lw1, lw2 = l0 * q[:, 13], l1 * q[:, 14], l2 * q[:, 15]
+    denom = lw0 + lw1 + lw2
+    rden = 1.0 / torch.where(denom.abs() < 1e-12, 1.0, denom)
+    u = (lw0 * q[:, 16] + lw1 * q[:, 18] + lw2 * q[:, 20]) * rden
+    v = (lw0 * q[:, 17] + lw1 * q[:, 19] + lw2 * q[:, 21]) * rden
+
+    out = clear_visibility(height, width, dev)
+    for plane, values in zip(out, (z, q[:, 22].to(torch.int32), u, v)):
+        plane.view(-1)[pix] = values
+    return out
+
+
+# -- drop-ins for ops/raster.py -----------------------------------------------
+
+
+def rasterize_depth_binned(clip, indices, width: int, height: int) -> torch.Tensor:
+    """Depth-only binned rasterization (raster_binned.py:504-527): min z,
+    clear 1.0, both windings, near-clipped. K4 on CUDA tensors, the plain
+    version on CPU tensors."""
+    dev = clip.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no rasterizer for device {dev}")
+    if indices.shape[0] == 0:
+        return torch.ones((height, width), dtype=torch.float32, device=dev)
+    bins = bin_triangles(tri_rows(clip, indices, width, height), width, height)
+    if dev.type == "cuda":
+        return depth_binned_cuda(bins, width, height)
+    return depth_binned_plain(bins, width, height)
+
+
+def rasterize_binned(clip, indices, width: int, height: int,
+                     init: VisibilityBuffer | None = None) -> VisibilityBuffer:
+    """Visibility-buffer binned rasterization (raster_binned.py:414-466);
+    `init` is a previous buffer to depth-test against (the LOAD op). K5 on
+    CUDA tensors, the plain version on CPU tensors."""
+    dev = clip.device
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no rasterizer for device {dev}")
+    if indices.shape[0] == 0:
+        return init if init is not None else clear_visibility(height, width, dev)
+    bins = bin_triangles(tri_rows(clip, indices, width, height, vis=True), width, height)
+    if dev.type == "cuda":
+        vis = vis_binned_cuda(bins, width, height)
+    else:
+        vis = vis_binned_plain(bins, width, height)
+    return vis if init is None else merge_visibility(vis, init)

@@ -1,0 +1,109 @@
+"""Screen-space ambient occlusion, in the shift-stencil form the SSAO pass
+uses (the port of ``rust_renderer_tpu/ops/ssao.py::ssao_stencil``).
+
+ssao.frag's 32-sample hemisphere kernel, oriented by a TBN about the
+view-space normal, with the smoothstep range check and strength 1.6; the
+sky (position cleared to (1,1,1)) is unoccluded. Each sample's projected
+tap is snapped to the nearest of 8 directions x 6 log2-spaced rings of
+static pixel offsets (edge-clamped), exactly as the JAX package's stencil
+form does: the raster goldens of the reference are blessed against it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from rust_renderer_tpu_torch.ops.rays import cross, dot
+
+KERNEL_SIZE = 32
+STRENGTH = 1.6
+_DIRS = 8
+_RINGS = (1, 2, 4, 8, 16, 32)
+
+
+def _make_kernel(n: int = KERNEL_SIZE, seed: int = 17) -> np.ndarray:
+    """Hemisphere (z >= 0) samples biased toward the center (the classic
+    LearnOpenGL kernel the reference generated its constants from)."""
+    rng = np.random.default_rng(seed)
+    v = rng.uniform([-1, -1, 0], [1, 1, 1], (n, 3))
+    v /= np.linalg.norm(v, axis=-1, keepdims=True)
+    v *= rng.uniform(0, 1, (n, 1))
+    scale = 0.1 + 0.9 * (np.arange(n) / n) ** 2
+    return (v * scale[:, None]).astype(np.float32)
+
+
+_KERNEL = _make_kernel()
+
+
+def shifted(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
+    """img[y + dy, x + dx] with coordinates clamped to the image."""
+    h, w = img.shape[:2]
+    rows = (torch.arange(h, device=img.device) + dy).clamp(0, h - 1)
+    cols = (torch.arange(w, device=img.device) + dx).clamp(0, w - 1)
+    return img[rows][:, cols]
+
+
+def _to_ndc_xy(p, projection):
+    clip = p @ projection[:2, :3].T + projection[:2, 3]
+    cw = p @ projection[3, :3] + projection[3, 3]
+    return clip / torch.clamp_min(cw.abs(), 1e-9)[..., None] * torch.sign(cw)[..., None]
+
+
+def ssao_stencil(gbuffer_position, gbuffer_normal, view_matrix, projection,
+                 radius: float, bias: float) -> torch.Tensor:
+    """(H, W) occlusion in [0, 1] (1 = unoccluded)."""
+    h, w = gbuffer_position.shape[:2]
+    pos_world = gbuffer_position[..., :3]
+    is_sky = (pos_world == 1.0).all(-1)
+    pos_view = pos_world @ view_matrix[:3, :3].T + view_matrix[:3, 3]
+    normal_matrix = torch.linalg.inv(view_matrix).T
+    normal_view = gbuffer_normal[..., :3] @ normal_matrix[:3, :3].T
+    normal_view = normal_view / torch.clamp_min(
+        torch.linalg.vector_norm(normal_view, dim=-1, keepdim=True), 1e-9)
+    random_vec = pos_world.new_tensor([1.0, 1.0, 0.0])
+    t = random_vec - normal_view * dot(random_vec, normal_view)[..., None]
+    t = t / torch.clamp_min(torch.linalg.vector_norm(t, dim=-1, keepdim=True), 1e-9)
+    b = cross(t, normal_view)
+    vz = pos_world @ view_matrix[2, :3] + view_matrix[2, 3]
+
+    # The view depth shifted by every static offset: plane d * RINGS + r is
+    # ring r along direction d (screen x right, y down).
+    planes = []
+    for d in range(_DIRS):
+        ang = 2.0 * np.pi * d / _DIRS
+        ux, uy = np.cos(ang), np.sin(ang)
+        for r in _RINGS:
+            planes.append(shifted(vz, int(round(uy * r)), int(round(ux * r))))
+    planes = torch.stack(planes)
+    ndc_c = _to_ndc_xy(pos_view, projection)
+
+    n_rings = len(_RINGS)
+    log_r0 = float(np.log2(_RINGS[0]))
+    occlusion = torch.zeros((h, w), dtype=torch.float32, device=pos_world.device)
+    for i in range(KERNEL_SIZE):
+        k = _KERNEL[i]
+        sample_view = (t * float(k[0]) + b * float(k[1]) + normal_view * float(k[2])) \
+            * radius + pos_view
+        ndc = _to_ndc_xy(sample_view, projection)
+        # Pixel offset from the pixel's own tap (screen y runs opposite to
+        # ndc y), snapped to the nearest sector and log2 ring.
+        fx = (ndc[..., 0] - ndc_c[..., 0]) * (0.5 * w)
+        fy = (ndc_c[..., 1] - ndc[..., 1]) * (0.5 * h)
+        ang = torch.atan2(fy, fx)
+        sector = torch.remainder(torch.round(ang * (_DIRS / (2.0 * np.pi))).to(torch.int64),
+                                 _DIRS)
+        rad = torch.sqrt(fx * fx + fy * fy)
+        ring = torch.clamp(torch.round(torch.log2(torch.clamp_min(rad, 1e-6)) - log_r0)
+                           .to(torch.int64), 0, n_rings - 1)
+        # A tap within half the innermost ring would read the pixel itself:
+        # it counts as unoccluded.
+        tiny = rad < 0.5 * _RINGS[0]
+        sample_depth = planes.gather(0, (sector * n_rings + ring)[None])[0]
+        denom = torch.clamp_min((pos_view[..., 2] - sample_depth).abs(), 1e-9)
+        range_check = torch.clamp(radius / denom, 0.0, 1.0)
+        range_check = range_check * range_check * (3.0 - 2.0 * range_check)
+        occluded = (sample_depth >= sample_view[..., 2] + bias) & ~tiny
+        occlusion = occlusion + occluded.to(torch.float32) * range_check
+    result = 1.0 - (occlusion / KERNEL_SIZE) * STRENGTH
+    return torch.where(is_sky, 1.0, result)

@@ -142,6 +142,9 @@ class Renderer:
         self.spheres: list[dict] = []
         self._mesh_instance: list[tuple[int, int]] = []  # gpu_mesh -> (instance, mesh i)
         self._mc_material_index: int | None = None
+        # The captured environment (ops/ibl.py) is recomputed lazily when
+        # set (ibl.rs:63-66).
+        self.need_environment_map_update = True
 
         # Default textures get bindless indices 0..2 (renderer.rs:202-220).
         defaults = _default_textures()
@@ -193,6 +196,7 @@ class Renderer:
 
         self.instances.append(
             ModelInstance(model=model, transform=np.asarray(transform, np.float32)))
+        self.need_environment_map_update = True
         return instance_index
 
     def add_light(self, position, color, range_: float = 1.0) -> int:

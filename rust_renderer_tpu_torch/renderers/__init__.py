@@ -1,9 +1,15 @@
-"""Render-graph construction (rebuild of utopian/src/renderers/mod.rs): the
-path-traced graph.
+"""Render-graph construction (rebuild of utopian/src/renderers/mod.rs).
 
-PATH_TRACED: gbuffer -> reset_reservoirs -> initial_ris -> temporal_reuse ->
-spatial_reuse -> reference_pt -> present blit (mod.rs:189-375). The builder
-runs every frame over the graph's cached resources.
+- PATH_TRACED: gbuffer -> reset_reservoirs -> initial_ris -> temporal_reuse
+  -> spatial_reuse -> reference_pt -> present blit (mod.rs:189-375).
+- RASTERIZED: shadow -> gbuffer -> rt_shadows -> rt_reflections -> ssao ->
+  deferred -> [marching_cubes] -> atmosphere -> present (mod.rs:61-187).
+- HYBRID: an empty graph, like the reference (mod.rs:377-391).
+- MINIMAL: shadow -> forward -> present (mod.rs:393-433).
+
+The builders run every frame over the graph's cached resources. The
+captured environment (cubemaps, irradiance, LUT) is a persistent resource
+that `Application._ensure_environment` fills when it is stale.
 """
 
 from __future__ import annotations
@@ -15,9 +21,71 @@ from rust_renderer_tpu_torch.ops import bvh as bvh_ops
 from rust_renderer_tpu_torch.ops import pathtrace as pathtrace_ops
 from rust_renderer_tpu_torch.ops import restir as restir_ops
 from rust_renderer_tpu_torch.ops import rng as rngmod
-from rust_renderer_tpu_torch.renderers.passes import setup_gbuffer_pass
+from rust_renderer_tpu_torch.ops.cubemap import sample_cubemap
+from rust_renderer_tpu_torch.renderers.passes import (
+    declare_env_resources,
+    setup_atmosphere_pass,
+    setup_deferred_pass,
+    setup_forward_pass,
+    setup_gbuffer_pass,
+    setup_marching_cubes_pass,
+    setup_present_pass,
+    setup_rt_reflections_pass,
+    setup_rt_shadows_pass,
+    setup_shadow_pass,
+    setup_ssao_pass,
+)
 
-__all__ = ["build_path_tracing_render_graph"]
+__all__ = [
+    "build_render_graph",
+    "build_path_tracing_render_graph",
+    "build_hybrid_render_graph",
+    "build_minimal_forward_render_graph",
+]
+
+
+def build_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_dir,
+                       shadows_enabled: bool = True, marching_cubes_enabled: bool = False,
+                       raytracing_supported: bool = True) -> None:
+    """The rasterized graph (mod.rs:61-187). Visibility comes from BVH
+    primary rays; the shadow cascades (K4) and the marching-cubes draw (K5)
+    are rasterized. raytracing_supported=False leaves the RT passes out
+    (device.rs:93-103): shading falls back to CSM and IBL-only reflections."""
+    w, h = cfg.width, cfg.height
+    matrices, splits = setup_shadow_pass(graph, camera, sun_dir, shadows_enabled,
+                                         cfg.shadow_map_size, cfg.shadow_cascade_count,
+                                         cfg.raster_method)
+    setup_gbuffer_pass(graph, scene_bvh, w, h)
+    declare_env_resources(graph, cfg)
+    if raytracing_supported:
+        setup_rt_shadows_pass(graph, scene_bvh, w, h)
+        setup_rt_reflections_pass(graph, scene_bvh, cfg, w, h)
+    else:
+        # Read by the deferred pass, masked by view.raytracing_supported == 0.
+        graph.create_texture("rt_shadows", w, h, 1, clear=1.0)
+        graph.create_texture("rt_reflections", w, h, 4, clear=0.0)
+    setup_ssao_pass(graph, w, h)
+    setup_deferred_pass(graph, cfg, w, h, matrices, splits)
+    if marching_cubes_enabled:  # recorded on demand, like mod.rs:164-176
+        setup_marching_cubes_pass(graph, cfg, w, h, target="deferred_output")
+    setup_atmosphere_pass(graph, cfg, w, h, target="deferred_output")
+    setup_present_pass(graph, w, h, source="deferred_output")
+
+
+def build_hybrid_render_graph(graph: Graph, *args, **kwargs) -> None:
+    """Empty, like the reference (mod.rs:377-391)."""
+
+
+def build_minimal_forward_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_dir,
+                                       shadows_enabled: bool = True) -> None:
+    """Minimal forward graph (mod.rs:393-433): shadow -> forward -> present;
+    no atmosphere pass, the sky stays at the clear color."""
+    w, h = cfg.width, cfg.height
+    matrices, splits = setup_shadow_pass(graph, camera, sun_dir, shadows_enabled,
+                                         cfg.shadow_map_size, cfg.shadow_cascade_count,
+                                         cfg.raster_method)
+    setup_forward_pass(graph, cfg, w, h, matrices, splits, scene_bvh)
+    setup_present_pass(graph, w, h, source="forward_output")
 
 _RES_FIELDS = ("Y", "W_sum", "W_X", "M")
 
@@ -60,17 +128,21 @@ def _rng_for(view, h: int, w: int) -> torch.Tensor:
 
 def build_path_tracing_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_dir,
                                     num_lights: int | None = None) -> None:
-    """PT graph with the ReSTIR chain (mod.rs:189-375), exact-sky.
+    """PT graph with the ReSTIR chain (mod.rs:189-375).
 
+    cfg.sky_mode: "exact" integrates the atmosphere per miss ray;
+    "cubemap" samples the captured environment cubemap's mip 0.
     num_lights: the scene's light count when known. With ZERO lights the
     direct-lighting chain (gbuffer + reset/initial-RIS/temporal/spatial)
     selects nothing, so the graph is built without it (the same output).
     """
-    if cfg.sky_mode != "exact":
-        raise NotImplementedError(
-            f"sky_mode={cfg.sky_mode!r}: only the exact atmosphere sky is ported")
+    if cfg.sky_mode not in ("exact", "cubemap"):
+        raise ValueError(f"unknown sky_mode {cfg.sky_mode!r}")
     w, h = cfg.width, cfg.height
     skip_restir = num_lights == 0
+    use_cubemap_sky = cfg.sky_mode == "cubemap"
+    if use_cubemap_sky:
+        declare_env_resources(graph, cfg)
 
     graph.create_texture("accumulation_image", w, h, 3, persistent=True)
     graph.create_texture("pt_output", w, h, 3)
@@ -167,9 +239,16 @@ def build_path_tracing_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_di
     def reference_pt(res, scene, view):
         reservoirs = (None if skip_restir
                       else _read_reservoir(res, "spatial_reuse_reservoirs"))
+        sky_fn = None
+        if use_cubemap_sky:
+            env = res["env_cubemap_mip0"]
+
+            def sky_fn(origin, direction, view):
+                return torch.where(view.sky_enabled == 1, sample_cubemap(env, direction), 0.0)
+
         result = pathtrace_ops.path_trace(
             scene, view, cfg, res["accumulation_image"], reservoirs=reservoirs,
-            closest_hit=closest, any_hit=any_hit)
+            closest_hit=closest, any_hit=any_hit, sky_fn=sky_fn)
         return {
             "pt_output": result.output,
             "accumulation_image": result.accumulation,
@@ -177,6 +256,8 @@ def build_path_tracing_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_di
         }
 
     pb = graph.add_pass("reference_pt").read("accumulation_image")
+    if use_cubemap_sky:
+        pb.read("env_cubemap_mip0")
     if not skip_restir:
         for name in _reservoir_names("spatial_reuse_reservoirs"):
             pb.read(name)

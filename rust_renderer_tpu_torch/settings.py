@@ -54,9 +54,13 @@ class StaticConfig:
     spatial_neighbors: int = 5
     spatial_radius: int = 30
     max_num_lights: int = 1024
-    # "exact" integrates the atmosphere per miss ray (reference.rmiss); the
-    # captured-cubemap sky ("cubemap") is not ported yet.
+    # "exact" integrates the atmosphere per miss ray (reference.rmiss);
+    # "cubemap" samples the captured environment cubemap.
     sky_mode: str = "exact"
+    # Rasterizer of CPU tensors (ops/raster.py): "auto" takes the brute
+    # path as the JAX package does on its CPU, "binned" the plain versions
+    # of K4 / K5. CUDA tensors always launch K4 / K5.
+    raster_method: str = "auto"
     compact_window: int = 64
     compact_window_any: int = 128
     compact_order: str = "morton"

@@ -1,4 +1,4 @@
-"""Kernel K1 on the card, and the guards of its wrapper.
+"""Kernels K1, K4 and K5 on the card, and the guards of their wrappers.
 
 This file imports torch and the port only, never jax, so that it runs on a
 GPU machine without jax (tests/conftest.py imports jax, hence
@@ -9,7 +9,10 @@ GPU machine without jax (tests/conftest.py imports jax, hence
 Tests marked `cuda` skip where torch sees no GPU. On the card, K1 must
 return the plain walk's hits: t to rtol 1e-6, prim equal off exact ties,
 any-hit flags equal; the whole frame must match the CPU's under the
-tolerance of tests/test_torch_slice.py.
+tolerance of tests/test_torch_slice.py. K4 must return its plain version's
+depth bit for bit, and K5 its triangle ids, with depth and barycentrics
+within 1e-5 (both walk one table in one order); the rasterized frames must
+match the CPU's under the tolerance of tests/test_torch_raster_slice.py.
 """
 
 import numpy as np
@@ -18,8 +21,8 @@ import torch
 
 from rust_renderer_tpu_torch.app.main import Application
 from rust_renderer_tpu_torch.ops import bvh as torch_bvh
-from rust_renderer_tpu_torch.ops import traversal
-from rust_renderer_tpu_torch.settings import StaticConfig
+from rust_renderer_tpu_torch.ops import raster_binned, traversal
+from rust_renderer_tpu_torch.settings import RenderGraphMode, StaticConfig
 
 torch.set_num_threads(1)
 
@@ -27,7 +30,7 @@ torch.set_num_threads(1)
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("kernel K1 needs an NVIDIA GPU and nvcc")
+        pytest.skip("kernels K1, K4 and K5 need an NVIDIA GPU and nvcc")
     return torch.device("cuda")
 
 
@@ -105,3 +108,83 @@ def test_pt_frame_on_card_matches_cpu(cuda_device):
         diff = np.abs(img - ref)
         assert (diff.max(axis=-1) <= 1e-3).mean() >= 0.99
         assert diff.mean() <= 1e-3
+
+
+def _raster_bins(device, vis, n=20000, width=1920, height=1080, seed=21):
+    """A soup of small triangles plus one screen-wide triangle (the global
+    list), perspective-projected, binned on `device`."""
+    rng = np.random.default_rng(seed)
+    tris = rng.uniform(-1.3, 1.3, (n, 1, 3)) + rng.normal(0, 0.03, (n, 3, 3))
+    tris = np.concatenate([tris, [[[-9.0, -9.0, 0.4], [9.0, -9.0, 0.4], [0.0, 9.0, 0.4]]]])
+    v = tris.reshape(-1, 3).astype(np.float32)
+    z = v[:, 2] + 3.0
+    clip = np.stack([v[:, 0], v[:, 1] * width / height, 0.55 * z - 0.1, z], -1)
+    clip = torch.tensor(clip, dtype=torch.float32, device=device)
+    idx = torch.arange(3 * (n + 1), dtype=torch.int32, device=device).reshape(-1, 3)
+    rows = raster_binned.tri_rows(clip, idx, width, height, vis=vis)
+    return raster_binned.bin_triangles(rows, width, height), width, height
+
+
+def test_k45_wrappers_refuse_cpu_tensors_and_oversized_grids():
+    bins, w, h = _raster_bins("cpu", vis=False, n=50, width=300, height=70)
+    with pytest.raises(ValueError, match="CUDA"):
+        raster_binned.depth_binned_cuda(bins, w, h)
+    with pytest.raises(ValueError, match="another image size"):
+        raster_binned.depth_binned_cuda(bins, w + 256, h)
+    tall = raster_binned.MAX_TILES_Y + 1
+    with pytest.raises(ValueError, match="grid limit"):
+        raster_binned.depth_binned_cuda(bins._replace(ny=tall), w, tall * 32)
+    vis_bins, _, _ = _raster_bins("cpu", vis=True, n=50, width=300, height=70)
+    with pytest.raises(ValueError, match="rows of 24"):
+        raster_binned.vis_binned_cuda(bins, w, h)
+    with pytest.raises(ValueError, match="CUDA"):
+        raster_binned.vis_binned_cuda(vis_bins, w, h)
+
+
+@pytest.mark.cuda
+def test_k4_matches_plain_on_card(cuda_device):
+    bins, w, h = _raster_bins(cuda_device, vis=False)
+    assert bins.g_count >= 1
+    got = raster_binned.depth_binned_cuda(bins, w, h)
+    want = raster_binned.depth_binned_plain(bins, w, h)
+    assert (want < 1.0).float().mean() > 0.5
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_k5_matches_plain_on_card(cuda_device):
+    bins, w, h = _raster_bins(cuda_device, vis=True)
+    got = raster_binned.vis_binned_cuda(bins, w, h)
+    want = raster_binned.vis_binned_plain(bins, w, h)
+    assert torch.equal(got.tri, want.tri)
+    assert (want.tri >= 0).float().mean() > 0.5
+    for a, b in zip((got.depth, got.bary_u, got.bary_v), (want.depth, want.bary_u, want.bary_v)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["RASTERIZED", "MINIMAL"])
+def test_raster_frames_on_card_match_cpu(cuda_device, mode):
+    size = 64
+    # The CPU frame takes K4's and K5's plain versions: the brute path's
+    # depth rounds differently and flips shadow taps at the bias.
+    cfg = StaticConfig(shadow_map_size=128, cubemap_size=16, cubemap_mips=4,
+                       irradiance_size=8, brdf_lut_size=16, mc_grid=8, raster_method="binned")
+
+    def render(device):
+        app = Application(size, size, getattr(RenderGraphMode, mode), cfg=cfg, device=device)
+        app.fps_timer.elapsed_seconds = lambda: 0.25
+        app.view = app.view.replace(marching_cubes_enabled=np.int32(1))
+        app.create_scene()
+        return app.render_frame()["present_output"].cpu().numpy()
+
+    traversal.K1_LAUNCHES.clear()
+    raster_binned.K4_LAUNCHES = raster_binned.K5_LAUNCHES = 0
+    got = render(cuda_device)
+    raster = mode == "RASTERIZED"
+    assert dict(traversal.K1_LAUNCHES) == (
+        {"closest": 2, "any_hit": 1} if raster else {"closest": 1})
+    assert (raster_binned.K4_LAUNCHES, raster_binned.K5_LAUNCHES) == (4, int(raster))
+    diff = np.abs(got - render("cpu"))
+    assert (diff.max(axis=-1) <= 1e-3).mean() >= 0.99
+    assert diff.mean() <= 1e-3

@@ -4,12 +4,22 @@ from jax.
 
 BVH tables must be bit-identical (same native SAH build, same collapse), and
 so must every packed scene field.
+
+The JAX package's loader (rust_renderer_tpu/native/__init__.py) compiles
+libbvh_builder.so in place and latches any load failure for the life of the
+process, after which its build_bvh silently takes the numpy Morton builder.
+Test workers that start together on a fresh checkout all compile that file
+at once, and one that loads it while another is still writing it fails with
+"file too short". The `jax_sah` fixture clears such a latched failure and
+loads again once the builds have settled, so that the tables are always
+compared against the JAX package's SAH build.
 """
 
 import dataclasses
 import os
 import subprocess
 import sys
+import time
 
 import jax
 import numpy as np
@@ -18,6 +28,7 @@ import torch
 
 from rust_renderer_tpu import Camera as JaxCamera
 from rust_renderer_tpu import Renderer as JaxRenderer
+from rust_renderer_tpu import native as jax_native
 from rust_renderer_tpu.models import create_scene as jax_create_scene
 from rust_renderer_tpu.ops import bvh as jax_bvh
 
@@ -83,6 +94,40 @@ def test_spheres_and_materials_pack_like_jax():
                                       err_msg=f.name)
 
 
+def ensure_jax_native_sah(loader=jax_native, attempts: int = 60, wait: float = 1.0):
+    """Load the JAX package's native SAH builder, clearing a latched load
+    failure and retrying while concurrent builds of the library finish;
+    fail, naming the cause, if it never loads."""
+    for _ in range(attempts):
+        if loader.have_native():
+            return
+        loader._lib_failed = False
+        time.sleep(wait)
+    pytest.fail("the JAX package fell back to its numpy BVH builder: its native "
+                "libbvh_builder.so did not load, so its tables are not the SAH "
+                "tables the port builds")
+
+
+@pytest.fixture(scope="module")
+def jax_sah():
+    ensure_jax_native_sah()
+
+
+@pytest.mark.parametrize("recoverable", [True, False])
+def test_jax_sah_fixture_recovers_a_latched_failure_or_names_it(recoverable, monkeypatch):
+    ensure_jax_native_sah()
+    # The state a worker is left in after loading a half-written library.
+    monkeypatch.setattr(jax_native, "_lib", None)
+    monkeypatch.setattr(jax_native, "_lib_failed", True)
+    if recoverable:
+        ensure_jax_native_sah(attempts=2, wait=0.0)
+        assert jax_native.have_native() and not jax_native._lib_failed
+    else:
+        monkeypatch.setattr(jax_native, "_load", lambda: None)
+        with pytest.raises(pytest.fail.Exception, match="fell back to its numpy"):
+            ensure_jax_native_sah(attempts=2, wait=0.0)
+
+
 def _assert_tables_equal(jax_tree, port: dict):
     for name in ("node_packed", "leaf_packed", "wnode_packed"):
         want = np.asarray(getattr(jax_tree, name))
@@ -96,13 +141,13 @@ def _assert_tables_equal(jax_tree, port: dict):
 
 
 @pytest.mark.parametrize("seed", [0, 3])
-def test_bvh_tables_match_jax_on_soup(seed):
+def test_bvh_tables_match_jax_on_soup(seed, jax_sah):
     pos, idx = _soup(seed=seed)
     _assert_tables_equal(jax_bvh.build_bvh(pos, idx, leaf_size=12),
                          torch_bvh.build_bvh_numpy(pos, idx))
 
 
-def test_bvh_tables_match_jax_on_default_scene(default_scenes):
+def test_bvh_tables_match_jax_on_default_scene(default_scenes, jax_sah):
     jax_scene, port = default_scenes
     jax_tree = jax_bvh.build_bvh(np.asarray(jax_scene.positions),
                                  np.asarray(jax_scene.indices), leaf_size=12)
@@ -162,6 +207,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys; sys.modules['jax'] = None; "
             "import rust_renderer_tpu_torch.app.main; "
             "import rust_renderer_tpu_torch.convert; "
+            "from rust_renderer_tpu_torch.ops import (raster, raster_binned, shadow, brdf, "
+            "cubemap, ibl, pbr, ssao, fxaa, noise, marching_cubes); "
+            "import rust_renderer_tpu_torch.renderers.passes; "
             "assert 'rust_renderer_tpu' not in sys.modules, 'JAX package imported'; "
             "print('ok')")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -1,0 +1,224 @@
+"""The port's rasterizer against the JAX package's: the binning host side,
+the plain versions of kernels K4 (depth) and K5 (visibility buffer), and the
+brute path that CPU tensors take.
+
+Inputs are made with numpy from a seed and given to both packages.
+Tolerances (those of tests/test_raster_binned.py, tighter where the port
+meets them):
+- the binning tables (`starts`, `counts`, the global count) are equal, and
+  the triangle rows agree to 1e-6 (relative, floor 1e-6);
+- depth agrees to 1e-4 where both cover a pixel, and coverage differs on
+  under 0.5% of the pixels (edge-function rounding on boundary pixels);
+- the visibility buffer names the same triangle on at least 98% of the
+  pixels both cover (depth ties may break either way: the JAX package's
+  sort does not promise stability) with barycentrics within 2e-3;
+- the brute path names the same triangle on every pixel, with depth and
+  barycentrics within 1e-5.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from rust_renderer_tpu.ops import raster as jax_raster
+from rust_renderer_tpu.ops import raster_binned as jax_binned
+
+from rust_renderer_tpu_torch.convert import visibility_from_numpy
+from rust_renderer_tpu_torch.ops import raster, raster_binned
+
+torch.set_num_threads(1)
+
+W, H = 768, 64  # 3 x 2 tiles: a screen-wide triangle spans more than SPAN_X
+
+
+def _mesh(n, seed, spread=1.2, size=0.25):
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-spread, spread, (n, 1, 3))
+    tris = centers + rng.normal(0, size, (n, 3, 3))
+    return (tris.reshape(-1, 3).astype(np.float32),
+            np.arange(n * 3, dtype=np.int32).reshape(n, 3))
+
+
+def _clip(verts, persp=True, z_off=3.0):
+    """Perspective (ndc z = 0.55 - 0.1 / z_view) or orthographic (w = 1)."""
+    x, y, z = verts[:, 0], verts[:, 1], verts[:, 2] + z_off
+    if persp:
+        return np.stack([x * 1.5, y * 1.5 * W / H / 2, 0.55 * z - 0.1, z], -1).astype(np.float32)
+    return np.stack([x * 0.6, y * 0.6 * W / H / 2, z * 0.2, np.ones_like(x)], -1).astype(np.float32)
+
+
+def _with_floor(verts, idx):
+    """Adds one triangle that covers the whole screen (the global list)."""
+    floor = np.array([[-50, -50, 0.5], [50, -50, 0.5], [0, 80, 0.5]], np.float32)
+    n = len(verts)
+    return (np.concatenate([verts, floor]),
+            np.concatenate([idx, np.array([[n, n + 1, n + 2]], np.int32)]))
+
+
+CASES = {
+    "persp": lambda: (*_mesh(2000, 3), True),
+    "ortho": lambda: (*_mesh(2000, 4), False),
+    "global": lambda: (*_with_floor(*_mesh(300, 7)), False),
+}
+
+
+def _both(verts, idx, persp):
+    clip = _clip(verts, persp)
+    return (jnp.asarray(clip), jnp.asarray(idx)), (torch.tensor(clip), torch.tensor(idx))
+
+
+@pytest.mark.parametrize("vis", [False, True])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_tri_rows_and_bins_match_jax(case, vis):
+    (jc, ji), (tc, ti) = _both(*CASES[case]())
+    want = jax_binned._tri_rows(jc, ji, W, H, vis=vis)
+    got = raster_binned.tri_rows(tc, ti, W, H, vis=vis)
+    np.testing.assert_allclose(got.rows.numpy(), np.asarray(want[0]), rtol=1e-6, atol=1e-6)
+    for name, a, b in zip(("tx0", "ty0", "span_w", "span_h"), got[1:5], want[1:5]):
+        ok = np.asarray(want[5])
+        np.testing.assert_array_equal(a.numpy()[ok], np.asarray(b)[ok], err_msg=name)
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want[5]))
+    np.testing.assert_array_equal(got.is_global.numpy(), np.asarray(want[6]))
+    nx, ny = -(-W // jax_binned.TILE_W), -(-H // jax_binned.TILE_H)
+    stride = jax_binned.VIS_STRIDE if vis else jax_binned.DEPTH_STRIDE
+    _, starts, counts, _, g_count = jax_binned._bin_pairs(*want, nx, ny, stride)
+    bins = raster_binned.bin_triangles(got, W, H)
+    np.testing.assert_array_equal(bins.starts.numpy(), np.asarray(starts))
+    np.testing.assert_array_equal(bins.counts.numpy(), np.asarray(counts))
+    assert bins.g_count == int(g_count)
+    assert bins.g_count >= (1 if case == "global" else 0)
+    assert bins.table.shape == (int(counts.sum()) + bins.g_count, raster_binned.DEPTH_STRIDE
+                                if not vis else raster_binned.VIS_STRIDE)
+
+
+def _assert_depth_close(got, want):
+    both = (got < 1.0) & (want < 1.0)
+    assert both.mean() > 0.2, "coverage sanity"
+    np.testing.assert_allclose(got[both], want[both], atol=1e-4)
+    assert ((got < 1.0) != (want < 1.0)).mean() < 0.005
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_depth_plain_matches_jax_binned(case):
+    (jc, ji), (tc, ti) = _both(*CASES[case]())
+    want = np.asarray(jax_binned.rasterize_depth_binned(jc, ji, W, H, interpret=True))
+    launches = raster_binned.K4_LAUNCHES
+    got = raster_binned.rasterize_depth_binned(tc, ti, W, H).numpy()
+    assert raster_binned.K4_LAUNCHES == launches  # CPU tensors: the plain version
+    assert got.shape == (H, W)
+    _assert_depth_close(got, want)
+
+
+def _assert_vis_close(got, want, same_share=0.98):
+    g_tri, w_tri = got.tri.numpy(), np.asarray(want.tri)
+    both = (g_tri >= 0) & (w_tri >= 0)
+    assert both.mean() > 0.2
+    assert ((g_tri >= 0) != (w_tri >= 0)).mean() < 0.005
+    same = both & (g_tri == w_tri)
+    assert same.sum() >= same_share * both.sum()
+    np.testing.assert_allclose(got.depth.numpy()[same], np.asarray(want.depth)[same], atol=1e-4)
+    for a, b in ((got.bary_u, want.bary_u), (got.bary_v, want.bary_v)):
+        np.testing.assert_allclose(a.numpy()[same], np.asarray(b)[same], atol=2e-3)
+
+
+@pytest.mark.parametrize("case", sorted(CASES) + ["init"])
+def test_vis_plain_matches_jax_binned(case):
+    init = (None, None)
+    if case == "init":
+        # The LOAD op: a second mesh depth-tested against the first one's buffer.
+        (jc0, ji0), _ = _both(*_mesh(1500, 13), True)
+        base = jax_raster.rasterize(jc0, ji0, W, H, method="brute")
+        init = (base, visibility_from_numpy(base, "cpu"))
+        args = (*_mesh(1000, 14), True)
+    else:
+        args = CASES[case]()
+    (jc, ji), (tc, ti) = _both(*args)
+    want = jax_binned.rasterize_binned(jc, ji, W, H, interpret=True, init=init[0])
+    launches = raster_binned.K5_LAUNCHES
+    got = raster_binned.rasterize_binned(tc, ti, W, H, init=init[1])
+    assert raster_binned.K5_LAUNCHES == launches
+    _assert_vis_close(got, want)
+
+
+def test_binned_empty_scene():
+    clip, idx = torch.zeros((0, 4)), torch.zeros((0, 3), dtype=torch.int32)
+    depth = raster_binned.rasterize_depth_binned(clip, idx, 64, 32)
+    assert torch.equal(depth, torch.ones((32, 64)))
+    vis = raster_binned.rasterize_binned(clip, idx, 64, 32)
+    assert (vis.tri == -1).all() and (vis.depth == 1.0).all()
+    want = jax_binned.rasterize_depth_binned(jnp.zeros((0, 4)), jnp.zeros((0, 3), jnp.int32),
+                                             64, 32, interpret=True)
+    np.testing.assert_array_equal(depth.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("persp", [True, False])
+def test_brute_rasterize_matches_jax(persp):
+    (jc, ji), (tc, ti) = _both(*_mesh(400, 21), persp)
+    w, h = 128, 64
+    want = jax_raster.rasterize(jc, ji, w, h, method="brute")
+    got = raster.rasterize(tc, ti, w, h)
+    np.testing.assert_array_equal(got.tri.numpy(), np.asarray(want.tri))
+    assert (got.tri >= 0).float().mean() > 0.3
+    for a, b in ((got.depth, want.depth), (got.bary_u, want.bary_u),
+                 (got.bary_v, want.bary_v)):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-5)
+    depth = raster.rasterize_depth(tc, ti, w, h)
+    np.testing.assert_allclose(
+        depth.numpy(), np.asarray(jax_raster.rasterize_depth(jc, ji, w, h, method="brute")),
+        atol=1e-5)
+    # The deferred resolve of a vertex attribute.
+    attr = np.random.default_rng(5).normal(size=(tc.shape[0], 3)).astype(np.float32)
+    np.testing.assert_allclose(
+        raster.interpolate(got, ti, torch.tensor(attr)).numpy(),
+        np.asarray(jax_raster.interpolate(want, ji, jnp.asarray(attr))), atol=1e-5)
+
+
+def test_brute_ties_follow_the_chunk_fold():
+    """Two coplanar copies of each triangle: within a 64-triangle chunk the
+    first keeps the pixel, a later chunk takes it (LESS_OR_EQUAL)."""
+    verts, idx = _mesh(40, 8)
+    # Copy k of the mesh sits at triangle ids k*40 .. k*40+39, so copies 0
+    # and 1 share chunk 0 and copy 2 starts chunk 1.
+    idx = np.concatenate([idx, idx, idx])
+    (jc, ji), (tc, ti) = _both(verts, idx, True)
+    want = jax_raster.rasterize(jc, ji, 96, 64, method="brute")
+    got = raster.rasterize(tc, ti, 96, 64)
+    np.testing.assert_array_equal(got.tri.numpy(), np.asarray(want.tri))
+    assert (got.tri.numpy() >= 64).mean() > 0.1  # pixels the later chunk took
+
+
+def test_near_clipping_matches_jax():
+    verts, idx = _mesh(200, 9, spread=3.0)
+    clip = _clip(verts, True, z_off=0.5)  # many vertices behind the near plane
+    want = jax_raster.clip_triangles_near(jnp.asarray(clip), jnp.asarray(idx))
+    got = raster.clip_triangles_near(torch.tensor(clip), torch.tensor(idx))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-6, atol=1e-6)
+    # Some triangles were cut in two: their second slot is live.
+    assert np.abs(np.asarray(want[0])[len(idx):]).sum() > 0
+
+
+def test_cpu_and_unknown_devices():
+    verts, idx = _mesh(10, 1)
+    clip, ti = torch.tensor(_clip(verts)), torch.tensor(idx)
+    bins = raster_binned.bin_triangles(raster_binned.tri_rows(clip, ti, 64, 32), 64, 32)
+    with pytest.raises(ValueError, match="CUDA"):
+        raster_binned.depth_binned_cuda(bins, 64, 32)
+    with pytest.raises(ValueError, match="device"):
+        raster.rasterize(clip.to("meta"), ti.to("meta"), 64, 32)
+    with pytest.raises(ValueError, match="device"):
+        raster_binned.rasterize_depth_binned(clip.to("meta"), ti.to("meta"), 64, 32)
+    with pytest.raises(ValueError, match="method"):
+        raster.rasterize_depth(clip, ti, 64, 32, method="nope")
+
+
+def test_binned_method_takes_the_plain_versions_on_cpu():
+    (_, _), (tc, ti) = _both(*_mesh(500, 30), True)
+    launches = (raster_binned.K4_LAUNCHES, raster_binned.K5_LAUNCHES)
+    depth = raster.rasterize_depth(tc, ti, W, H, method="binned")
+    assert torch.equal(depth, raster_binned.rasterize_depth_binned(tc, ti, W, H))
+    vis = raster.rasterize(tc, ti, W, H, method="binned")
+    for a, b in zip(vis, raster_binned.rasterize_binned(tc, ti, W, H)):
+        assert torch.equal(a, b)
+    assert (raster_binned.K4_LAUNCHES, raster_binned.K5_LAUNCHES) == launches
