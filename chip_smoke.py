@@ -2,9 +2,11 @@
 
     python3 chip_smoke.py
 
-Builds kernels K1 (rust_renderer_tpu_torch/csrc/traverse_wide.cu) and K4 / K5
-(csrc/raster_binned.cu) with nvcc into rust_renderer_tpu_torch/build/, one
-nvcc per source, started together; then:
+Builds the traversal kernels (rust_renderer_tpu_torch/csrc/traverse_wide.cu:
+K1 and K3's wide forms; traverse_q32.cu: K1q; traverse_drain.cu: K2;
+traverse_binary.cu: K3's binary walks) and K4 / K5 (csrc/raster_binned.cu)
+with nvcc into rust_renderer_tpu_torch/build/, one nvcc per source, started
+together; then:
 
 1. device: versions, the card's name and power limit, build times;
 2. PT main path: Application(1920, 1080, PATH_TRACED) on the default scene,
@@ -12,15 +14,30 @@ nvcc per source, started together; then:
 3. K1 against its plain PyTorch version on the card, on the fronts the PT
    path gives it at 1920x1080, with times;
 4. PT parity: one 128x128 scene on the CPU (plain versions) and on the card;
-5. RASTERIZED main path: Application(1920, 1080, RASTERIZED), default
+5. Sponza-scale PT main path: the 260k-triangle scene with the bench's
+   settings (cubemap sky, 5 bounces, 1 spp), 4 frames at 1920x1080; scene
+   and BVH build times (the q32 collapse included), launch counts;
+6. traversal variants (this slice's main path): on the primary, bounce and
+   any-hit fronts of both scenes at 1920x1080, `traverse(...)` under every
+   kernel option set: each launch moves the counter of the kernel that
+   `select_kernel` names, each result is held against the plain walk, each
+   kernel is timed beside K1 on the same front;
+7. K1's bound: K3's stats count the child-box slab tests and triangle
+   tests that the walk performs on each front; the bound is the larger of
+   operations over 33.5e12 unfused f32 operations/s and bytes over
+   3.35 TB/s. K2's leaf-queue depth per ray on each front, with the queue
+   uncapped and at K2_QUEUE_CAP, and its scratch bytes per launch;
+8. a tree deeper than K1's stack takes (nested shells, wide depth > 14):
+   the hit queries send it to K2, which matches the plain walk;
+9. RASTERIZED main path: Application(1920, 1080, RASTERIZED), default
    StaticConfig (4 shadow cascades of 4096^2, 512^2 cubemap), marching
    cubes on, 4 frames; launch counts, frame times (frame 1, which captures
    the environment, apart), per-pass times of one more frame;
-6. MINIMAL main path: the same at 1920x1080;
-7. K4 against its plain version on the 4 cascades of the default scene at
+10. MINIMAL main path: the same at 1920x1080;
+11. K4 against its plain version on the 4 cascades of the default scene at
    4096^2, and K5 on the marching-cubes front at 1920x1080 over the gbuffer
-   depth, with times, global-list lengths and longest segments;
-8. raster parity: one small RASTERIZED frame with marching cubes on the CPU
+   depth, with times, global-list lengths, longest segments and bounds;
+12. raster parity: one small RASTERIZED frame with marching cubes on the CPU
    (brute rasterizer, plain walk) and on the card (K4, K5, K1).
 
 Each main path is driven with every launch count set to 0 just before it
@@ -30,7 +47,9 @@ result, when torch sees no GPU. The last line is {"ok": true, ...}.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
+import functools
 import json
 import subprocess
 import sys
@@ -42,16 +61,73 @@ import torch
 WIDTH, HEIGHT, BOUNCES, FRAMES = 1920, 1080, 5, 4
 PARITY_SIZE, PARITY_FRAMES, PARITY_TIME = 128, 2, 0.25
 RASTER_PARITY_SIZE = 96
+TPU = "rust_renderer_tpu/ops/pallas/traversal.py"
+CSRC = "rust_renderer_tpu_torch/csrc"
+# kernel -> (source, the TPU kernel it replaces)
 SOURCES = {
-    "k1": ("rust_renderer_tpu_torch/csrc/traverse_wide.cu",
-           "rust_renderer_tpu/ops/pallas/traversal.py:1568"),
-    "k4": ("rust_renderer_tpu_torch/csrc/raster_binned.cu",
-           "rust_renderer_tpu/ops/raster_binned.py:258"),
-    "k5": ("rust_renderer_tpu_torch/csrc/raster_binned.cu",
-           "rust_renderer_tpu/ops/raster_binned.py:304"),
+    "k1": (f"{CSRC}/traverse_wide.cu", f"{TPU}:1568"),
+    "k1q": (f"{CSRC}/traverse_q32.cu", f"{TPU}:1242"),
+    "k2_sd": (f"{CSRC}/traverse_drain.cu", f"{TPU}:823"),
+    "k2_sdd": (f"{CSRC}/traverse_drain.cu", f"{TPU}:1008"),
+    "k3_binary": (f"{CSRC}/traverse_binary.cu", f"{TPU}:173"),
+    "k3_binary_ordered": (f"{CSRC}/traverse_binary.cu", f"{TPU}:264"),
+    "k3_wide": (f"{CSRC}/traverse_wide.cu", f"{TPU}:403"),
+    "k3_wide_ordered": (f"{CSRC}/traverse_wide.cu", f"{TPU}:403"),
+    "k3_wide_dual": (f"{CSRC}/traverse_wide.cu", f"{TPU}:2080"),
+    "k4": (f"{CSRC}/raster_binned.cu", "rust_renderer_tpu/ops/raster_binned.py:258"),
+    "k5": (f"{CSRC}/raster_binned.cu", "rust_renderer_tpu/ops/raster_binned.py:304"),
+}
+# traverse() options that select each traversal kernel (any-hit fronts add
+# drain_first to K2's dual form, as make_any_hit does).
+VARIANTS = {
+    "k1": dict(),
+    "k1q": dict(q32=True),
+    "k2_sd": dict(row_cursors=0),
+    "k2_sdd": dict(row_cursors=0, dual=True),
+    "k3_binary": dict(wide=False),
+    "k3_binary_ordered": dict(wide=False, ordered=True),
+    "k3_wide": dict(row_cursors=0, steady_drain=0),
+    "k3_wide_ordered": dict(row_cursors=0, steady_drain=0, ordered=True),
+    "k3_wide_dual": dict(row_cursors=0, steady_drain=0, dual=True),
 }
 T_RTOL = 1e-5
 VIS_ATOL = 1e-5
+# Kernels whose walk tests every child box of a node before any leaf: with
+# best_t tightened later, they may return a hit that lies outside its own
+# leaf box where the plain walk culls that box (`outside_own_box`). At most
+# this many such rays per front pass.
+OUTSIDE_BOX_KERNELS = ("k1q", "k2_sd", "k2_sdd", "k3_wide", "k3_wide_ordered",
+                       "k3_wide_dual")
+OUTSIDE_BOX_MAX = 4
+# The card's peaks (H100 SXM data sheet: 67 TFLOP/s in f32 counts an FMA as
+# two operations). The kernels are built with -fmad=false, so each counted
+# operation is an instruction of its own: half that rate.
+F32_OPS = 67e12 / 2
+HBM_BYTES_S = 3.35e12
+# K2's leaf queue with no cap in effect on these fronts (checked per run).
+K2_QUEUE_UNCAPPED = 1024
+# Operations of one test, counted in the code (csrc/traverse_common.cuh):
+# a slab test is 6 sub + 6 mul + 11 min/max + 2 compares; a Moller-Trumbore
+# slot 9 + 5 (d x e2, det) + 1 compare + 1 div + 3 + 6 (u) + 9 (q) + 6 (v)
+# + 6 (t) + 1 add + 5 compares.
+BOX_TEST_OPS = 25
+TRI_TEST_OPS = 52
+# K4 / K5 per (row, pixel) test (csrc/raster_binned.cu): 3 edges x 3 ops, 3
+# compares, the depth 6 (K4) or the barycentrics and depth 8 (K5), the
+# depth compare / select 2.
+K4_PAIR_OPS = 20
+K5_PAIR_OPS = 22
+# The bench's Sponza-scale configuration (bench.py:101-105).
+SPONZA_CFG = dict(num_bounces=BOUNCES, samples_per_frame=1, sky_mode="cubemap",
+                  cubemap_size=256, cubemap_mips=8, irradiance_size=32,
+                  brdf_lut_size=128)
+DEEP_LEVELS, DEEP_PER, DEEP_RATIO, DEEP_SIZE = 20, 200, 0.3, 1e4
+# Kernel timing: cycles the card spins per timed call before a timed run
+# (~2 ms at the H100's 1.98 GHz; `device_ms` checks that the spin outlasts
+# the host's enqueueing), and rounds of TIMING_REPS calls per kernel and
+# front, in turns.
+SPIN_CYCLES_PER_CALL = 4_000_000
+TIMING_ROUNDS, TIMING_REPS = 3, 10
 
 
 def log(*args) -> None:
@@ -76,6 +152,28 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of fn() over `reps` back-to-back calls: the
+    card spins first (torch.cuda._sleep) while the host enqueues them all,
+    so the host's time between two launches is not counted. The start event
+    must still be pending once the host has enqueued the last call (else the
+    card may have waited on the host); the spin is lengthened until it is."""
+    cycles = SPIN_CYCLES_PER_CALL * reps
+    for _ in range(4):
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        covered = not start.query()
+        torch.cuda.synchronize()
+        if covered:
+            return start.elapsed_time(stop) / reps
+        cycles *= 4
+    raise AssertionError("device_ms: the host enqueued the calls slower than the card spun")
+
+
 class Launches:
     """The kernels' launch counters: zeroed before a main path, read after."""
 
@@ -83,14 +181,32 @@ class Launches:
         self.traversal, self.raster_binned = traversal, raster_binned
 
     def reset(self) -> None:
-        self.traversal.K1_LAUNCHES.clear()
+        for counter in (self.traversal.K1_LAUNCHES, self.traversal.K1Q_LAUNCHES,
+                        self.traversal.K2_LAUNCHES, self.traversal.K3_LAUNCHES):
+            counter.clear()
         self.raster_binned.K4_LAUNCHES = 0
         self.raster_binned.K5_LAUNCHES = 0
 
     def read(self) -> dict:
-        k1 = self.traversal.K1_LAUNCHES
-        return {"k1_closest": k1["closest"], "k1_any_hit": k1["any_hit"],
-                "k4": self.raster_binned.K4_LAUNCHES, "k5": self.raster_binned.K5_LAUNCHES}
+        t = self.traversal
+        got = {"k1_closest": t.K1_LAUNCHES["closest"], "k1_any_hit": t.K1_LAUNCHES["any_hit"],
+               "k1q": sum(t.K1Q_LAUNCHES.values()),
+               "k4": self.raster_binned.K4_LAUNCHES, "k5": self.raster_binned.K5_LAUNCHES}
+        for variant in ("sd", "sdd"):
+            got[f"k2_{variant}"] = t.K2_LAUNCHES[variant]
+        for variant in ("binary", "binary_ordered", "wide", "wide_ordered", "wide_dual"):
+            got[f"k3_{variant}"] = t.K3_LAUNCHES[variant]
+        return got
+
+    @staticmethod
+    def frame_want(k1_closest: int, k1_any_hit: int, k4: int, k5: int) -> dict:
+        """Per-frame counts of a frame: K1, K4, K5 as given, 0 on every
+        other kernel."""
+        want = dict.fromkeys(
+            ("k1q", "k2_sd", "k2_sdd", "k3_binary", "k3_binary_ordered", "k3_wide",
+             "k3_wide_ordered", "k3_wide_dual"), 0)
+        want.update(k1_closest=k1_closest, k1_any_hit=k1_any_hit, k4=k4, k5=k5)
+        return want
 
 
 def check_image(label: str, img: torch.Tensor) -> None:
@@ -156,28 +272,79 @@ def pass_times(label: str, app) -> dict:
 # -- PT (unchanged phases) -----------------------------------------------------
 
 
-def compare_hits(label, k1, plain, any_hit) -> float:
-    """Raise unless K1 and the plain walk agree; returns max |t| error."""
-    tk, pk = k1[0], k1[1]
+def outside_own_box(bvh, ray, t, prim) -> bool:
+    """Whether (t, prim) is the Moller-Trumbore hit of triangle `prim` (its
+    t recomputed bit for bit from the leaf table, as the walks compute it)
+    at a point the slab test of its binary leaf node puts beyond the box
+    (tnear > t). Such a hit is ill-conditioned: a walk tests it only if
+    best_t is still above tnear when the box is tested, so walks that
+    tighten best_t in another order may return it or the next hit."""
+    o, d, t_min = ray
+    ls = bvh.leaf_packed.shape[1] // 10
+    ids = bvh.leaf_packed[:, 9 * ls:].contiguous().view(torch.int32)
+    node_i = bvh.node_packed.view(torch.int32)
+    inv = 1.0 / torch.where(d.abs() < 1e-12, torch.where(d < 0, -1e-12, 1e-12), d)
+    for row, slot in torch.nonzero(ids == prim).tolist():
+        v0, e1, e2 = bvh.leaf_packed[row, 9 * slot:9 * slot + 9].reshape(3, 3)
+        p = torch.stack([d[1] * e2[2] - d[2] * e2[1], d[2] * e2[0] - d[0] * e2[2],
+                         d[0] * e2[1] - d[1] * e2[0]])
+        inv_det = 1.0 / (e1[0] * p[0] + e1[1] * p[1] + e1[2] * p[2])
+        tv = o - v0
+        q = torch.stack([tv[1] * e1[2] - tv[2] * e1[1], tv[2] * e1[0] - tv[0] * e1[2],
+                         tv[0] * e1[1] - tv[1] * e1[0]])
+        t_tri = (e2[0] * q[0] + e2[1] * q[1] + e2[2] * q[2]) * inv_det
+        if not (bool(t_tri == t) and bool(t_tri > t_min)):
+            continue
+        for n in torch.nonzero(node_i[:, 7] == row).flatten().tolist():
+            box = bvh.node_packed[n]
+            t0, t1 = (box[0:3] - o) * inv, (box[3:6] - o) * inv
+            if bool(torch.minimum(t0, t1).max() > t):
+                return True
+    return False
+
+
+def compare_hits(label, got, plain, any_hit, bvh=None, ray=None) -> tuple[float, int]:
+    """Raise unless a kernel and the plain walk agree: hit flags equal; for
+    closest hits t to T_RTOL relative and prim equal off ties. With `bvh`
+    and `ray` (o, d, t_min), for a kernel of OUTSIDE_BOX_KERNELS, up to
+    OUTSIDE_BOX_MAX rays where the kernel returns a nearer hit that lies
+    outside its own leaf box (`outside_own_box`) are counted, not failures.
+    Returns max |t| error over the agreeing rays and that count."""
+    tk, pk = got[0], got[1]
     tp, pp = plain[0], plain[1]
     hk, hp = pk >= 0, pp >= 0
     if not torch.equal(hk, hp):
         raise AssertionError(f"{label}: hit flags differ on {int((hk != hp).sum())} rays")
     if any_hit:
-        return 0.0
+        return 0.0, 0
     both = hk & hp
-    err = (tk - tp).abs()[both]
-    rel = err / tp.abs()[both]
-    if rel.numel() and float(rel.max()) > T_RTOL:
-        raise AssertionError(f"{label}: t differs by {float(rel.max())} relative")
-    tie = (tk - tp).abs() <= T_RTOL * tp.abs()
-    if not bool(((pk == pp) | tie | ~both).all()):
-        raise AssertionError(f"{label}: prim differs off ties")
-    return float(err.max()) if err.numel() else 0.0
+    diff = (tk - tp).abs()
+    tie = diff <= T_RTOL * tp.abs()
+    bad = torch.nonzero(both & ~tie).flatten().tolist()  # t or prim off a tie
+    if bvh is not None and len(bad) > OUTSIDE_BOX_MAX:
+        raise AssertionError(f"{label}: {len(bad)} rays off the plain walk's hits")
+    explained = []
+    for i in bad:
+        if bvh is None or not bool(tk[i] < tp[i]) or not outside_own_box(
+                bvh, (ray[0][i], ray[1][i], ray[2][i]), tk[i], int(pk[i])):
+            raise AssertionError(
+                f"{label}: ray {i} t {float(tk[i])} prim {int(pk[i])} against the plain "
+                f"walk's t {float(tp[i])} prim {int(pp[i])}")
+        explained.append(i)
+    if explained:
+        log(f"{label}: {len(explained)} ray(s) where the kernel returns a nearer hit that lies "
+            f"outside its own leaf box (the plain walk culls that box): "
+            + "; ".join(f"ray {i} t {float(tk[i])} prim {int(pk[i])} vs t {float(tp[i])} "
+                        f"prim {int(pp[i])}" for i in explained))
+    keep = both.clone()
+    keep[explained] = False
+    err = diff[keep]
+    return (float(err.max()) if err.numel() else 0.0), len(explained)
 
 
-def k1_phase(app, traversal, rays, pathtrace) -> dict:
-    """K1 against the plain walk on 1080p fronts of the default scene."""
+def make_fronts(app, traversal, rays, pathtrace) -> dict:
+    """The 1080p primary, bounce and NEE any-hit fronts of app's scene:
+    name -> (o, d, t_min, t_max, any_hit)."""
     dev = app.device
     bvh = app.scene_bvh
     view = app.view.with_camera(app.camera, WIDTH, HEIGHT).to(dev)
@@ -188,9 +355,8 @@ def k1_phase(app, traversal, rays, pathtrace) -> dict:
     o, d = o.reshape(n, 3).contiguous(), d.reshape(n, 3).contiguous()
     t_min = torch.full((n,), 1e-3, device=dev)
     t_max = torch.full((n,), 1e4, device=dev)
-    t_hit, prim = traversal.traverse_wide_cuda(bvh.wnode_packed, bvh.leaf_packed,
-                                               bvh.wide_depth, o, d, t_min, t_max,
-                                               False)[:2]
+    t_hit, prim = traversal.traverse_plain(bvh.node_packed, bvh.leaf_packed, o, d, t_min,
+                                           t_max, False)[:2]
     hit = prim >= 0
     pos = o + t_hit[:, None] * d
     gen = torch.Generator(device=dev).manual_seed(7)
@@ -203,7 +369,7 @@ def k1_phase(app, traversal, rays, pathtrace) -> dict:
     pick = torch.randint(0, lights.shape[0], (n,), device=dev, generator=gen)
     to_light = lights[pick] - bounce_o
     dist = to_light.norm(dim=1)
-    fronts = {
+    return {
         "primary": (o, d, t_min, t_max, False),
         "bounce": (bounce_o.contiguous(), bounce_d.contiguous(), t_min, t_max, False),
         "nee_any_hit": (
@@ -214,6 +380,11 @@ def k1_phase(app, traversal, rays, pathtrace) -> dict:
             torch.cat([t_max, dist * (1.0 - 1e-4)]).contiguous(),
             True),
     }
+
+
+def k1_phase(app, traversal, fronts) -> dict:
+    """K1 against the plain walk on 1080p fronts of the default scene."""
+    bvh = app.scene_bvh
     result = {"max_abs_err": 0.0}
     for name, (fo, fd, fmin, fmax, any_hit) in fronts.items():
         k1 = lambda: traversal.traverse_wide_cuda(bvh.wnode_packed, bvh.leaf_packed,
@@ -223,14 +394,15 @@ def k1_phase(app, traversal, rays, pathtrace) -> dict:
                                                  fo, fd, fmin, fmax, any_hit)
         got, want = k1(), plain()
         torch.cuda.synchronize()
-        err = compare_hits(name, got, want, any_hit)
+        err = compare_hits(name, got, want, any_hit)[0]
         k1(), plain()  # warm-up
         k1_ms = cuda_ms(k1, 20)
+        k1_device_ms = device_ms(k1, 20)
         plain_ms = cuda_ms(plain, 2)
         live = int((fd * fd).sum(dim=1).gt(0).sum())
         log(f"kernel K1 front={name} rays={fd.shape[0]} live={live} "
             f"hits={int((got[1] >= 0).sum())} max_abs_err_t={err:.3e} "
-            f"k1_ms={k1_ms:.4f} plain_ms={plain_ms:.3f}")
+            f"k1_ms={k1_ms:.4f} (device alone {k1_device_ms:.4f}) plain_ms={plain_ms:.3f}")
         result["max_abs_err"] = max(result["max_abs_err"], err)
         if name == "primary":
             result["ms"], result["plain_ms"] = k1_ms, plain_ms
@@ -261,7 +433,240 @@ def pt_parity_phase(Application, StaticConfig) -> None:
             raise AssertionError(f"pt parity frame {i}: card and CPU frames disagree")
 
 
+# -- traversal variants ----------------------------------------------------------
+
+
+def table_bytes(bvh, kernel: str) -> int:
+    """Bytes of the tables `kernel` reads."""
+    if kernel == "k1q":
+        tables = (bvh.wnode_q32, bvh.wnode_meta32, bvh.q32_leaf_perm, bvh.leaf_packed)
+    elif kernel.startswith("k3_binary"):
+        tables = (bvh.node_packed, bvh.leaf_packed)
+    else:
+        tables = (bvh.wnode_packed, bvh.leaf_packed)
+    return sum(t.numel() * t.element_size() for t in tables)
+
+
+def walk_counts(traversal, bvh, front) -> dict:
+    """The child-box slab tests and triangle tests of a walk of `front`, as
+    K3's stats count them per ray (the walk K1 does over the same tree,
+    with leaves popped instead of tested inline; empty slots are skipped),
+    and their operations."""
+    fo, fd, fmin, fmax, any_hit = front
+    stats = traversal.traverse(bvh, fo, fd, fmin, fmax, any_hit=any_hit,
+                               **VARIANTS["k3_wide"], stats=True)[4]
+    pops, leaf_pops, box_tests, tri_tests = (
+        int(x) for x in stats.sum(dim=1, dtype=torch.int64))
+    ops = box_tests * BOX_TEST_OPS + tri_tests * TRI_TEST_OPS
+    return {"pops": pops, "leaf_pops": leaf_pops, "box_tests": box_tests,
+            "tri_tests": tri_tests, "ops": ops, "rays": fo.shape[0],
+            # every slot of every popped entry, as if no slot were empty
+            "all_slots_ops": ((pops - leaf_pops) * traversal.K1_WIDTH * BOX_TEST_OPS
+                              + leaf_pops * traversal.K1_LEAF_SLOTS * TRI_TEST_OPS)}
+
+
+def walk_bound(counts: dict, bvh, kernel: str) -> dict:
+    """The least time of the walk: the larger of its operations over the
+    unfused f32 rate and its bytes (rays and limits read, hits written, the
+    kernel's tables read, each once) over the memory rate."""
+    nbytes = counts["rays"] * (6 + 2 + 4) * 4 + table_bytes(bvh, kernel)
+    ops_ms, bytes_ms = counts["ops"] / F32_OPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "bytes": nbytes,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
+
+
+def k2_queue(traversal, bvh, front) -> str:
+    """K2's per-ray peak leaf-queue depth on `front` (stats row 2) for sd
+    and sdd, with the queue uncapped and at K2_QUEUE_CAP, and the scratch
+    (stack and queue) of one launch; raises if the uncapped queue filled."""
+    fo, fd, fmin, fmax, any_hit = front
+    walkers = traversal.k2_walkers(fo.shape[0], fo.device)
+    parts = []
+    for dual in (False, True):
+        peaks = {}
+        for cap in (K2_QUEUE_UNCAPPED, traversal.K2_QUEUE_CAP):
+            peaks[cap] = traversal.traverse_drain_cuda(
+                bvh.wnode_packed, bvh.leaf_packed, bvh.wide_depth, fo, fd, fmin, fmax,
+                any_hit, dual=dual, drain_first=any_hit and dual, stats=True,
+                queue_cap=cap)[4][2]
+        free = peaks[K2_QUEUE_UNCAPPED]
+        if int(free.max()) >= K2_QUEUE_UNCAPPED:
+            raise AssertionError(f"K2 queue: {K2_QUEUE_UNCAPPED} rows filled")
+        scratch = ((traversal.level_stack_need(bvh.wide_depth, dual) + traversal.K2_QUEUE_CAP)
+                   * walkers * 4)
+        parts.append(
+            f"{'sdd' if dual else 'sd'}: uncapped peak max {int(free.max())} p99.9 "
+            f"{float(torch.quantile(free.float(), 0.999)):.0f} mean {float(free.float().mean()):.2f}, "
+            f"{int((free > traversal.K2_QUEUE_CAP).sum())} rays above the cap of "
+            f"{traversal.K2_QUEUE_CAP} (capped peak max {int(peaks[traversal.K2_QUEUE_CAP].max())}), "
+            f"scratch {scratch / 2**20:.1f} MiB per launch ({walkers} walkers)")
+    return "; ".join(parts)
+
+
+def variants_phase(label, bvh, fronts, traversal, launches) -> dict:
+    """Every traversal kernel through traverse(...) on each front, counted
+    (the main path of this slice), then held against the plain walk and
+    timed beside K1. Returns per-kernel launches and results."""
+    launches.reset()
+    outputs = {}
+    for fname, (fo, fd, fmin, fmax, any_hit) in fronts.items():
+        for kernel, options in VARIANTS.items():
+            options = dict(options, drain_first=any_hit and kernel == "k2_sdd")
+            rule = {k: v for k, v in options.items() if k != "drain_first"}
+            if traversal.select_kernel(bvh, any_hit, **rule) != kernel:
+                raise AssertionError(f"{label} {fname}: options {rule} do not select {kernel}")
+            before = launches.read()
+            outputs[fname, kernel] = traversal.traverse(bvh, fo, fd, fmin, fmax,
+                                                        any_hit=any_hit, **options)
+            moved = {k: v - before[k] for k, v in launches.read().items() if v != before[k]}
+            key = "k1_any_hit" if kernel == "k1" and any_hit else (
+                "k1_closest" if kernel == "k1" else kernel)
+            if moved != {key: 1}:
+                raise AssertionError(f"{label} {fname} {kernel}: launches moved {moved}")
+    torch.cuda.synchronize()
+    counted = launches.read()
+    log(f"{label} variants launches {counted}")
+    results = {k: {"max_abs_err": 0.0, "outside_own_box": 0} for k in VARIANTS}
+    for fname, front in fronts.items():
+        fo, fd, fmin, fmax, any_hit = front
+        plain = lambda: traversal.traverse_plain(bvh.node_packed, bvh.leaf_packed, fo, fd,
+                                                 fmin, fmax, any_hit)
+        t0 = time.perf_counter()
+        want = plain()
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        counts = walk_counts(traversal, bvh, front)
+        bound = walk_bound(counts, bvh, "k1")
+        log(f"{label} front={fname} K2 leaf queue: {k2_queue(traversal, bvh, front)}")
+        runs = {}
+        for kernel, options in VARIANTS.items():
+            got = outputs[fname, kernel]
+            exempt = kernel in OUTSIDE_BOX_KERNELS
+            err, outside = compare_hits(f"{label} {fname} {kernel}", got, want, any_hit,
+                                        bvh if exempt else None,
+                                        (fo, fd, fmin) if exempt else None)
+            results[kernel]["outside_own_box"] += outside
+            if kernel == "k3_binary" and not any_hit and not (
+                    torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+                raise AssertionError(f"{label} {fname}: K3 binary is not bit-equal")
+            results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
+            runs[kernel] = functools.partial(
+                traversal.traverse, bvh, fo, fd, fmin, fmax, any_hit=any_hit,
+                **options, drain_first=any_hit and kernel == "k2_sdd")
+            runs[kernel]()  # warm-up
+        times = {kernel: [] for kernel in runs}
+        for i in range(TIMING_ROUNDS):
+            for kernel in list(runs)[::1 if i % 2 == 0 else -1]:
+                times[kernel].append(device_ms(runs[kernel], TIMING_REPS))
+        line = []
+        for kernel, ts in times.items():
+            ms = sorted(ts)[len(ts) // 2]
+            r = results[kernel]
+            r[fname] = ms
+            if fname == "primary":
+                kb = walk_bound(counts, bvh, kernel)
+                r.update(ms=ms, plain_ms=plain_ms, bound_ms=kb["bound_ms"],
+                         bound_by=kb["bound_by"])
+            line.append(f"{kernel} {ms:.4f} ({min(ts):.4f}-{max(ts):.4f})")
+        log(f"{label} front={fname} rays={fo.shape[0]} hits={int((want[1] >= 0).sum())} "
+            f"plain_ms={plain_ms:.1f} (one run) pops={counts['pops']} "
+            f"leaf_pops={counts['leaf_pops']} box_tests={counts['box_tests']} "
+            f"tri_tests={counts['tri_tests']} K1 bound {bound['bound_ms']:.4f} ms "
+            f"({bound['bound_by']}: {counts['ops']:.3e} ops, every slot counted "
+            f"{counts['all_slots_ops']:.3e}; {bound['bytes']:.3e} B); "
+            f"device ms, median (range) of {TIMING_ROUNDS} rounds: " + ", ".join(line))
+    for kernel, r in results.items():
+        r["launches"] = counted["k1_closest"] + counted["k1_any_hit"] if kernel == "k1" \
+            else counted[kernel]
+    return results
+
+
+def nested_shells(device, traversal, bvh_ops):
+    """A mesh whose wide tree is deeper than K1's stack takes: nested
+    shells, each DEEP_RATIO the size of the last (SAH splits off one shell
+    per level and the wide collapse keeps the rest of the nest as one child
+    per wide node), and rays at every shell's scale."""
+    rng = np.random.default_rng(0)
+    tris = []
+    for k in range(DEEP_LEVELS):
+        s = DEEP_SIZE * DEEP_RATIO ** k
+        c = np.stack([rng.uniform(s / 2, s, DEEP_PER), rng.uniform(0, s, DEEP_PER),
+                      rng.uniform(0, s, DEEP_PER)], 1)
+        e = rng.normal(0.0, s / 20, (DEEP_PER, 2, 3))
+        tris.append(np.stack([c, c + e[:, 0], c + e[:, 1]], 1))
+    pos = np.concatenate(tris).reshape(-1, 3).astype(np.float32)
+    bvh = bvh_ops.build_bvh(pos, np.arange(len(pos)).reshape(-1, 3), device)
+    n = WIDTH * HEIGHT
+    s = DEEP_SIZE * DEEP_RATIO ** rng.integers(0, DEEP_LEVELS - 3, n)
+    o = s[:, None] * rng.uniform(-0.5, 1.5, (n, 3))
+    target = s[:, None] * np.stack([rng.uniform(0.5, 1, n), rng.uniform(0, 1, n),
+                                    rng.uniform(0, 1, n)], 1)
+    d = (target - o) / np.linalg.norm(target - o, axis=-1, keepdims=True)
+    rays = [torch.tensor(x, dtype=torch.float32, device=device)
+            for x in (o, d, 1e-6 * s, 4 * s)]
+    return bvh, rays
+
+
+def deep_tree_phase(traversal, bvh_ops, launches) -> dict:
+    """A tree of wide depth > 14 through the hit queries' options: K2, not a
+    refusal, and K2 against the plain walk."""
+    bvh, (o, d, t_min, t_max) = nested_shells("cuda", traversal, bvh_ops)
+    need = traversal.k1_stack_need(bvh.wide_depth)
+    log(f"deep tree: {o.shape[0]} rays, wide depth {bvh.wide_depth} (K1 stack need {need} > "
+        f"{traversal.K1_STACK_CAP}), binary depth {bvh.max_depth}, "
+        f"{bvh.wnode_packed.shape[0]} wide nodes")
+    if need <= traversal.K1_STACK_CAP:
+        raise AssertionError("deep tree: K1 would take this tree")
+    launches.reset()
+    outputs = {}
+    for any_hit in (False, True):
+        options = dict(dual=True, drain_first=any_hit)  # make_*_hit's defaults
+        if traversal.select_kernel(bvh, any_hit, dual=True) != "k2_sdd":
+            raise AssertionError("deep tree: the hit queries' options do not select K2")
+        outputs[any_hit] = traversal.traverse(bvh, o, d, t_min, t_max, any_hit=any_hit,
+                                              **options)
+    got = launches.read()
+    log(f"deep tree launches {got}")
+    if got != dict(Launches.frame_want(0, 0, 0, 0), k2_sdd=2):
+        raise AssertionError(f"deep tree: launches {got}, expected 2 of K2 sdd")
+    err = 0.0
+    for any_hit, out in outputs.items():
+        want = traversal.traverse_plain(bvh.node_packed, bvh.leaf_packed, o, d, t_min, t_max,
+                                        any_hit)
+        torch.cuda.synchronize()
+        err = max(err, compare_hits(f"deep tree any_hit={any_hit}", out, want, any_hit)[0])
+        run = lambda: traversal.traverse(bvh, o, d, t_min, t_max, any_hit=any_hit,
+                                         dual=True, drain_first=any_hit)
+        ms = cuda_ms(run, 3)
+        log(f"kernel K2 sdd deep tree any_hit={any_hit}: hits={int((want[1] >= 0).sum())} "
+            f"max_abs_err_t={err:.3e} k2_ms={ms:.4f}")
+    return {"max_abs_err": err, "launches": got["k2_sdd"]}
+
+
 # -- rasterizer ----------------------------------------------------------------
+
+
+def raster_bound(raster_binned, bins, width: int, height: int, pair_ops: int,
+                 out_bytes: int) -> dict:
+    """The least time of a binned raster: the (row, pixel) tests that the
+    data needs — each row on the pixels of its triangle's box widened by one
+    pixel, inside its tile for a segment row, as the plain version
+    enumerates them — at `pair_ops` operations each, against the bytes of
+    the table, the tile lists and the output, each once."""
+    x0, x1, y0, y1 = bins.row_box
+    seg = bins.row_tile >= 0
+    tx = torch.where(seg, bins.row_tile % bins.nx, 0) * raster_binned.TILE_W
+    ty = torch.where(seg, bins.row_tile // bins.nx, 0) * raster_binned.TILE_H
+    x0 = torch.where(seg, torch.maximum(x0, tx), x0)
+    x1 = torch.where(seg, torch.minimum(x1, tx + raster_binned.TILE_W - 1), x1)
+    y0 = torch.where(seg, torch.maximum(y0, ty), y0)
+    y1 = torch.where(seg, torch.minimum(y1, ty + raster_binned.TILE_H - 1), y1)
+    pairs = int(((x1 - x0 + 1).clamp_min(0) * (y1 - y0 + 1).clamp_min(0)).sum())
+    nbytes = (bins.table.numel() * 4 + bins.starts.numel() * 4 + bins.counts.numel() * 4
+              + width * height * out_bytes)
+    ops_ms, bytes_ms = pairs * pair_ops / F32_OPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return {"bound_ms": max(ops_ms, bytes_ms), "pairs": pairs, "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def k4_phase(app, raster, raster_binned, shadow) -> dict:
@@ -271,7 +676,7 @@ def k4_phase(app, raster, raster_binned, shadow) -> dict:
     matrices, _ = shadow.cascade_matrices(
         app.camera.get_view(), app.camera.get_projection(), app.camera.get_near_plane(),
         app.camera.get_far_plane(), app.sun_dir, cfg.shadow_cascade_count)
-    k4_ms, plain_ms, err = [], [], 0.0
+    k4_ms, plain_ms, bounds, err = [], [], [], 0.0
     for i, m in enumerate(torch.as_tensor(matrices, device=app.device)):
         clip = raster.transform_vertices(scene.positions, m)
         bins = raster_binned.bin_triangles(
@@ -286,12 +691,19 @@ def k4_phase(app, raster, raster_binned, shadow) -> dict:
         err = max(err, float((got - want).abs().max()))
         k4_ms.append(cuda_ms(k4, 5))
         plain_ms.append(cuda_ms(plain, 1))
+        bounds.append(raster_bound(raster_binned, bins, size, size, K4_PAIR_OPS, 4))
         log(f"kernel K4 cascade={i} {size}x{size} rows={bins.table.shape[0]} "
             f"global={bins.g_count} longest_segment={int(bins.counts.max())} "
             f"covered={float((got < 1).float().mean()):.4f} bit_equal=True "
-            f"k4_ms={k4_ms[-1]:.4f} plain_ms={plain_ms[-1]:.3f}")
+            f"k4_ms={k4_ms[-1]:.4f} plain_ms={plain_ms[-1]:.3f} "
+            f"bound_ms={bounds[-1]['bound_ms']:.4f} ({bounds[-1]['bound_by']}, "
+            f"{bounds[-1]['pairs']} pixel tests)")
+    # ms is the mean cascade's, and so is the bound.
+    ops_ms = sum(b["ops_ms"] for b in bounds) / len(bounds)
+    bytes_ms = sum(b["bytes_ms"] for b in bounds) / len(bounds)
     return {"max_abs_err": err, "ms": sum(k4_ms) / len(k4_ms),
-            "plain_ms": sum(plain_ms) / len(plain_ms)}
+            "plain_ms": sum(plain_ms) / len(plain_ms), "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
 def k5_phase(app, raster, raster_binned, marching_cubes, gbuffer_depth) -> dict:
@@ -327,13 +739,16 @@ def k5_phase(app, raster, raster_binned, marching_cubes, gbuffer_depth) -> dict:
             err = max(err, e)
     k5_ms = cuda_ms(k5, 10)
     plain_ms = cuda_ms(plain, 2)
+    bound = raster_bound(raster_binned, bins, WIDTH, HEIGHT, K5_PAIR_OPS, 16)
     log(f"kernel K5 marching-cubes front {WIDTH}x{HEIGHT} slots={t} rows={bins.table.shape[0]} "
         f"valid={int(result.valid.sum())} global={bins.g_count} "
         f"longest_segment={int(bins.counts.max())} "
         f"covered={float((got.tri >= 0).float().mean()):.4f} "
         f"drawn_over_gbuffer={float((merged[0].tri >= 0).float().mean()):.4f} "
-        f"max_abs_err={err:.3e} k5_ms={k5_ms:.4f} plain_ms={plain_ms:.3f}")
-    return {"max_abs_err": err, "ms": k5_ms, "plain_ms": plain_ms}
+        f"max_abs_err={err:.3e} k5_ms={k5_ms:.4f} plain_ms={plain_ms:.3f} "
+        f"bound_ms={bound['bound_ms']:.4f} ({bound['bound_by']}, {bound['pairs']} pixel tests)")
+    return {"max_abs_err": err, "ms": k5_ms, "plain_ms": plain_ms,
+            "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
 
 
 def raster_parity_phase(Application, StaticConfig, RenderGraphMode) -> None:
@@ -377,27 +792,29 @@ def main() -> int:
         return 1
     from rust_renderer_tpu_torch import native
     from rust_renderer_tpu_torch.app.main import Application
+    from rust_renderer_tpu_torch.models import create_sponza_scale_scene
     from rust_renderer_tpu_torch.ops import (
-        marching_cubes, pathtrace, raster, raster_binned, rays, shadow, traversal)
+        bvh as bvh_ops, marching_cubes, pathtrace, raster, raster_binned, rays, shadow,
+        traversal)
     from rust_renderer_tpu_torch.settings import RenderGraphMode, StaticConfig
 
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     card = card_line()
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(2) as pool:
-        for f in [pool.submit(traversal.k1_library), pool.submit(raster_binned.library)]:
+    builds = [functools.partial(traversal.library, name) for name in traversal.SOURCES]
+    builds.append(raster_binned.library)
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        for f in [pool.submit(b) for b in builds]:
             f.result()
-    log(f"K1 + K4/K5 build (in parallel) {time.perf_counter() - t0:.2f} s")
-    for lib in ("k1_traverse_wide", "k45_raster_binned"):
+    log(f"traversal + K4/K5 build ({len(builds)} nvcc in parallel) "
+        f"{time.perf_counter() - t0:.2f} s")
+    for lib in (*traversal.SOURCES, "k45_raster_binned"):
         with open(f"{native.BUILD_DIR}/lib{lib}.so.log") as f:
             log(f.read().strip())
     launches = Launches(traversal, raster_binned)
-    counted = {}
-
-    def add(got):
-        for k, v in got.items():
-            counted[k] = counted.get(k, 0) + v
+    counted = collections.Counter()
+    fronts, bvhs = {}, {}
 
     # PATH_TRACED.
     t0 = time.perf_counter()
@@ -406,18 +823,58 @@ def main() -> int:
     log(f"PT: scene + BVH build {time.perf_counter() - t0:.3f} s, "
         f"{app.scene.num_triangles} triangles, {app.scene_bvh.wnode_packed.shape[0]} "
         f"wide nodes, wide depth {app.scene_bvh.wide_depth}")
-    add(run_frames("PT", app, launches, {"k1_closest": 1 + BOUNCES, "k1_any_hit": BOUNCES,
-                                         "k4": 0, "k5": 0}))
-    k1 = k1_phase(app, traversal, rays, pathtrace)
+    counted.update(run_frames("PT", app, launches,
+                              Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0)))
+    fronts["default"] = make_fronts(app, traversal, rays, pathtrace)
+    bvhs["default"] = app.scene_bvh
+    k1 = k1_phase(app, traversal, fronts["default"])
     del app
     pt_parity_phase(Application, StaticConfig)
+
+    # PATH_TRACED on the Sponza-scale scene, with the bench's settings.
+    t0 = time.perf_counter()
+    app = Application(WIDTH, HEIGHT, cfg=StaticConfig(**SPONZA_CFG), device="cuda")
+    bvh_s = []
+    build_scene_bvh = bvh_ops.build_scene_bvh
+
+    def timed_build(scene):
+        t = time.perf_counter()
+        out = build_scene_bvh(scene)
+        bvh_s.append(time.perf_counter() - t)
+        return out
+
+    bvh_ops.build_scene_bvh = timed_build  # the app's own build, timed
+    try:
+        app.create_scene(create_sponza_scale_scene)
+    finally:
+        bvh_ops.build_scene_bvh = build_scene_bvh
+    build_s = time.perf_counter() - t0
+    bvh = app.scene_bvh
+    log(f"Sponza-scale PT: scene + BVH build {build_s:.3f} s (the BVH alone, w16 and q32 "
+        f"collapses included, {bvh_s[0]:.3f} s on the host), "
+        f"{app.scene.num_triangles} triangles, {bvh.wnode_packed.shape[0]} wide nodes, "
+        f"wide depth {bvh.wide_depth} (K1 stack need {traversal.k1_stack_need(bvh.wide_depth)}"
+        f" of {traversal.K1_STACK_CAP}), {bvh.wnode_q32.shape[0]} q32 nodes, q32 depth "
+        f"{bvh.q32_depth}, binary depth {bvh.max_depth}")
+    counted.update(run_frames("Sponza-scale PT", app, launches,
+                              Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0)))
+    fronts["sponza_scale"] = make_fronts(app, traversal, rays, pathtrace)
+    bvhs["sponza_scale"] = bvh
+    log(f"Sponza-scale PT peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del app, bvh
+
+    # The traversal entry points under every kernel option, on both scenes.
+    variants = {scene: variants_phase(f"variants {scene}", bvhs[scene], fronts[scene],
+                                      traversal, launches)
+                for scene in fronts}
+    del fronts, bvhs
+    deep = deep_tree_phase(traversal, bvh_ops, launches)
 
     # RASTERIZED with the marching-cubes draw.
     app = Application(WIDTH, HEIGHT, RenderGraphMode.RASTERIZED, device="cuda")
     app.view = app.view.replace(marching_cubes_enabled=np.int32(1))
     app.create_scene()
-    add(run_frames("RASTERIZED", app, launches,
-                   {"k1_closest": 2, "k1_any_hit": 1, "k4": 4, "k5": 1}))
+    counted.update(run_frames("RASTERIZED", app, launches, Launches.frame_want(2, 1, 4, 1)))
     gbuffer_depth = pass_times("RASTERIZED", app)["gbuffer"]["gbuffer_depth"]
     k4 = k4_phase(app, raster, raster_binned, shadow)
     k5 = k5_phase(app, raster, raster_binned, marching_cubes, gbuffer_depth)
@@ -427,24 +884,43 @@ def main() -> int:
     # MINIMAL.
     app = Application(WIDTH, HEIGHT, RenderGraphMode.MINIMAL, device="cuda")
     app.create_scene()
-    add(run_frames("MINIMAL", app, launches,
-                   {"k1_closest": 1, "k1_any_hit": 0, "k4": 4, "k5": 0}))
+    counted.update(run_frames("MINIMAL", app, launches, Launches.frame_want(1, 0, 4, 0)))
     pass_times("MINIMAL", app)
     del app
     raster_parity_phase(Application, StaticConfig, RenderGraphMode)
 
+    # Launches: the frames' and the variant runs' (every path's count was
+    # read just after it); times and bounds on the default scene's primary
+    # front; errors over every front.
     kernels = []
-    for name, key, launched, stats in (
-            ("k1_traverse_wide", "k1", counted["k1_closest"] + counted["k1_any_hit"], k1),
-            ("k4_depth_binned", "k4", counted["k4"], k4),
-            ("k5_vis_binned", "k5", counted["k5"], k5)):
+    for key in VARIANTS:
+        runs = [variants[scene][key] for scene in variants]
+        launched = sum(r["launches"] for r in runs)
+        err = max(r["max_abs_err"] for r in runs)
+        if key == "k1":
+            launched += counted["k1_closest"] + counted["k1_any_hit"]
+            err = max(err, k1["max_abs_err"])
+        if key == "k2_sdd":
+            launched += deep["launches"]
+            err = max(err, deep["max_abs_err"])
+        kernels.append((key, launched, dict(runs[0], max_abs_err=err, outside_own_box=sum(
+            r["outside_own_box"] for r in runs))))
+    kernels += [("k4", counted["k4"], k4), ("k5", counted["k5"], k5)]
+    names = {"k1": "k1_traverse_wide", "k4": "k4_depth_binned", "k5": "k5_vis_binned"}
+    line = []
+    for key, launched, stats in kernels:
         source, replaces = SOURCES[key]
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launched,
-                        "max_abs_err": stats["max_abs_err"], "ms": stats["ms"],
-                        "plain_ms": stats["plain_ms"]})
+        line.append({"name": names.get(key, key), "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": launched,
+                     "max_abs_err": stats["max_abs_err"], "ms": stats["ms"],
+                     "plain_ms": stats["plain_ms"], "bound_ms": stats["bound_ms"],
+                     "bound_by": stats["bound_by"], "library_ms": None,
+                     **({"outside_own_box": stats["outside_own_box"]} if key in VARIANTS
+                        else {})})
+        if launched == 0:
+            raise AssertionError(f"{key} was never launched on a main path")
     print(card)
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

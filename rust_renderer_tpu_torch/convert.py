@@ -42,14 +42,27 @@ def packed_scene_from_numpy(fields: Mapping, device) -> PackedScene:
 
 
 def bvh_from_numpy(fields: Mapping, device) -> BVH:
-    """The BVH tables K1 and the plain walk use (``node_packed``,
-    ``leaf_packed``, ``wnode_packed``) and the tree depths, on `device`."""
+    """The BVH tables (``node_packed``, ``leaf_packed``, ``wnode_packed``)
+    and the tree depths, on `device`; with the optional row-cursor and q32
+    tables (``wnode_meta``, ``wnode_q32``, ``wnode_meta32``,
+    ``q32_leaf_perm``, ``q32_depth``) where `fields` holds them and they are
+    not None."""
+
+    def optional(name):
+        value = fields.get(name)
+        return None if value is None else _tensor(np.asarray(value, np.int32), device)
+
     return BVH(
         node_packed=_tensor(np.asarray(fields["node_packed"], np.float32), device),
         leaf_packed=_tensor(np.asarray(fields["leaf_packed"], np.float32), device),
         wnode_packed=_tensor(np.asarray(fields["wnode_packed"], np.float32), device),
         max_depth=int(fields["max_depth"]),
         wide_depth=int(fields["wide_depth"]),
+        wnode_meta=optional("wnode_meta"),
+        wnode_q32=optional("wnode_q32"),
+        wnode_meta32=optional("wnode_meta32"),
+        q32_leaf_perm=optional("q32_leaf_perm"),
+        q32_depth=int(fields.get("q32_depth") or 0),
     )
 
 

@@ -73,6 +73,23 @@ def create_sponza_scene(renderer: Renderer, camera: Camera) -> None:
     )
 
 
+def create_sponza_scale_scene(renderer: Renderer, camera: Camera) -> None:
+    """The Sponza-scale scene (the JAX package's models/scenes.py:167-183):
+    the procedural atrium tessellated to about 260k triangles, the real
+    Sponza's count (scenes.rs:102-150), with 10 point lights."""
+    camera.set_position_target([-10.28, 2.10, -0.18], [0.0, 0.5, 0.0])
+    # 24 columns x 9,216 tris + 48 clutter spheres x 800 + boxes ~= 260k tris.
+    create_atrium_standin(
+        renderer, columns=12, sphere_detail=48, column_slices=96,
+        clutter_count=48, clutter_detail=20,
+    )
+    for i in range(10):
+        renderer.add_light(
+            position=[-9.0 + 2.0 * i, 2.0 + (i % 3), 4.0 - (i % 5) * 2.0],
+            color=[1.0, 1.0, 1.0],
+        )
+
+
 def create_atrium_standin(renderer: Renderer, columns: int = 6,
                           sphere_detail: int = 24,
                           clutter_count: int = 12,

@@ -32,12 +32,13 @@ _loaded: dict[str, ctypes.CDLL] = {}
 
 
 def build_library(name: str, sources: list[str], command: list[str],
-                  timeout: float = 600.0) -> str:
+                  timeout: float = 600.0, deps: tuple[str, ...] = ()) -> str:
     """Compile `sources` into BUILD_DIR/lib<name>.so unless a library built
-    from the same sources and command is there. `command` is the compiler
-    invocation without the output flag and sources. Returns the path."""
+    from the same sources, headers (`deps`) and command is there. `command`
+    is the compiler invocation without the output flag and sources. Returns
+    the path."""
     digest = hashlib.sha256(" ".join(command).encode())
-    for src in sources:
+    for src in [*sources, *deps]:
         with open(src, "rb") as f:
             digest.update(f.read())
     want = digest.hexdigest()
@@ -67,10 +68,11 @@ def build_library(name: str, sources: list[str], command: list[str],
     return lib_path
 
 
-def load_library(name: str, sources: list[str], command: list[str]) -> ctypes.CDLL:
+def load_library(name: str, sources: list[str], command: list[str],
+                 deps: tuple[str, ...] = ()) -> ctypes.CDLL:
     """build_library + ctypes load, once per process."""
     if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(build_library(name, sources, command))
+        _loaded[name] = ctypes.CDLL(build_library(name, sources, command, deps=deps))
     return _loaded[name]
 
 

@@ -16,7 +16,15 @@ Tables, all float32 with int32 payloads bitcast into float columns:
   leaf_size triangle ids (-1 = empty slot).
 - ``wnode_packed`` (W, 112): per wide node, column 16k + c (k < 6) is child
   c's min.xyz, max.xyz; column 96 + c is its ref: >= 0 a wide node, <= -2
-  leaf row -(ref + 2), WIDE_EMPTY an empty slot. Kernel K1 walks it.
+  leaf row -(ref + 2), WIDE_EMPTY an empty slot. Kernels K1, K2 and the
+  wide forms of K3 walk it.
+- ``wnode_meta`` (W + 1, 3) int32: the collapse's child-kind masks and last
+  child indices (`_collapse_wide`); the JAX package's row-cursor kernel
+  reads it, and the port's kernel choice follows its presence.
+- ``wnode_q32`` (W32, 128) int32, ``wnode_meta32`` (W32 + 1, 4) int32,
+  ``q32_leaf_perm`` (n,) int32, ``q32_depth``: the width-32 collapse of the
+  same binary tree with 16-bit quantized boxes (`_quantize_wide32`), which
+  kernel K1q walks; its leaf ids map to leaf_packed rows through the perm.
 
 Queries (`make_closest_hit`, `make_any_hit`) run the traversal of
 ``ops/traversal.py`` and merge the scene's analytic spheres.
@@ -53,9 +61,15 @@ class BVH(NamedTuple):
     node_packed: torch.Tensor  # (N, 8) f32
     leaf_packed: torch.Tensor  # (L, 10 * leaf_size) f32
     wnode_packed: torch.Tensor  # (W, 7 * WIDE_WIDTH) f32
-    # Exact depths (host ints): they size the kernel's traversal stack.
+    # Exact depths (host ints): they size the kernels' traversal stacks.
     max_depth: int
     wide_depth: int
+    # Optional (None for a tree built without them, as in the JAX package).
+    wnode_meta: torch.Tensor | None = None  # (W + 1, 3) i32
+    wnode_q32: torch.Tensor | None = None  # (W32, 128) i32
+    wnode_meta32: torch.Tensor | None = None  # (W32 + 1, 4) i32
+    q32_leaf_perm: torch.Tensor | None = None  # (n,) i32
+    q32_depth: int = 0
 
     @property
     def device(self) -> torch.device:
@@ -68,10 +82,20 @@ def _collapse_wide(node_min, node_max, miss, node_leaf, width: int = WIDE_WIDTH)
     Each wide node starts as one binary node and repeatedly replaces its
     largest-surface-area internal element with that element's two children
     until `width` slots are filled (left child = i + 1, right child =
-    miss[i + 1]). Children keep the collapse order in their slots.
+    miss[i + 1]). Children keep the collapse order in their slots; a wide
+    node's internal children are numbered contiguously (FIFO order) and so
+    are its leaf children (encounter order).
 
-    Returns (wnode_packed (W, 7 * width) f32, wide_depth, leaf_perm): leaf
-    rows renumbered in collapse-encounter order, as new row -> old row.
+    Returns (packed (W, 7 * width) f32, wide_depth, meta, leaf_perm):
+    - meta (W + 1, 3) int32 for width <= 16: per wide node [int_last,
+      leaf_last, static_int_rev | static_leaf_rev << width]; (W + 1, 4)
+      int32 above 16: [int_last, leaf_last, static_int_rev,
+      static_leaf_rev]. The static masks hold bit (width - 1 - slot) for
+      each internal (leaf) child slot, so child pointer = last -
+      popcount(mask & (bit - 1)). Row W is a synthetic parent of the root
+      (int_last 0, static_int_rev 1 << (width - 1)).
+    - leaf_perm: leaf rows renumbered in collapse-encounter order, as new
+      row -> old row.
     """
     node_min = np.asarray(node_min, np.float32)
     node_max = np.asarray(node_max, np.float32)
@@ -84,6 +108,7 @@ def _collapse_wide(node_min, node_max, miss, node_leaf, width: int = WIDE_WIDTH)
     depth_of = [1]
     refs_rows: list[np.ndarray] = []
     box_rows: list[np.ndarray] = []  # (width, 6)
+    meta_rows: list[tuple[int, int, int, int]] = []
     leaf_order: list[int] = []
     wide_depth = 1
     w = 0
@@ -107,16 +132,26 @@ def _collapse_wide(node_min, node_max, miss, node_leaf, width: int = WIDE_WIDTH)
         boxes = np.zeros((width, 6), np.float32)
         boxes[:, :3] = 1.0  # empty slots: masked by the ref sentinel
         boxes[:, 3:] = -1.0
+        int_base = len(pending)
+        leaf_base = len(leaf_order)
+        int_rev = 0
+        leaf_rev = 0
         for slot, e in enumerate(elems):
             if node_leaf[e] >= 0:
                 refs[slot] = np.int32(-2 - len(leaf_order))
                 leaf_order.append(int(node_leaf[e]))
+                leaf_rev |= 1 << (width - 1 - slot)
             else:
                 pending.append(e)
                 depth_of.append(depth_of[w] + 1)
                 refs[slot] = np.int32(len(pending) - 1)
+                int_rev |= 1 << (width - 1 - slot)
             boxes[slot, :3] = node_min[e]
             boxes[slot, 3:] = node_max[e]
+        n_int = len(pending) - int_base
+        n_leaf = len(leaf_order) - leaf_base
+        meta_rows.append((int_base + max(n_int - 1, 0),
+                          leaf_base + max(n_leaf - 1, 0), int_rev, leaf_rev))
         refs_rows.append(refs)
         box_rows.append(boxes)
         w += 1
@@ -128,7 +163,72 @@ def _collapse_wide(node_min, node_max, miss, node_leaf, width: int = WIDE_WIDTH)
          refs.view(np.float32)],
         axis=1,
     ).astype(np.float32)
-    return packed, int(wide_depth), np.asarray(leaf_order, np.int64)
+    meta_rows.append((0, 0, 1 << (width - 1), 0))
+    meta64 = np.asarray(meta_rows, np.int64)
+    as_i32 = lambda a: (a & 0xFFFFFFFF).astype(np.uint32).view(np.int32)
+    if width <= 16:
+        meta = np.stack([meta64[:, 0], meta64[:, 1],
+                         as_i32(meta64[:, 2] | (meta64[:, 3] << width))],
+                        axis=1).astype(np.int32)
+    else:
+        meta = np.stack([meta64[:, 0], meta64[:, 1], as_i32(meta64[:, 2]),
+                         as_i32(meta64[:, 3])], axis=1).astype(np.int32)
+    return packed, int(wide_depth), meta, np.asarray(leaf_order, np.int64)
+
+
+def _quantize_wide32(packed32: np.ndarray) -> np.ndarray:
+    """One (128,) int32 row per width-32 wide node with 16-bit conservative
+    child boxes, the layout kernel K1q reads:
+
+    - lanes [32p + c], p = 0..2: child c's plane pairs qlo.x | qlo.y << 16,
+      qlo.z | qhi.x << 16, qhi.y | qhi.z << 16;
+    - lanes 96..98: the node's grid origin.xyz, 99..101 its scale.xyz (f32
+      bits; plane = origin + q * scale); lanes 102..127 zero.
+
+    The grid is widened 2 ulp beyond the children's hull, the scale rounds
+    up, and every child box gets one quantization step of padding per side,
+    so in exact arithmetic each dequantized box contains its f32 box. Empty
+    slots are dropped by the static masks of `meta32`.
+    """
+    n, cols = packed32.shape
+    width = 32
+    assert cols == 7 * width
+    boxes = packed32[:, : 6 * width].reshape(n, 6, width)
+    refs = packed32[:, 6 * width:].view(np.int32)
+    valid = refs != WIDE_EMPTY  # (n, 32)
+
+    lo = boxes[:, 0:3, :]  # (n, 3, 32)
+    hi = boxes[:, 3:6, :]
+    big = np.float32(3e38)
+    origin = np.where(valid[:, None, :], lo, big).min(axis=2)  # (n, 3)
+    top = np.where(valid[:, None, :], hi, -big).max(axis=2)
+    none_valid = ~valid.any(axis=1)
+    origin[none_valid] = 0.0
+    top[none_valid] = 0.0
+    origin = np.nextafter(np.nextafter(origin, -np.inf, dtype=np.float32),
+                          -np.inf, dtype=np.float32)
+    top = np.nextafter(np.nextafter(top, np.inf, dtype=np.float32),
+                       np.inf, dtype=np.float32)
+    # The scale rounds up (f64 with a 1e-6 relative bump before the f32
+    # cast), so origin + 65535 * scale reaches the hull's top.
+    ext64 = top.astype(np.float64) - origin.astype(np.float64)
+    scale = ((ext64 / 65535.0) * (1.0 + 1e-6)).astype(np.float32)
+    safe = np.where(scale > 0, scale, 1.0).astype(np.float32)
+
+    qlo = np.floor((lo - origin[:, :, None]) / safe[:, :, None]) - 1.0
+    qhi = np.ceil((hi - origin[:, :, None]) / safe[:, :, None]) + 1.0
+    qlo = np.clip(qlo, 0, 65535).astype(np.uint32)
+    qhi = np.clip(qhi, 0, 65535).astype(np.uint32)
+    qlo = np.where(valid[:, None, :], qlo, 0).astype(np.uint32)
+    qhi = np.where(valid[:, None, :], qhi, 0).astype(np.uint32)
+
+    row = np.zeros((n, 128), np.uint32)
+    row[:, 0:32] = qlo[:, 0, :] | (qlo[:, 1, :] << 16)
+    row[:, 32:64] = qlo[:, 2, :] | (qhi[:, 0, :] << 16)
+    row[:, 64:96] = qhi[:, 1, :] | (qhi[:, 2, :] << 16)
+    row[:, 96:99] = origin.astype(np.float32).view(np.uint32)
+    row[:, 99:102] = scale.astype(np.float32).view(np.uint32)
+    return row.view(np.int32)
 
 
 def _finalize(positions: np.ndarray, indices: np.ndarray, node_min, node_max,
@@ -139,7 +239,7 @@ def _finalize(positions: np.ndarray, indices: np.ndarray, node_min, node_max,
     # point at each old row's first new occurrence, so both walks read one
     # table.
     node_leaf = np.asarray(node_leaf, np.int64)
-    wnode_packed, wide_depth, leaf_perm = _collapse_wide(
+    wnode_packed, wide_depth, wnode_meta, leaf_perm = _collapse_wide(
         node_min, node_max, miss, node_leaf)
     if len(leaf_perm) == 0:
         leaf_perm = np.arange(leaf_arr.shape[0], dtype=np.int64)
@@ -148,7 +248,13 @@ def _finalize(positions: np.ndarray, indices: np.ndarray, node_min, node_max,
     new_of_old[leaf_perm[::-1]] = np.arange(len(leaf_perm))[::-1]
     node_leaf = np.where(node_leaf >= 0,
                          new_of_old[np.maximum(node_leaf, 0)], node_leaf)
-
+    # The width-32 collapse of the same binary tree, over the final leaf
+    # rows: its leaf_perm maps K1q's leaf ids to rows of leaf_packed.
+    w32_packed, q32_depth, meta32, q32_perm = _collapse_wide(
+        node_min, node_max, miss, node_leaf, width=32)
+    wnode_q32 = _quantize_wide32(w32_packed)
+    if len(q32_perm) == 0:
+        q32_perm = np.zeros(1, np.int64)
     safe = np.maximum(leaf_arr, 0)
     l_i = indices[safe]
     l_v0 = positions[l_i[..., 0]]
@@ -193,7 +299,10 @@ def _finalize(positions: np.ndarray, indices: np.ndarray, node_min, node_max,
                 stack.append((int(right), depth + 1))
     return dict(node_packed=node_packed, leaf_packed=leaf_packed,
                 wnode_packed=wnode_packed, max_depth=int(max_depth),
-                wide_depth=int(wide_depth))
+                wide_depth=int(wide_depth), wnode_meta=wnode_meta,
+                wnode_q32=wnode_q32, wnode_meta32=meta32,
+                q32_leaf_perm=q32_perm.astype(np.int32),
+                q32_depth=int(q32_depth))
 
 
 def _collapse_small_subtrees(node_min, node_max, miss, node_leaf, leaf_arr,
@@ -324,12 +433,26 @@ def build_scene_bvh(scene) -> BVH:
 # -- queries -------------------------------------------------------------------
 
 
-def make_closest_hit(bvh: BVH):
+def make_closest_hit(bvh: BVH, wide: bool = True, ordered: bool = False,
+                     steady_drain: int = 3, row_cursors: int = 8,
+                     q32: bool = False):
     """closest_hit(scene, o, d, t_min, t_max) -> Hit over the BVH's triangles
-    plus the scene's analytic spheres."""
+    plus the scene's analytic spheres.
+
+    The kernel-selecting options of the JAX signature, with its defaults, go
+    to `traversal.traverse` (the rule is `traversal.select_kernel`): `wide`,
+    `ordered`, `steady_drain`, `row_cursors` and `q32`; `dual` is derived as
+    the JAX package derives it. The defaults launch K1. Options that only
+    schedule Mosaic work (`packet`, `sort`, `row_expand`, `skip_drain`,
+    `skip_expand`, `cursor_kill`, `compact_window`, `compact_order`,
+    `seed_rows`, `dma_leaf`) are not taken: no caller of the port passes
+    them."""
+    options = dict(wide=wide, ordered=ordered, dual=steady_drain > 0,
+                   steady_drain=steady_drain, row_cursors=row_cursors, q32=q32)
 
     def closest_hit(scene, origin, direction, t_min=1e-3, t_max=1e4) -> Hit:
-        t, prim, u, v = traversal.traverse(bvh, origin, direction, t_min, t_max)
+        t, prim, u, v = traversal.traverse(bvh, origin, direction, t_min, t_max,
+                                           **options)
         best = Hit(
             t=t,
             kind=torch.where(prim >= 0, HIT_TRIANGLE, HIT_NONE).to(torch.int32),
@@ -342,13 +465,19 @@ def make_closest_hit(bvh: BVH):
     return closest_hit
 
 
-def make_any_hit(bvh: BVH):
+def make_any_hit(bvh: BVH, wide: bool = True, ordered: bool = False,
+                 steady_drain: int = 3, row_cursors: int = 8, q32: bool = False):
     """any_hit(scene, o, d, t_min, t_max) -> bool occlusion over the BVH's
-    triangles plus the scene's analytic spheres."""
+    triangles plus the scene's analytic spheres. Options as
+    `make_closest_hit`; any-hit walks are `dual` and, with a steady drain,
+    `drain_first`, as in the JAX package."""
+    options = dict(wide=wide, ordered=ordered, dual=True,
+                   steady_drain=steady_drain, drain_first=steady_drain > 0,
+                   row_cursors=row_cursors, q32=q32)
 
     def any_hit(scene, origin, direction, t_min=1e-3, t_max=1e4):
         t, prim, _, _ = traversal.traverse(bvh, origin, direction, t_min, t_max,
-                                           any_hit=True)
+                                           any_hit=True, **options)
         hit = prim >= 0
         if scene.sphere_center.shape[0] > 0:
             shape = t.shape

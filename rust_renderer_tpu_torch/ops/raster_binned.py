@@ -44,7 +44,7 @@ from rust_renderer_tpu_torch import native
 from rust_renderer_tpu_torch.ops.raster import (
     INT64_MAX, VisibilityBuffer, clear_visibility, clip_to_screen,
     clip_triangles_near, float_order_key, merge_visibility, pixel_box, pixel_pairs)
-from rust_renderer_tpu_torch.ops.traversal import _check, k1_build_command
+from rust_renderer_tpu_torch.ops.traversal import _check, nvcc_command
 
 TILE_H = 32
 TILE_W = 256
@@ -196,7 +196,7 @@ def bin_triangles(tr: TriRows, width: int, height: int) -> Bins:
 
 def library() -> ctypes.CDLL:
     """Build (at first use) and bind K4 and K5."""
-    lib = native.load_library("k45_raster_binned", [SOURCE], k1_build_command())
+    lib = native.load_library("k45_raster_binned", [SOURCE], nvcc_command())
     for fn, n_out in ((lib.k4_depth_binned, 1), (lib.k5_vis_binned, 4)):
         if fn.argtypes is None:
             fn.restype = ctypes.c_int

@@ -1,26 +1,45 @@
-"""Ray/BVH traversal: kernel K1 and its plain PyTorch version.
+"""Ray/BVH traversal: kernels K1, K1q, K2 and K3, and their plain PyTorch
+version.
 
 `traverse` answers, per ray, the nearest triangle hit in (t_min, t_max) as
 (t, prim, u, v) — t = INF and prim = -1 on a miss — or, with any_hit=True,
-whether anything is hit (prim >= 0). It takes the plain version for CPU
-tensors and launches kernel K1 for CUDA tensors; on any other device it
-raises.
+whether anything is hit (prim >= 0). Its keyword options are the JAX
+package's kernel options (`traverse_packet_pallas` as `ops/bvh.py::
+make_closest_hit` calls it), and `select_kernel` names the kernel they
+choose, by the JAX rule. CPU tensors take the plain version; CUDA tensors
+launch the selected kernel or raise; any other device raises.
 
-- K1 (``csrc/traverse_wide.cu``) walks the width-16 tree `wnode_packed`, one
-  thread per ray with a private stack. It replaces the TPU kernel
+Every kernel is CUDA C++ (``csrc/``), one thread per ray, built with nvcc at
+first use and bound with ctypes:
+
+- K1 (``traverse_wide.cu``) walks the width-16 tree `wnode_packed` with a
+  private stack and tests leaves inline. It replaces the TPU kernel
   ``rust_renderer_tpu/ops/pallas/traversal.py::_make_kernel_wide_row``.
+- K1q (``traverse_q32.cu``) walks the quantized width-32 tree `wnode_q32`
+  (``_make_kernel_wide_row32``).
+- K2 (``traverse_drain.cu``) is the steady-drain walk of `wnode_packed`
+  with a leaf queue (``_make_kernel_wide_sd`` / ``_sdd``); its stack and
+  queue live in global scratch, so it takes trees of any depth.
+- K3 is the JAX package's other schedules of the same walk: the binary
+  skip walk and its ordered form over `node_packed`
+  (``traverse_binary.cu``: ``_make_kernel``, ``_make_kernel_ordered``), and
+  the wide stack walk, ordered or dual, with an optional stats output
+  (``traverse_wide.cu``: ``_make_kernel_wide``, ``_make_kernel_wide_dual``).
 - The plain version, `traverse_plain`, is the JAX package's own reference
   walk (``ops/bvh.py::traverse``): stackless over the binary tree
-  `node_packed`. The two walk different layouts of one tree, so their
-  agreement is an independent check.
+  `node_packed`. Every kernel computes its function; the wide ones walk
+  another layout of the same tree, so their agreement is an independent
+  check.
 
-`K1_LAUNCHES` counts K1 launches by query kind; nothing else changes it.
+`K1_LAUNCHES` and `K1Q_LAUNCHES` count launches by query kind,
+`K2_LAUNCHES` and `K3_LAUNCHES` by variant; nothing else changes them.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import os
 import shutil
 
@@ -29,13 +48,39 @@ import torch
 from rust_renderer_tpu_torch import native
 from rust_renderer_tpu_torch.ops.rays import INF
 
-K1_SOURCE = os.path.join(native.PACKAGE_DIR, "csrc", "traverse_wide.cu")
-# Compile-time constants of the kernel (traverse_wide.cu).
+CSRC = os.path.join(native.PACKAGE_DIR, "csrc")
+COMMON = os.path.join(CSRC, "traverse_common.cuh")
+SOURCES = {
+    "k1_traverse_wide": os.path.join(CSRC, "traverse_wide.cu"),  # K1, K3 wide
+    "k1q_traverse_q32": os.path.join(CSRC, "traverse_q32.cu"),
+    "k2_traverse_drain": os.path.join(CSRC, "traverse_drain.cu"),
+    "k3_traverse_binary": os.path.join(CSRC, "traverse_binary.cu"),
+}
+# Compile-time constants of the kernels (csrc/*.cu).
 K1_STACK_CAP = 256
+K3_STACK_CAP = 512
+K3B_STACK_CAP = 256
+K1Q_STACK_CAP = 64
 K1_LEAF_SLOTS = 12
 K1_WIDTH = 16
+THREADS = 128
+# K2's leaf-queue rows per walker. A push onto a full queue tests its newest
+# row first, so the cap drops nothing and bounds only the scratch; it is set
+# above the per-ray peak depths that chip_smoke.py measures on the 1080p
+# fronts with the queue uncapped (PERF.md). (The JAX kernel's SD_QCAP of
+# 1024 is one queue for a whole 1024-ray packet.)
+K2_QUEUE_CAP = 64
+# K2's walkers per SM (16 blocks of THREADS): the grid strides over the rays.
+K2_WALKERS_PER_SM = 2048
 
-K1_LAUNCHES: collections.Counter = collections.Counter()
+K1_LAUNCHES: collections.Counter = collections.Counter()  # by query kind
+K1Q_LAUNCHES: collections.Counter = collections.Counter()  # by query kind
+K2_LAUNCHES: collections.Counter = collections.Counter()  # "sd", "sdd"
+K3_LAUNCHES: collections.Counter = collections.Counter()  # by variant
+
+# select_kernel's names, and the counter each one moves.
+KERNELS = ("k1", "k1q", "k2_sd", "k2_sdd", "k3_binary", "k3_binary_ordered",
+           "k3_wide", "k3_wide_ordered", "k3_wide_dual")
 
 
 def _nvcc() -> str:
@@ -46,20 +91,37 @@ def _nvcc() -> str:
     return os.path.join(home, "bin", "nvcc")
 
 
-def k1_build_command() -> list[str]:
+def nvcc_command() -> list[str]:
     return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
             "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
             "-Xcompiler", "-fPIC"]
 
 
-def k1_library() -> ctypes.CDLL:
-    """Build (at first use) and bind K1."""
-    lib = native.load_library("k1_traverse_wide", [K1_SOURCE], k1_build_command())
-    fn = lib.k1_traverse_wide
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p] * 5)
+_ARGTYPES = {
+    # rays (4), tables, then ints, outputs, stream
+    "k1_traverse_wide": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
+    + [ctypes.c_void_p] * 5,
+    "k3_traverse_wide": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p] * 6,
+    "k1q_traverse_q32": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p] * 5,
+    "k2_traverse_drain": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
+    + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 6,
+    "k3_traverse_binary": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p] * 5,
+}
+
+
+@functools.cache
+def library(name: str) -> ctypes.CDLL:
+    """Build (at first use) and bind the traversal library `name`, a key of
+    SOURCES."""
+    lib = native.load_library(name, [SOURCES[name]], nvcc_command(), deps=(COMMON,))
+    for fn_name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, fn_name, None)
+        if fn is not None:
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
     return lib
 
 
@@ -75,50 +137,202 @@ def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
 
 
 def k1_stack_need(wide_depth: int) -> int:
-    """Stack entries a walk can hold: a popped wide node defers up to
-    WIDTH - 1 siblings per level, plus the WIDTH children of the last pop."""
+    """Stack entries K1's walk of the width-16 tree can hold: a popped wide
+    node defers up to WIDTH - 1 siblings per level, plus the WIDTH children
+    of the last pop (the JAX package's bound)."""
     return (K1_WIDTH - 1) * int(wide_depth) + 2 * K1_WIDTH
+
+
+def level_stack_need(levels: int, dual: bool) -> int:
+    """Stack entries a wide walk can hold when its entries lie on `levels`
+    levels of the tree. A pop's children go on top, so the stack stays
+    sorted by level, and a level receives entries only from a pop that
+    leaves nothing deeper on the stack: one node's WIDTH children, or two
+    nodes' for a dual-pop walk. So each level holds at most WIDTH (dual:
+    2 * WIDTH) entries."""
+    return K1_WIDTH * (2 if dual else 1) * int(levels)
+
+
+def _check_rays(kernel: str, o, d, t_min, t_max):
+    """Device, dtype, shape and contiguity of (R,3) rays and (R,) limits."""
+    dev = o.device
+    r = o.shape[0]
+    if dev.type != "cuda":
+        raise ValueError(f"{kernel} runs on CUDA tensors, got {dev}")
+    _check("origin", o, torch.float32, (r, 3), dev)
+    _check("direction", d, torch.float32, (r, 3), dev)
+    _check("t_min", t_min, torch.float32, (r,), dev)
+    _check("t_max", t_max, torch.float32, (r,), dev)
+    if r >= 2 ** 31:
+        raise ValueError(f"{r} rays exceed one {kernel} launch")
+    return r, dev
+
+
+def _check_wide_tables(wnode_packed, leaf_packed, dev) -> None:
+    _check("wnode_packed", wnode_packed, torch.float32,
+           (wnode_packed.shape[0], 7 * K1_WIDTH), dev)
+    _check("leaf_packed", leaf_packed, torch.float32,
+           (leaf_packed.shape[0], 10 * K1_LEAF_SLOTS), dev)
+
+
+def _hits(r: int, dev):
+    return (torch.empty(r, dtype=torch.float32, device=dev),
+            torch.empty(r, dtype=torch.int32, device=dev),
+            torch.empty(r, dtype=torch.float32, device=dev),
+            torch.empty(r, dtype=torch.float32, device=dev))
+
+
+def _raise_on(err: int, kernel: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
 
 
 def traverse_wide_cuda(wnode_packed, leaf_packed, wide_depth: int, o, d,
                        t_min, t_max, any_hit: bool):
     """Launch K1 on (R,3) rays and (R,) limits, all contiguous float32 CUDA
     tensors on one device. Returns (t, prim, u, v) of shape (R,)."""
-    dev = o.device
-    r = o.shape[0]
-    if dev.type != "cuda":
-        raise ValueError(f"K1 runs on CUDA tensors, got {dev}")
-    _check("origin", o, torch.float32, (r, 3), dev)
-    _check("direction", d, torch.float32, (r, 3), dev)
-    _check("t_min", t_min, torch.float32, (r,), dev)
-    _check("t_max", t_max, torch.float32, (r,), dev)
-    _check("wnode_packed", wnode_packed, torch.float32,
-           (wnode_packed.shape[0], 7 * K1_WIDTH), dev)
-    _check("leaf_packed", leaf_packed, torch.float32,
-           (leaf_packed.shape[0], 10 * K1_LEAF_SLOTS), dev)
-    if r >= 2 ** 31:
-        raise ValueError(f"{r} rays exceed one K1 launch")
+    r, dev = _check_rays("K1", o, d, t_min, t_max)
+    _check_wide_tables(wnode_packed, leaf_packed, dev)
     need = k1_stack_need(wide_depth)
     if need > K1_STACK_CAP:
         raise ValueError(
             f"tree of wide depth {wide_depth} needs a {need}-entry stack; "
             f"K1 is built with {K1_STACK_CAP}")
-    t = torch.empty(r, dtype=torch.float32, device=dev)
-    prim = torch.empty(r, dtype=torch.int32, device=dev)
-    u = torch.empty(r, dtype=torch.float32, device=dev)
-    v = torch.empty(r, dtype=torch.float32, device=dev)
+    out = _hits(r, dev)
     if r == 0:
-        return t, prim, u, v
-    lib = k1_library()
+        return out
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.k1_traverse_wide(
+    err = library("k1_traverse_wide").k1_traverse_wide(
         o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
         wnode_packed.data_ptr(), leaf_packed.data_ptr(), r, int(any_hit),
-        t.data_ptr(), prim.data_ptr(), u.data_ptr(), v.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"K1 launch failed: cudaError {err}")
+        *(x.data_ptr() for x in out), stream)
+    _raise_on(err, "K1")
     K1_LAUNCHES["any_hit" if any_hit else "closest"] += 1
-    return t, prim, u, v
+    return out
+
+
+def traverse_wide_k3_cuda(wnode_packed, leaf_packed, wide_depth: int, o, d,
+                          t_min, t_max, any_hit: bool, ordered: bool = False,
+                          dual: bool = False, stats: bool = False):
+    """Launch K3's wide stack walk (ordered, dual, or neither). Returns
+    (t, prim, u, v), with stats a fifth (4, R) int32 tensor: per ray the
+    entries popped (row 0) and the leaf rows popped (row 1), the row
+    meaning of the JAX stats output, which counts per 1024-ray packet; then
+    the child-box slab tests (row 2: non-empty slots of the popped nodes)
+    and the triangle tests (row 3: non-empty leaf slots reached) that the
+    walk performs."""
+    if ordered and dual:
+        raise ValueError("K3's wide walk is ordered or dual, not both")
+    r, dev = _check_rays("K3", o, d, t_min, t_max)
+    _check_wide_tables(wnode_packed, leaf_packed, dev)
+    need = level_stack_need(wide_depth + 1, dual)  # leaf refs are entries too
+    if need > K3_STACK_CAP:
+        raise ValueError(
+            f"tree of wide depth {wide_depth} needs a {need}-entry stack; "
+            f"K3 is built with {K3_STACK_CAP}")
+    out = _hits(r, dev)
+    st = torch.empty((4, r), dtype=torch.int32, device=dev) if stats else None
+    if r:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = library("k1_traverse_wide").k3_traverse_wide(
+            o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
+            wnode_packed.data_ptr(), leaf_packed.data_ptr(), r, int(any_hit),
+            int(ordered), int(dual), *(x.data_ptr() for x in out),
+            st.data_ptr() if stats else None, stream)
+        _raise_on(err, "K3")
+        K3_LAUNCHES["wide_ordered" if ordered else "wide_dual" if dual else "wide"] += 1
+    return (*out, st) if stats else out
+
+
+def traverse_drain_cuda(wnode_packed, leaf_packed, wide_depth: int, o, d,
+                        t_min, t_max, any_hit: bool, drain: int = 3,
+                        dual: bool = True, drain_first: bool = False,
+                        stats: bool = False, queue_cap: int = K2_QUEUE_CAP):
+    """Launch K2, the steady-drain walk: one (dual: two) expands and up to
+    `drain` leaf rows per iteration, with a leaf queue of `queue_cap` rows
+    per walker. Returns (t, prim, u, v), with stats a fifth (3, R) int32
+    tensor: per ray the internal nodes popped, the leaf rows tested and the
+    peak queue depth (rows 0-2 of the JAX stats)."""
+    r, dev = _check_rays("K2", o, d, t_min, t_max)
+    _check_wide_tables(wnode_packed, leaf_packed, dev)
+    if drain < 1:
+        raise ValueError(f"K2 drains at least one leaf row per iteration, got {drain}")
+    if queue_cap < 1:
+        raise ValueError(f"K2's leaf queue holds at least one row, got {queue_cap}")
+    stack_cap = level_stack_need(wide_depth, dual)  # internal nodes only
+    out = _hits(r, dev)
+    st = torch.empty((3, r), dtype=torch.int32, device=dev) if stats else None
+    if r:
+        walkers = k2_walkers(r, dev)
+        stack = torch.empty((stack_cap, walkers), dtype=torch.int32, device=dev)
+        queue = torch.empty((queue_cap, walkers), dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = library("k2_traverse_drain").k2_traverse_drain(
+            o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
+            wnode_packed.data_ptr(), leaf_packed.data_ptr(), r, int(any_hit),
+            int(drain), int(dual), int(drain_first), walkers // THREADS,
+            stack.data_ptr(), queue.data_ptr(), queue_cap, *(x.data_ptr() for x in out),
+            st.data_ptr() if stats else None, stream)
+        _raise_on(err, "K2")
+        K2_LAUNCHES["sdd" if dual else "sd"] += 1
+    return (*out, st) if stats else out
+
+
+def k2_walkers(r: int, dev) -> int:
+    """K2's grid, in threads, for `r` rays: at most K2_WALKERS_PER_SM per
+    SM, whole blocks of THREADS. Each walker owns a column of the scratch."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return -(-min(r, sms * K2_WALKERS_PER_SM) // THREADS) * THREADS
+
+
+def traverse_q32_cuda(wnode_q32, wnode_meta32, q32_leaf_perm, leaf_packed,
+                      q32_depth: int, o, d, t_min, t_max, any_hit: bool):
+    """Launch K1q over the quantized width-32 tree. Returns (t, prim, u, v)."""
+    r, dev = _check_rays("K1q", o, d, t_min, t_max)
+    n = wnode_q32.shape[0]
+    _check("wnode_q32", wnode_q32, torch.int32, (n, 128), dev)
+    _check("wnode_meta32", wnode_meta32, torch.int32, (n + 1, 4), dev)
+    _check("q32_leaf_perm", q32_leaf_perm, torch.int32, (q32_leaf_perm.shape[0],), dev)
+    _check("leaf_packed", leaf_packed, torch.float32,
+           (leaf_packed.shape[0], 10 * K1_LEAF_SLOTS), dev)
+    if q32_depth + 1 > K1Q_STACK_CAP:
+        raise ValueError(f"q32 tree of depth {q32_depth} needs {q32_depth + 1} "
+                         f"stack entries; K1q is built with {K1Q_STACK_CAP}")
+    out = _hits(r, dev)
+    if r:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = library("k1q_traverse_q32").k1q_traverse_q32(
+            o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
+            wnode_q32.data_ptr(), wnode_meta32.data_ptr(), q32_leaf_perm.data_ptr(),
+            leaf_packed.data_ptr(), n, r, int(any_hit),
+            *(x.data_ptr() for x in out), stream)
+        _raise_on(err, "K1q")
+        K1Q_LAUNCHES["any_hit" if any_hit else "closest"] += 1
+    return out
+
+
+def traverse_binary_cuda(node_packed, leaf_packed, max_depth: int, o, d,
+                         t_min, t_max, any_hit: bool, ordered: bool = False):
+    """Launch K3's binary walk over `node_packed`: the skip walk, or with
+    `ordered` the near-child-first stack walk. Returns (t, prim, u, v)."""
+    r, dev = _check_rays("K3", o, d, t_min, t_max)
+    n = node_packed.shape[0]
+    _check("node_packed", node_packed, torch.float32, (n, 8), dev)
+    _check("leaf_packed", leaf_packed, torch.float32,
+           (leaf_packed.shape[0], 10 * K1_LEAF_SLOTS), dev)
+    if ordered and max_depth + 2 > K3B_STACK_CAP:
+        raise ValueError(f"binary tree of depth {max_depth} needs {max_depth + 2} "
+                         f"stack entries; K3 is built with {K3B_STACK_CAP}")
+    out = _hits(r, dev)
+    if r:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = library("k3_traverse_binary").k3_traverse_binary(
+            o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
+            node_packed.data_ptr(), leaf_packed.data_ptr(), n, r, int(any_hit),
+            int(ordered), *(x.data_ptr() for x in out), stream)
+        _raise_on(err, "K3")
+        K3_LAUNCHES["binary_ordered" if ordered else "binary"] += 1
+    return out
 
 
 def _safe_inv(a: torch.Tensor) -> torch.Tensor:
@@ -217,13 +431,84 @@ def traverse_plain(node_packed, leaf_packed, o, d, t_min, t_max, any_hit: bool):
     return best_t, best_prim, best_u, best_v
 
 
-def traverse(bvh, origin, direction, t_min=1e-3, t_max=1e4, any_hit: bool = False):
+def select_kernel(bvh, any_hit: bool = False, *, wide: bool = True,
+                  ordered: bool = False, dual: bool = False, steady_drain: int = 3,
+                  row_cursors: int = 8, q32: bool = False, stats: bool = False) -> str:
+    """The kernel (a name in KERNELS) that `traverse` launches for these
+    options: the rule of the JAX package's `traverse_packet_pallas` / `_run`
+    (``ops/pallas/traversal.py:2546-2669``, ``:2763-2802``), branch by
+    branch. Where that rule tests a Mosaic capacity, the Hopper kernel's own
+    limit takes its place: RC_SCAP and the 64k-node `ptr << 16` packing
+    become K1's stack (`k1_stack_need(wide_depth) <= K1_STACK_CAP`; K1 has
+    no node-count limit) and K1q's (`q32_depth + 1 <= K1Q_STACK_CAP`). A
+    tree they cannot take goes on down the rule (q32 to the width-16 row
+    kernel, that to K2), as in the JAX package; nothing here raises for a
+    tree. The VMEM budgets of `_pallas_mode` and its XLA fallback have no
+    counterpart: on CUDA a kernel always runs. `any_hit` does not enter
+    the rule (`make_any_hit` sets `dual` instead).
+    """
+    del any_hit
+    if not wide:
+        if stats:
+            raise ValueError("the binary walks have no stats output")
+        return "k3_binary_ordered" if ordered else "k3_binary"
+    if row_cursors and q32 and not stats:
+        if (bvh.wnode_q32 is not None and bvh.wnode_meta32 is not None
+                and bvh.q32_leaf_perm is not None
+                and bvh.q32_depth + 1 <= K1Q_STACK_CAP):
+            return "k1q"
+    if row_cursors and not stats and bvh.wnode_meta is not None \
+            and k1_stack_need(bvh.wide_depth) <= K1_STACK_CAP:
+        return "k1"
+    if steady_drain > 0 and not ordered:
+        return "k2_sdd" if dual else "k2_sd"
+    if dual and not ordered:
+        return "k3_wide_dual"
+    return "k3_wide_ordered" if ordered else "k3_wide"
+
+
+def _launch(kernel: str, bvh, o, d, tmin, tmax, any_hit: bool, steady_drain: int,
+            drain_first: bool, stats: bool):
+    """Launch `kernel` (a select_kernel name) on CUDA tensors."""
+    wide_args = (bvh.wnode_packed, bvh.leaf_packed, bvh.wide_depth, o, d, tmin, tmax,
+                 any_hit)
+    if kernel == "k1":
+        return traverse_wide_cuda(*wide_args)
+    if kernel == "k1q":
+        return traverse_q32_cuda(bvh.wnode_q32, bvh.wnode_meta32, bvh.q32_leaf_perm,
+                                 bvh.leaf_packed, bvh.q32_depth, o, d, tmin, tmax,
+                                 any_hit)
+    if kernel in ("k2_sd", "k2_sdd"):
+        dual = kernel == "k2_sdd"
+        return traverse_drain_cuda(*wide_args, drain=steady_drain, dual=dual,
+                                   drain_first=drain_first and dual, stats=stats)
+    if kernel.startswith("k3_binary"):
+        return traverse_binary_cuda(bvh.node_packed, bvh.leaf_packed, bvh.max_depth,
+                                    o, d, tmin, tmax, any_hit,
+                                    ordered=kernel == "k3_binary_ordered")
+    return traverse_wide_k3_cuda(*wide_args, ordered=kernel == "k3_wide_ordered",
+                                 dual=kernel == "k3_wide_dual", stats=stats)
+
+
+def traverse(bvh, origin, direction, t_min=1e-3, t_max=1e4, any_hit: bool = False,
+             *, wide: bool = True, ordered: bool = False, dual: bool = False,
+             steady_drain: int = 3, drain_first: bool = False, row_cursors: int = 8,
+             q32: bool = False, stats: bool = False):
     """Closest-hit (or any-hit) traversal of rays (..., 3) over `bvh`.
 
-    t_min / t_max: floats or tensors broadcastable to the ray shape.
-    Returns (t, prim, u, v) shaped like the rays' leading dims. CPU tensors
-    take the plain walk; CUDA tensors launch K1.
+    t_min / t_max: floats or tensors broadcastable to the ray shape. The
+    keyword options choose the kernel (`select_kernel`); their defaults are
+    those of the JAX package's hit queries (`row_cursors=8`,
+    `steady_drain=3`), which launch K1. `drain_first` applies to K2's dual
+    form, as in the JAX package. Returns (t, prim, u, v) shaped like the
+    rays' leading dims; with `stats`, a fifth tensor (k, ...) int32 of the
+    kernel's per-ray counters (see `traverse_wide_k3_cuda`,
+    `traverse_drain_cuda`). CPU tensors take the plain walk, whatever the
+    options, and have no stats; CUDA tensors launch the selected kernel.
     """
+    kernel = select_kernel(bvh, any_hit, wide=wide, ordered=ordered, dual=dual,
+                           steady_drain=steady_drain, row_cursors=row_cursors,
+                           q32=q32, stats=stats)
     shape = origin.shape[:-1]
     dev = origin.device
     o = origin.reshape(-1, 3).to(torch.float32).contiguous()
@@ -238,11 +523,17 @@ def traverse(bvh, origin, direction, t_min=1e-3, t_max=1e4, any_hit: bool = Fals
 
     tmin, tmax = limit(t_min), limit(t_max)
     if dev.type == "cpu":
+        if stats:
+            raise ValueError("stats count a kernel's schedule; the plain walk on "
+                             "CPU tensors has none")
         out = traverse_plain(bvh.node_packed, bvh.leaf_packed, o, d, tmin, tmax,
                              any_hit)
     elif dev.type == "cuda":
-        out = traverse_wide_cuda(bvh.wnode_packed, bvh.leaf_packed, bvh.wide_depth,
-                                 o, d, tmin, tmax, any_hit)
+        out = _launch(kernel, bvh, o, d, tmin, tmax, any_hit, steady_drain,
+                      drain_first, stats)
     else:
         raise ValueError(f"no traversal for device {dev}")
-    return tuple(x.reshape(shape) for x in out)
+    hits = tuple(x.reshape(shape) for x in out[:4])
+    if stats:
+        return (*hits, out[4].reshape(-1, *shape))
+    return hits

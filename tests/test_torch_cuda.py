@@ -1,4 +1,5 @@
-"""Kernels K1, K4 and K5 on the card, and the guards of their wrappers.
+"""Kernels K1, K1q, K2, K3, K4 and K5 on the card, and the guards of their
+wrappers.
 
 This file imports torch and the port only, never jax, so that it runs on a
 GPU machine without jax (tests/conftest.py imports jax, hence
@@ -8,8 +9,11 @@ GPU machine without jax (tests/conftest.py imports jax, hence
 
 Tests marked `cuda` skip where torch sees no GPU. On the card, K1 must
 return the plain walk's hits: t to rtol 1e-6, prim equal off exact ties,
-any-hit flags equal; the whole frame must match the CPU's under the
-tolerance of tests/test_torch_slice.py. K4 must return its plain version's
+any-hit flags equal; so must every kernel `traverse` selects under the
+traversal options (K1q, K2, K3), each moving its own launch counter by one,
+and K3's binary skip walk must return the plain walk's t bit for bit. The
+PT frame must match the CPU's under the tolerance of
+tests/test_torch_slice.py. K4 must return its plain version's
 depth bit for bit, and K5 its triangle ids, with depth and barycentrics
 within 1e-5 (both walk one table in one order); the rasterized frames must
 match the CPU's under the tolerance of tests/test_torch_raster_slice.py.
@@ -30,7 +34,7 @@ torch.set_num_threads(1)
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("kernels K1, K4 and K5 need an NVIDIA GPU and nvcc")
+        pytest.skip("the CUDA kernels need an NVIDIA GPU and nvcc")
     return torch.device("cuda")
 
 
@@ -108,6 +112,199 @@ def test_pt_frame_on_card_matches_cpu(cuda_device):
         diff = np.abs(img - ref)
         assert (diff.max(axis=-1) <= 1e-3).mean() >= 0.99
         assert diff.mean() <= 1e-3
+
+
+# One traverse() option set per kernel, and the counter it moves.
+_KERNEL_OPTIONS = {
+    "k1": (dict(), "K1_LAUNCHES"),
+    "k1q": (dict(q32=True), "K1Q_LAUNCHES"),
+    "k2_sd": (dict(row_cursors=0), "K2_LAUNCHES"),
+    "k2_sdd": (dict(row_cursors=0, dual=True, drain_first=True), "K2_LAUNCHES"),
+    "k3_binary": (dict(wide=False), "K3_LAUNCHES"),
+    "k3_binary_ordered": (dict(wide=False, ordered=True), "K3_LAUNCHES"),
+    "k3_wide": (dict(row_cursors=0, steady_drain=0), "K3_LAUNCHES"),
+    "k3_wide_ordered": (dict(row_cursors=0, steady_drain=0, ordered=True), "K3_LAUNCHES"),
+    "k3_wide_dual": (dict(row_cursors=0, steady_drain=0, dual=True), "K3_LAUNCHES"),
+}
+
+
+def test_kernel_options_cover_every_kernel():
+    tree = _soup_tree("cpu", n=50)
+    for kernel, (options, _) in _KERNEL_OPTIONS.items():
+        rule = {k: v for k, v in options.items() if k != "drain_first"}
+        assert traversal.select_kernel(tree, **rule) == kernel
+    assert set(_KERNEL_OPTIONS) == set(traversal.KERNELS)
+
+
+def test_traversal_wrappers_refuse_cpu_tensors():
+    tree = _soup_tree("cpu", n=50)
+    o, d, t_min, t_max = _rays("cpu", 8)
+    rays = (o, d, t_min, t_max, False)
+    calls = {
+        "K1q": lambda: traversal.traverse_q32_cuda(
+            tree.wnode_q32, tree.wnode_meta32, tree.q32_leaf_perm, tree.leaf_packed,
+            tree.q32_depth, *rays),
+        "K2": lambda: traversal.traverse_drain_cuda(
+            tree.wnode_packed, tree.leaf_packed, tree.wide_depth, *rays),
+        "K3": lambda: traversal.traverse_binary_cuda(
+            tree.node_packed, tree.leaf_packed, tree.max_depth, *rays),
+        "K3 wide": lambda: traversal.traverse_wide_k3_cuda(
+            tree.wnode_packed, tree.leaf_packed, tree.wide_depth, *rays, ordered=True),
+    }
+    for name, call in calls.items():
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+
+
+@pytest.mark.cuda
+def test_traversal_wrappers_refuse_wrong_tables(cuda_device):
+    tree = _soup_tree(cuda_device, n=200)
+    o, d, t_min, t_max = _rays(cuda_device, 64)
+    rays = (o, d, t_min, t_max, False)
+    with pytest.raises(ValueError, match="wnode_q32"):
+        traversal.traverse_q32_cuda(tree.wnode_q32[:, :64].contiguous(), tree.wnode_meta32,
+                                    tree.q32_leaf_perm, tree.leaf_packed, tree.q32_depth,
+                                    *rays)
+    with pytest.raises(ValueError, match="wnode_meta32"):
+        traversal.traverse_q32_cuda(tree.wnode_q32, tree.wnode_meta32[1:], tree.q32_leaf_perm,
+                                    tree.leaf_packed, tree.q32_depth, *rays)
+    with pytest.raises(ValueError, match="stack entries"):
+        traversal.traverse_q32_cuda(tree.wnode_q32, tree.wnode_meta32, tree.q32_leaf_perm,
+                                    tree.leaf_packed, traversal.K1Q_STACK_CAP, *rays)
+    with pytest.raises(ValueError, match="wnode_packed"):
+        traversal.traverse_drain_cuda(tree.wnode_packed[:, :96].contiguous(),
+                                      tree.leaf_packed, tree.wide_depth, *rays)
+    with pytest.raises(ValueError, match="leaf_packed"):
+        traversal.traverse_drain_cuda(tree.wnode_packed, tree.leaf_packed.view(-1, 60),
+                                      tree.wide_depth, *rays)
+    with pytest.raises(ValueError, match="node_packed"):
+        traversal.traverse_binary_cuda(tree.node_packed[:, :6].contiguous(),
+                                       tree.leaf_packed, tree.max_depth, *rays)
+    with pytest.raises(ValueError, match="stack entries"):
+        traversal.traverse_binary_cuda(tree.node_packed, tree.leaf_packed,
+                                       traversal.K3B_STACK_CAP, *rays, ordered=True)
+    with pytest.raises(ValueError, match="stack"):
+        traversal.traverse_wide_k3_cuda(tree.wnode_packed, tree.leaf_packed, 16, *rays,
+                                        dual=True)
+    with pytest.raises(ValueError, match="t_max"):
+        traversal.traverse_drain_cuda(tree.wnode_packed, tree.leaf_packed, tree.wide_depth,
+                                      o, d, t_min, t_max[:32], False)
+
+
+def _default_scene_primary(device, size=256):
+    """The default scene's BVH on `device` and its camera front at size^2."""
+    from rust_renderer_tpu_torch.ops import pathtrace, rays
+
+    app = Application(size, size, device=device)
+    app.create_scene()
+    view = app.view.with_camera(app.camera, size, size).to(app.device)
+    py, px = pathtrace.pixel_grid(size, size, app.device)
+    o, d = rays.generate_camera_rays(view.inverse_view, view.inverse_projection,
+                                     px.float() + 0.5, py.float() + 0.5, size, size)
+    n = size * size
+    return (app.scene_bvh, o.reshape(n, 3).contiguous(), d.reshape(n, 3).contiguous(),
+            torch.full((n,), 1e-3, device=app.device), torch.full((n,), 1e4, device=app.device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("front", ["soup", "default_primary"])
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("kernel", sorted(_KERNEL_OPTIONS))
+def test_traversal_kernel_matches_plain_on_card(cuda_device, kernel, any_hit, front):
+    if front == "soup":
+        tree = _soup_tree(cuda_device)
+        o, d, t_min, t_max = _rays(cuda_device, 50000)
+    else:
+        tree, o, d, t_min, t_max = _default_scene_primary(cuda_device)
+    options, counter_name = _KERNEL_OPTIONS[kernel]
+    counter = getattr(traversal, counter_name)
+    before = sum(counter.values())
+    got = traversal.traverse(tree, o, d, t_min, t_max, any_hit=any_hit, **options)
+    torch.cuda.synchronize()
+    assert sum(counter.values()) == before + 1
+    want = traversal.traverse_plain(tree.node_packed, tree.leaf_packed, o, d, t_min, t_max,
+                                    any_hit)
+    t1, p1 = (x.cpu().numpy() for x in got[:2])
+    t2, p2 = (x.cpu().numpy() for x in want[:2])
+    np.testing.assert_array_equal(p1 >= 0, p2 >= 0)
+    assert (p2 >= 0).sum() > 1000
+    if not any_hit:
+        hit = p2 >= 0
+        np.testing.assert_allclose(t1[hit], t2[hit], rtol=1e-6)
+        assert np.all((p1 == p2) | np.isclose(t1, t2, rtol=1e-6, atol=0))
+        if kernel == "k3_binary":
+            np.testing.assert_array_equal(t1.view(np.int32), t2.view(np.int32))
+            np.testing.assert_array_equal(p1, p2)
+
+
+@pytest.mark.cuda
+def test_k2_takes_a_tree_k1_refuses(cuda_device):
+    """Nested shells (tests/test_torch_traversal_variants.py::_nested) give a
+    wide tree deeper than K1's stack; the hit queries' defaults send it to
+    K2, which matches the plain walk."""
+    rng = np.random.default_rng(0)
+    tris = []
+    for k in range(20):
+        s = 1e4 * 0.3 ** k
+        c = np.stack([rng.uniform(s / 2, s, 200), rng.uniform(0, s, 200),
+                      rng.uniform(0, s, 200)], 1)
+        e = rng.normal(0.0, s / 20, (200, 2, 3))
+        tris.append(np.stack([c, c + e[:, 0], c + e[:, 1]], 1))
+    pos = np.concatenate(tris).reshape(-1, 3).astype(np.float32)
+    tree = torch_bvh.build_bvh(pos, np.arange(len(pos)).reshape(-1, 3), cuda_device)
+    assert tree.wide_depth > 14
+    n = 50000
+    s = 1e4 * 0.3 ** rng.integers(0, 17, n)
+    o = s[:, None] * rng.uniform(-0.5, 1.5, (n, 3))
+    target = s[:, None] * np.stack([rng.uniform(0.5, 1, n), rng.uniform(0, 1, n),
+                                    rng.uniform(0, 1, n)], 1)
+    d = (target - o) / np.linalg.norm(target - o, axis=-1, keepdims=True)
+    o, d, t_min, t_max = (torch.tensor(x, dtype=torch.float32, device=cuda_device)
+                          for x in (o, d, 1e-6 * s, 4 * s))
+    for any_hit in (False, True):
+        options = dict(row_cursors=8, steady_drain=3, dual=True)
+        assert traversal.select_kernel(tree, any_hit, **options) == "k2_sdd"
+        got = traversal.traverse(tree, o, d, t_min, t_max, any_hit=any_hit,
+                                 drain_first=any_hit, **options)
+        want = traversal.traverse_plain(tree.node_packed, tree.leaf_packed, o, d, t_min,
+                                        t_max, any_hit)
+        p1, p2 = got[1].cpu().numpy(), want[1].cpu().numpy()
+        np.testing.assert_array_equal(p1 >= 0, p2 >= 0)
+        assert (p2 >= 0).sum() > 5000
+        if not any_hit:
+            hit = p2 >= 0
+            np.testing.assert_allclose(got[0].cpu().numpy()[hit], want[0].cpu().numpy()[hit],
+                                       rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_traversal_stats_count_the_walk(cuda_device):
+    """K3's stats count the slab tests of non-empty child slots and the
+    tests of non-empty leaf slots; K2's peak queue depth keeps to its cap,
+    and a one-row queue (every push tests the newest row first) still
+    matches the plain walk."""
+    tree, o, d, t_min, t_max = _default_scene_primary(cuda_device)
+    st = traversal.traverse(tree, o, d, t_min, t_max, row_cursors=0, steady_drain=0,
+                            stats=True)[4]
+    assert tuple(st.shape) == (4, o.shape[0])
+    pops, leaf_pops, boxes, tris = st.long()
+    nodes = pops - leaf_pops
+    assert bool((boxes >= nodes).all()) and bool((boxes <= traversal.K1_WIDTH * nodes).all())
+    assert bool((tris >= leaf_pops).all())
+    assert bool((tris <= traversal.K1_LEAF_SLOTS * leaf_pops).all())
+    assert int(boxes.sum()) < traversal.K1_WIDTH * int(nodes.sum())
+    want = traversal.traverse_plain(tree.node_packed, tree.leaf_packed, o, d, t_min, t_max,
+                                    False)
+    hit = want[1] >= 0
+    for cap in (1, traversal.K2_QUEUE_CAP):
+        got = traversal.traverse_drain_cuda(tree.wnode_packed, tree.leaf_packed,
+                                            tree.wide_depth, o, d, t_min, t_max, False,
+                                            stats=True, queue_cap=cap)
+        assert int(got[4][2].max()) <= cap
+        assert torch.equal(got[1] >= 0, hit)
+        torch.testing.assert_close(got[0][hit], want[0][hit], rtol=1e-6, atol=0)
+        assert bool(((got[1] == want[1]) | torch.isclose(got[0], want[0], rtol=1e-6,
+                                                         atol=0)).all())
 
 
 def _raster_bins(device, vis, n=20000, width=1920, height=1080, seed=21):
