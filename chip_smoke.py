@@ -4,41 +4,60 @@
 
 Builds the traversal kernels (rust_renderer_tpu_torch/csrc/traverse_wide.cu:
 K1 and K3's wide forms; traverse_q32.cu: K1q; traverse_drain.cu: K2;
-traverse_binary.cu: K3's binary walks) and K4 / K5 (csrc/raster_binned.cu)
-with nvcc into rust_renderer_tpu_torch/build/, one nvcc per source, started
-together; then:
+traverse_binary.cu: K3's binary walks; traverse_lq.cu: K3-lq;
+traverse_multi.cu: K3-multi), the seed kernel (csrc/seed_occlusion.cu) and
+K4 / K5 (csrc/raster_binned.cu) with nvcc into rust_renderer_tpu_torch/build/,
+one nvcc per source, started together; then:
 
 1. device: versions, the card's name and power limit, build times;
 2. PT main path: Application(1920, 1080, PATH_TRACED) on the default scene,
-   5 bounces, 4 frames; launch counts, per-frame times, active rays;
+   5 bounces, 4 frames at the StaticConfig defaults (compaction windows of
+   64 / 128 ray blocks, Morton order, seed test of 4 rows), then 4 with
+   those four fields 0; launch counts, per-frame times, active rays, the
+   ratio of the two frame times;
 3. K1 against its plain PyTorch version on the card, on the fronts the PT
    path gives it at 1920x1080, with times;
-4. PT parity: one 128x128 scene on the CPU (plain versions) and on the card;
+4. PT parity: one 128x128 scene at the defaults on the CPU (plain versions)
+   and on the card;
 5. Sponza-scale PT main path: the 260k-triangle scene with the bench's
-   settings (cubemap sky, 5 bounces, 1 spp), 4 frames at 1920x1080; scene
-   and BVH build times (the q32 collapse included), launch counts;
-6. traversal variants (this slice's main path): on the primary, bounce and
-   any-hit fronts of both scenes at 1920x1080, `traverse(...)` under every
-   kernel option set: each launch moves the counter of the kernel that
-   `select_kernel` names, each result is held against the plain walk, each
-   kernel is timed beside K1 on the same front;
+   settings (cubemap sky, 5 bounces, 1 spp), 4 frames at 1920x1080 at the
+   defaults and 4 with the four fields 0; scene and BVH build times (the
+   q32 collapse included), launch counts;
+6. traversal variants: on the primary, bounce and any-hit fronts of both
+   scenes at 1920x1080, `traverse(...)` under every kernel option set (K3-lq
+   at flush_k 4 and 8, K3-multi at m 2, 4 and 8 among them): each launch
+   moves the counter of the kernel that `select_kernel` names, each result
+   is held against the plain walk (K3-multi also against K3 wide, bit for
+   bit), each option set is timed beside K1 on the same front;
 7. K1's bound: K3's stats count the child-box slab tests and triangle
    tests that the walk performs on each front; the bound is the larger of
    operations over 33.5e12 unfused f32 operations/s and bytes over
    3.35 TB/s. K2's leaf-queue depth per ray on each front, with the queue
    uncapped and at K2_QUEUE_CAP, and its scratch bytes per launch;
-8. a tree deeper than K1's stack takes (nested shells, wide depth > 14):
+8. compaction: on the same fronts, `traverse_compacted` around K1 at the
+   frame's two window requests (45 / 81 blocks on a 1080p front, 54 / 90 on
+   the doubled any-hit front), "live" and "morton" orders, and around
+   K3-multi (m = 4) on the any-hit fronts: hits bit-equal to K1's; device
+   times of the permutation alone and of the walk of the permuted front,
+   event times of the permutation and of the whole call, beside K1 alone;
+   the live-lane share;
+9. seed test: on the any-hit front of each scene, the seed kernel against
+   its plain version, seeded any-hit against the walk, the share of rays
+   it kills, its time beside K1's and its bound;
+10. a tree deeper than K1's stack takes (nested shells, wide depth > 14):
    the hit queries send it to K2, which matches the plain walk;
-9. RASTERIZED main path: Application(1920, 1080, RASTERIZED), default
-   StaticConfig (4 shadow cascades of 4096^2, 512^2 cubemap), marching
-   cubes on, 4 frames; launch counts, frame times (frame 1, which captures
-   the environment, apart), per-pass times of one more frame;
-10. MINIMAL main path: the same at 1920x1080;
-11. K4 against its plain version on the 4 cascades of the default scene at
+11. RASTERIZED main path: Application(1920, 1080, RASTERIZED), default
+   StaticConfig (4 shadow cascades of 4096^2, 512^2 cubemap; RT shadows
+   seeded), marching cubes on, 4 frames; launch counts, frame times (frame
+   1, which captures the environment, apart), per-pass times of one more
+   frame;
+12. MINIMAL main path: the same at 1920x1080;
+13. K4 against its plain version on the 4 cascades of the default scene at
    4096^2, and K5 on the marching-cubes front at 1920x1080 over the gbuffer
    depth, with times, global-list lengths, longest segments and bounds;
-12. raster parity: one small RASTERIZED frame with marching cubes on the CPU
-   (brute rasterizer, plain walk) and on the card (K4, K5, K1).
+14. raster parity: one small RASTERIZED frame with marching cubes on the CPU
+   (brute rasterizer, plain walk) and on the card (K4, K5, K1, the seed
+   kernel).
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after. Every failed check raises. Exits non-zero, printing no
@@ -74,30 +93,43 @@ SOURCES = {
     "k3_wide": (f"{CSRC}/traverse_wide.cu", f"{TPU}:403"),
     "k3_wide_ordered": (f"{CSRC}/traverse_wide.cu", f"{TPU}:403"),
     "k3_wide_dual": (f"{CSRC}/traverse_wide.cu", f"{TPU}:2080"),
+    "k3_wide_lq": (f"{CSRC}/traverse_lq.cu", f"{TPU}:620"),
+    "k3_wide_multi": (f"{CSRC}/traverse_multi.cu", f"{TPU}:2296"),
+    # No TPU kernel: XLA fused make_seed_test's tensor code.
+    "seed": (f"{CSRC}/seed_occlusion.cu", "rust_renderer_tpu/ops/bvh.py:843"),
     "k4": (f"{CSRC}/raster_binned.cu", "rust_renderer_tpu/ops/raster_binned.py:258"),
     "k5": (f"{CSRC}/raster_binned.cu", "rust_renderer_tpu/ops/raster_binned.py:304"),
 }
-# traverse() options that select each traversal kernel (any-hit fronts add
-# drain_first to K2's dual form, as make_any_hit does).
+# traverse() option sets, by label: the kernel each selects and its options
+# (any-hit fronts add drain_first to K2's dual form, as make_any_hit does).
+# K3-lq runs at two flush sizes, K3-multi at three widths.
 VARIANTS = {
-    "k1": dict(),
-    "k1q": dict(q32=True),
-    "k2_sd": dict(row_cursors=0),
-    "k2_sdd": dict(row_cursors=0, dual=True),
-    "k3_binary": dict(wide=False),
-    "k3_binary_ordered": dict(wide=False, ordered=True),
-    "k3_wide": dict(row_cursors=0, steady_drain=0),
-    "k3_wide_ordered": dict(row_cursors=0, steady_drain=0, ordered=True),
-    "k3_wide_dual": dict(row_cursors=0, steady_drain=0, dual=True),
+    "k1": ("k1", dict()),
+    "k1q": ("k1q", dict(q32=True)),
+    "k2_sd": ("k2_sd", dict(row_cursors=0)),
+    "k2_sdd": ("k2_sdd", dict(row_cursors=0, dual=True)),
+    "k3_binary": ("k3_binary", dict(wide=False)),
+    "k3_binary_ordered": ("k3_binary_ordered", dict(wide=False, ordered=True)),
+    "k3_wide": ("k3_wide", dict(row_cursors=0, steady_drain=0)),
+    "k3_wide_ordered": ("k3_wide_ordered", dict(row_cursors=0, steady_drain=0, ordered=True)),
+    "k3_wide_dual": ("k3_wide_dual", dict(row_cursors=0, steady_drain=0, dual=True)),
+    "k3_wide_lq4": ("k3_wide_lq", dict(row_cursors=0, steady_drain=0, leaf_queue=4)),
+    "k3_wide_lq8": ("k3_wide_lq", dict(row_cursors=0, steady_drain=0, leaf_queue=8)),
+    "k3_wide_multi2": ("k3_wide_multi", dict(row_cursors=0, multi=2)),
+    "k3_wide_multi4": ("k3_wide_multi", dict(row_cursors=0, multi=4)),
+    "k3_wide_multi8": ("k3_wide_multi", dict(row_cursors=0, multi=8)),
 }
+# The option set whose times stand for a kernel in the kernels line.
+LINE_VARIANT = {"k3_wide_lq": "k3_wide_lq4", "k3_wide_multi": "k3_wide_multi4"}
 T_RTOL = 1e-5
 VIS_ATOL = 1e-5
 # Kernels whose walk tests every child box of a node before any leaf: with
 # best_t tightened later, they may return a hit that lies outside its own
 # leaf box where the plain walk culls that box (`outside_own_box`). At most
-# this many such rays per front pass.
+# this many such rays per front pass. K3-lq defers its leaves; K3-multi walks
+# K3 wide's walk per ray (and is held to K3 wide's hits bit for bit).
 OUTSIDE_BOX_KERNELS = ("k1q", "k2_sd", "k2_sdd", "k3_wide", "k3_wide_ordered",
-                       "k3_wide_dual")
+                       "k3_wide_dual", "k3_wide_lq", "k3_wide_multi")
 OUTSIDE_BOX_MAX = 4
 # The card's peaks (H100 SXM data sheet: 67 TFLOP/s in f32 counts an FMA as
 # two operations). The kernels are built with -fmad=false, so each counted
@@ -112,6 +144,9 @@ K2_QUEUE_UNCAPPED = 1024
 # + 6 (t) + 1 add + 5 compares.
 BOX_TEST_OPS = 25
 TRI_TEST_OPS = 52
+# A slot rejected at its determinant (|det| <= 1e-12: every slot of a ray
+# with a zero direction) costs the 9 + 5 + 1 operations up to that compare.
+TRI_DET_REJECT_OPS = 15
 # K4 / K5 per (row, pixel) test (csrc/raster_binned.cu): 3 edges x 3 ops, 3
 # compares, the depth 6 (K4) or the barycentrics and depth 8 (K5), the
 # depth compare / select 2.
@@ -122,16 +157,25 @@ SPONZA_CFG = dict(num_bounces=BOUNCES, samples_per_frame=1, sky_mode="cubemap",
                   cubemap_size=256, cubemap_mips=8, irradiance_size=32,
                   brdf_lut_size=128)
 DEEP_LEVELS, DEEP_PER, DEEP_RATIO, DEEP_SIZE = 20, 200, 0.3, 1e4
+# The PT frame's compaction windows (StaticConfig.compact_window and
+# compact_window_any, in ray blocks) and seed rows.
+COMPACT_CLOSEST, COMPACT_ANY, SEED_ROWS = 64, 128, 4
+SCHEDULES_OFF = dict(compact_window=0, compact_window_any=0, seed_rows=0)
+SCHEDULE_PAIRS = 3
 # Kernel timing: cycles the card spins per timed call before a timed run
-# (~2 ms at the H100's 1.98 GHz; `device_ms` checks that the spin outlasts
-# the host's enqueueing), and rounds of TIMING_REPS calls per kernel and
-# front, in turns.
-SPIN_CYCLES_PER_CALL = 4_000_000
-TIMING_ROUNDS, TIMING_REPS = 3, 10
+# (~0.5 ms at the H100's 1.98 GHz; `device_ms` checks that the spin outlasts
+# the host's enqueueing, and lengthens it if not), and rounds of TIMING_REPS
+# calls per kernel and front, in turns.
+SPIN_CYCLES_PER_CALL = 1_000_000
+TIMING_ROUNDS, TIMING_REPS = 3, 5
+
+
+START = time.perf_counter()
 
 
 def log(*args) -> None:
-    print(*args, flush=True)
+    """A line of the report, stamped with the seconds since the start."""
+    print(f"[{time.perf_counter() - START:6.1f} s]", *args, flush=True)
 
 
 def card_line() -> str:
@@ -150,6 +194,16 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def timed(fn) -> tuple:
+    """fn()'s result and its milliseconds, by CUDA events around one call."""
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
 
 
 def device_ms(fn, reps: int) -> float:
@@ -177,8 +231,11 @@ def device_ms(fn, reps: int) -> float:
 class Launches:
     """The kernels' launch counters: zeroed before a main path, read after."""
 
-    def __init__(self, traversal, raster_binned):
-        self.traversal, self.raster_binned = traversal, raster_binned
+    K3_VARIANTS = ("binary", "binary_ordered", "wide", "wide_ordered", "wide_dual",
+                   "wide_lq", "wide_multi")
+
+    def __init__(self, traversal, raster_binned, bvh_ops):
+        self.traversal, self.raster_binned, self.bvh_ops = traversal, raster_binned, bvh_ops
 
     def reset(self) -> None:
         for counter in (self.traversal.K1_LAUNCHES, self.traversal.K1Q_LAUNCHES,
@@ -186,26 +243,27 @@ class Launches:
             counter.clear()
         self.raster_binned.K4_LAUNCHES = 0
         self.raster_binned.K5_LAUNCHES = 0
+        self.bvh_ops.SEED_LAUNCHES = 0
 
     def read(self) -> dict:
         t = self.traversal
         got = {"k1_closest": t.K1_LAUNCHES["closest"], "k1_any_hit": t.K1_LAUNCHES["any_hit"],
                "k1q": sum(t.K1Q_LAUNCHES.values()),
-               "k4": self.raster_binned.K4_LAUNCHES, "k5": self.raster_binned.K5_LAUNCHES}
+               "k4": self.raster_binned.K4_LAUNCHES, "k5": self.raster_binned.K5_LAUNCHES,
+               "seed": self.bvh_ops.SEED_LAUNCHES}
         for variant in ("sd", "sdd"):
             got[f"k2_{variant}"] = t.K2_LAUNCHES[variant]
-        for variant in ("binary", "binary_ordered", "wide", "wide_ordered", "wide_dual"):
+        for variant in Launches.K3_VARIANTS:
             got[f"k3_{variant}"] = t.K3_LAUNCHES[variant]
         return got
 
     @staticmethod
-    def frame_want(k1_closest: int, k1_any_hit: int, k4: int, k5: int) -> dict:
-        """Per-frame counts of a frame: K1, K4, K5 as given, 0 on every
-        other kernel."""
+    def frame_want(k1_closest: int, k1_any_hit: int, k4: int, k5: int, seed: int = 0) -> dict:
+        """Per-frame counts of a frame: K1, K4, K5 and the seed kernel as
+        given, 0 on every other kernel."""
         want = dict.fromkeys(
-            ("k1q", "k2_sd", "k2_sdd", "k3_binary", "k3_binary_ordered", "k3_wide",
-             "k3_wide_ordered", "k3_wide_dual"), 0)
-        want.update(k1_closest=k1_closest, k1_any_hit=k1_any_hit, k4=k4, k5=k5)
+            ("k1q", "k2_sd", "k2_sdd", *(f"k3_{v}" for v in Launches.K3_VARIANTS)), 0)
+        want.update(k1_closest=k1_closest, k1_any_hit=k1_any_hit, k4=k4, k5=k5, seed=seed)
         return want
 
 
@@ -243,7 +301,40 @@ def run_frames(label: str, app, launches: Launches, want: dict) -> dict:
     steady = sorted(frame_ms[1:])[len(frame_ms[1:]) // 2]
     log(f"{label} {WIDTH}x{HEIGHT}: frame ms {[round(x, 2) for x in frame_ms]}, "
         f"frame 1 {frame_ms[0]:.1f} ms, median of frames 2-{FRAMES} {steady:.1f} ms")
-    return got
+    return got, steady
+
+
+def pt_schedules(label, app, launches, counted) -> None:
+    """The PT main path at the StaticConfig defaults (compaction windows and
+    the seed test on), then frames with the four fields off and on in turns
+    (SCHEDULE_PAIRS of each; frame times drift across a call, so the two
+    are compared in turns): launch counts (K1's unchanged; the seed kernel
+    once per any-hit front when on), both medians and their ratio."""
+    per_frame = dict(k1_closest=1 + BOUNCES, k1_any_hit=BOUNCES, k4=0, k5=0)
+    counted.update(run_frames(label, app, launches,
+                              Launches.frame_want(**per_frame, seed=BOUNCES))[0])
+    on_cfg, off_cfg = app.cfg, app.cfg.replace(**SCHEDULES_OFF)
+    times = {"off": [], "on": []}
+    for i in range(2 * SCHEDULE_PAIRS):
+        key = "on" if i % 2 else "off"
+        app.cfg = on_cfg if key == "on" else off_cfg
+        launches.reset()
+        start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        app.render_frame()
+        stop.record()
+        torch.cuda.synchronize()
+        times[key].append(start.elapsed_time(stop))
+        got = launches.read()
+        want = Launches.frame_want(**per_frame, seed=BOUNCES if key == "on" else 0)
+        if got != want:
+            raise AssertionError(f"{label} (schedules {key}): launches {got}, expected {want}")
+        counted.update(got)
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    log(f"{label}: frames in turns, off / on: {[round(x, 2) for x in times['off']]} / "
+        f"{[round(x, 2) for x in times['on']]} ms; median at the StaticConfig defaults "
+        f"{med['on']:.1f} ms, with compact_window, compact_window_any and seed_rows 0 "
+        f"{med['off']:.1f} ms, ratio {med['on'] / med['off']:.3f}")
 
 
 def pass_times(label: str, app) -> dict:
@@ -383,22 +474,24 @@ def make_fronts(app, traversal, rays, pathtrace) -> dict:
 
 
 def k1_phase(app, traversal, fronts) -> dict:
-    """K1 against the plain walk on 1080p fronts of the default scene."""
+    """K1 against the plain walk on 1080p fronts of the default scene. The
+    plain walk runs once per front (timed by CUDA events); its hits and
+    time are returned under "plain" for the variants phase."""
     bvh = app.scene_bvh
-    result = {"max_abs_err": 0.0}
+    result = {"max_abs_err": 0.0, "plain": {}}
     for name, (fo, fd, fmin, fmax, any_hit) in fronts.items():
         k1 = lambda: traversal.traverse_wide_cuda(bvh.wnode_packed, bvh.leaf_packed,
                                                   bvh.wide_depth, fo, fd, fmin, fmax,
                                                   any_hit)
-        plain = lambda: traversal.traverse_plain(bvh.node_packed, bvh.leaf_packed,
-                                                 fo, fd, fmin, fmax, any_hit)
-        got, want = k1(), plain()
+        want, plain_ms = timed(lambda: traversal.traverse_plain(
+            bvh.node_packed, bvh.leaf_packed, fo, fd, fmin, fmax, any_hit))
+        result["plain"][name] = (want, plain_ms)
+        got = k1()
         torch.cuda.synchronize()
         err = compare_hits(name, got, want, any_hit)[0]
-        k1(), plain()  # warm-up
+        k1()  # warm-up
         k1_ms = cuda_ms(k1, 20)
         k1_device_ms = device_ms(k1, 20)
-        plain_ms = cuda_ms(plain, 2)
         live = int((fd * fd).sum(dim=1).gt(0).sum())
         log(f"kernel K1 front={name} rays={fd.shape[0]} live={live} "
             f"hits={int((got[1] >= 0).sum())} max_abs_err_t={err:.3e} "
@@ -454,7 +547,7 @@ def walk_counts(traversal, bvh, front) -> dict:
     and their operations."""
     fo, fd, fmin, fmax, any_hit = front
     stats = traversal.traverse(bvh, fo, fd, fmin, fmax, any_hit=any_hit,
-                               **VARIANTS["k3_wide"], stats=True)[4]
+                               **VARIANTS["k3_wide"][1], stats=True)[4]
     pops, leaf_pops, box_tests, tri_tests = (
         int(x) for x in stats.sum(dim=1, dtype=torch.int64))
     ops = box_tests * BOX_TEST_OPS + tri_tests * TRI_TEST_OPS
@@ -503,71 +596,87 @@ def k2_queue(traversal, bvh, front) -> str:
     return "; ".join(parts)
 
 
-def variants_phase(label, bvh, fronts, traversal, launches) -> dict:
-    """Every traversal kernel through traverse(...) on each front, counted
-    (the main path of this slice), then held against the plain walk and
-    timed beside K1. Returns per-kernel launches and results."""
+def moved_by(launches, call) -> tuple:
+    """call()'s result and the launch counts it moved."""
+    before = launches.read()
+    out = call()
+    return out, {k: v - before[k] for k, v in launches.read().items() if v != before[k]}
+
+
+def variant_options(label: str, any_hit: bool) -> dict:
+    kernel, options = VARIANTS[label]
+    return dict(options, drain_first=any_hit and kernel == "k2_sdd")
+
+
+def variants_phase(label, bvh, fronts, traversal, launches, plain=None) -> dict:
+    """Every traversal option set through traverse(...) on each front,
+    counted (the main path of this slice), then held against the plain walk
+    (K3-multi also against K3 wide, bit for bit) and timed beside K1.
+    `plain`: front -> (plain walk's hits, its ms) where already known.
+    Returns per-label launches and results."""
     launches.reset()
     outputs = {}
+    results = {k: {"max_abs_err": 0.0, "outside_own_box": 0, "launches": 0} for k in VARIANTS}
     for fname, (fo, fd, fmin, fmax, any_hit) in fronts.items():
-        for kernel, options in VARIANTS.items():
-            options = dict(options, drain_first=any_hit and kernel == "k2_sdd")
+        for name, (kernel, _) in VARIANTS.items():
+            options = variant_options(name, any_hit)
             rule = {k: v for k, v in options.items() if k != "drain_first"}
-            if traversal.select_kernel(bvh, any_hit, **rule) != kernel:
+            if traversal.select_kernel(bvh, any_hit, ray_shape=fo.shape[:-1], **rule) != kernel:
                 raise AssertionError(f"{label} {fname}: options {rule} do not select {kernel}")
-            before = launches.read()
-            outputs[fname, kernel] = traversal.traverse(bvh, fo, fd, fmin, fmax,
-                                                        any_hit=any_hit, **options)
-            moved = {k: v - before[k] for k, v in launches.read().items() if v != before[k]}
+            outputs[fname, name], moved = moved_by(launches, functools.partial(
+                traversal.traverse, bvh, fo, fd, fmin, fmax, any_hit=any_hit, **options))
             key = "k1_any_hit" if kernel == "k1" and any_hit else (
                 "k1_closest" if kernel == "k1" else kernel)
             if moved != {key: 1}:
-                raise AssertionError(f"{label} {fname} {kernel}: launches moved {moved}")
+                raise AssertionError(f"{label} {fname} {name}: launches moved {moved}")
+            results[name]["launches"] += moved[key]
     torch.cuda.synchronize()
     counted = launches.read()
     log(f"{label} variants launches {counted}")
-    results = {k: {"max_abs_err": 0.0, "outside_own_box": 0} for k in VARIANTS}
     for fname, front in fronts.items():
         fo, fd, fmin, fmax, any_hit = front
-        plain = lambda: traversal.traverse_plain(bvh.node_packed, bvh.leaf_packed, fo, fd,
-                                                 fmin, fmax, any_hit)
-        t0 = time.perf_counter()
-        want = plain()
-        torch.cuda.synchronize()
-        plain_ms = (time.perf_counter() - t0) * 1e3
+        if plain and fname in plain:
+            want, plain_ms = plain[fname]
+        else:
+            want, plain_ms = timed(lambda: traversal.traverse_plain(
+                bvh.node_packed, bvh.leaf_packed, fo, fd, fmin, fmax, any_hit))
         counts = walk_counts(traversal, bvh, front)
         bound = walk_bound(counts, bvh, "k1")
         log(f"{label} front={fname} K2 leaf queue: {k2_queue(traversal, bvh, front)}")
         runs = {}
-        for kernel, options in VARIANTS.items():
-            got = outputs[fname, kernel]
+        for name, (kernel, _) in VARIANTS.items():
+            got = outputs[fname, name]
             exempt = kernel in OUTSIDE_BOX_KERNELS
-            err, outside = compare_hits(f"{label} {fname} {kernel}", got, want, any_hit,
+            err, outside = compare_hits(f"{label} {fname} {name}", got, want, any_hit,
                                         bvh if exempt else None,
                                         (fo, fd, fmin) if exempt else None)
-            results[kernel]["outside_own_box"] += outside
+            results[name]["outside_own_box"] += outside
             if kernel == "k3_binary" and not any_hit and not (
                     torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
                 raise AssertionError(f"{label} {fname}: K3 binary is not bit-equal")
-            results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
-            runs[kernel] = functools.partial(
-                traversal.traverse, bvh, fo, fd, fmin, fmax, any_hit=any_hit,
-                **options, drain_first=any_hit and kernel == "k2_sdd")
-            runs[kernel]()  # warm-up
-        times = {kernel: [] for kernel in runs}
+            wide = outputs[fname, "k3_wide"]
+            if kernel == "k3_wide_multi" and not (
+                    torch.equal(got[0].view(torch.int32), wide[0].view(torch.int32))
+                    and torch.equal(got[1], wide[1])):
+                raise AssertionError(f"{label} {fname} {name}: not K3 wide's hits bit for bit")
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+            runs[name] = functools.partial(traversal.traverse, bvh, fo, fd, fmin, fmax,
+                                           any_hit=any_hit, **variant_options(name, any_hit))
+            runs[name]()  # warm-up
+        times = {name: [] for name in runs}
         for i in range(TIMING_ROUNDS):
-            for kernel in list(runs)[::1 if i % 2 == 0 else -1]:
-                times[kernel].append(device_ms(runs[kernel], TIMING_REPS))
+            for name in list(runs)[::1 if i % 2 == 0 else -1]:
+                times[name].append(device_ms(runs[name], TIMING_REPS))
         line = []
-        for kernel, ts in times.items():
+        for name, ts in times.items():
             ms = sorted(ts)[len(ts) // 2]
-            r = results[kernel]
+            r = results[name]
             r[fname] = ms
             if fname == "primary":
-                kb = walk_bound(counts, bvh, kernel)
+                kb = walk_bound(counts, bvh, VARIANTS[name][0])
                 r.update(ms=ms, plain_ms=plain_ms, bound_ms=kb["bound_ms"],
                          bound_by=kb["bound_by"])
-            line.append(f"{kernel} {ms:.4f} ({min(ts):.4f}-{max(ts):.4f})")
+            line.append(f"{name} {ms:.4f} ({min(ts):.4f}-{max(ts):.4f})")
         log(f"{label} front={fname} rays={fo.shape[0]} hits={int((want[1] >= 0).sum())} "
             f"plain_ms={plain_ms:.1f} (one run) pops={counts['pops']} "
             f"leaf_pops={counts['leaf_pops']} box_tests={counts['box_tests']} "
@@ -575,9 +684,6 @@ def variants_phase(label, bvh, fronts, traversal, launches) -> dict:
             f"({bound['bound_by']}: {counts['ops']:.3e} ops, every slot counted "
             f"{counts['all_slots_ops']:.3e}; {bound['bytes']:.3e} B); "
             f"device ms, median (range) of {TIMING_ROUNDS} rounds: " + ", ".join(line))
-    for kernel, r in results.items():
-        r["launches"] = counted["k1_closest"] + counted["k1_any_hit"] if kernel == "k1" \
-            else counted[kernel]
     return results
 
 
@@ -641,6 +747,154 @@ def deep_tree_phase(traversal, bvh_ops, launches) -> dict:
         log(f"kernel K2 sdd deep tree any_hit={any_hit}: hits={int((want[1] >= 0).sum())} "
             f"max_abs_err_t={err:.3e} k2_ms={ms:.4f}")
     return {"max_abs_err": err, "launches": got["k2_sdd"]}
+
+
+# -- compaction and the seed test ------------------------------------------------
+
+
+def compaction_phase(label, bvh, fronts, traversal, compaction, launches) -> dict:
+    """K1 within compaction windows on each front, at the PT frame's two
+    requests (COMPACT_CLOSEST and COMPACT_ANY ray blocks, snapped to the
+    front) in "live" and "morton" order: hits bit-equal to K1's on the
+    unpermuted front; the device time of K1 on the permuted front beside K1
+    alone, of the permutation alone (around a walk that does nothing), and
+    the times of the permutation and of the whole call by CUDA events
+    around back-to-back calls (a few dozen small launches each, so the
+    host's enqueueing shows); each front's live-lane share. On the any-hit front also
+    K3-multi (m = 4) within the windows, the JAX front bench's `compact`
+    composition. Returns the launches of the checked calls."""
+    counted = collections.Counter()
+    for fname, (fo, fd, fmin, fmax, any_hit) in fronts.items():
+        n = fo.shape[0]
+        k1 = functools.partial(traversal.traverse, bvh, fo, fd, fmin, fmax, any_hit=any_hit)
+        want = k1()
+        runs = [(f"{order} window {compaction.window_blocks_for(n, request)}",
+                 dict(window_blocks=request, order=order), "k1_any_hit" if any_hit else "k1_closest")
+                for request in (COMPACT_CLOSEST, COMPACT_ANY) for order in ("live", "morton")]
+        if any_hit:
+            runs.append((f"morton window {compaction.window_blocks_for(n, COMPACT_ANY)} + "
+                         f"K3-multi m=4", dict(window_blocks=COMPACT_ANY, order="morton",
+                                               row_cursors=0, multi=4), "k3_wide_multi"))
+        nothing = (torch.zeros(n, device=fo.device), torch.full((n,), -1, dtype=torch.int32,
+                                                                device=fo.device),
+                   torch.zeros(n, device=fo.device), torch.zeros(n, device=fo.device))
+        parts = [f"live lanes {float((fd * fd).sum(dim=1).gt(0).float().mean()):.4f}",
+                 f"K1 alone {device_ms(k1, TIMING_REPS):.4f}"]
+        for tag, kw, key in runs:
+            call = functools.partial(compaction.traverse_compacted, bvh, fo, fd, fmin, fmax,
+                                     any_hit=any_hit, **kw)
+            got, moved = moved_by(launches, call)
+            if moved != {key: 1}:
+                raise AssertionError(f"{label} {fname} compaction {tag}: launches moved {moved}")
+            counted[key] += moved[key]
+            torch.cuda.synchronize()
+            same = torch.equal(got[1], want[1]) and (any_hit or torch.equal(
+                got[0].view(torch.int32), want[0].view(torch.int32)))
+            if not same:
+                raise AssertionError(f"{label} {fname} compaction {tag}: hits differ from K1's")
+            permuted = []
+
+            def capture(bvh_, o, d, t0, t1, **k):
+                permuted.append((o, d, t0, t1))
+                return nothing
+
+            compaction.traverse_compacted(bvh, fo, fd, fmin, fmax, any_hit=any_hit, **kw,
+                                          trav=lambda *a, **k: nothing)
+            compaction.traverse_compacted(bvh, fo, fd, fmin, fmax, any_hit=any_hit, **kw,
+                                          trav=capture)
+            options = {k: v for k, v in kw.items() if k not in ("window_blocks", "order")}
+            walk = functools.partial(traversal.traverse, bvh, *permuted[0], any_hit=any_hit,
+                                     **options)
+            permute = functools.partial(
+                compaction.traverse_compacted, bvh, fo, fd, fmin, fmax, any_hit=any_hit, **kw,
+                trav=lambda *a, **k: nothing)
+            parts.append(f"{tag}: walk of the permuted front {device_ms(walk, TIMING_REPS):.4f} "
+                         f"(device), permutation alone {device_ms(permute, TIMING_REPS):.4f} "
+                         f"(device) {cuda_ms(permute, TIMING_REPS):.4f} (events), whole call "
+                         f"{cuda_ms(call, TIMING_REPS):.4f} (events)")
+        log(f"{label} front={fname} compaction (ms; hits bit-equal to K1's): "
+            + "; ".join(parts))
+    return counted
+
+
+def seed_tests(bvh_ops, rows, fo, fd, fmin, fmax) -> tuple[int, int]:
+    """The triangle tests the seed kernel performs on these rays, as (tests
+    that pass the determinant, tests rejected at it): each ray tests the
+    live slots in order up to its first occluder, or all."""
+    ls = rows.shape[1] // 10
+    ids = rows[:, 9 * ls:].contiguous().view(torch.int32)
+    open_ = torch.ones(fo.shape[0], dtype=torch.bool, device=fo.device)
+    whole = rejected = 0
+    for r, s in torch.nonzero(ids >= 0).tolist():
+        e1, e2 = rows[r, 9 * s + 3:9 * s + 6], rows[r, 9 * s + 6:9 * s + 9]
+        px = fd[:, 1] * e2[2] - fd[:, 2] * e2[1]
+        py = fd[:, 2] * e2[0] - fd[:, 0] * e2[2]
+        pz = fd[:, 0] * e2[1] - fd[:, 1] * e2[0]
+        passed = (e1[0] * px + e1[1] * py + e1[2] * pz).abs() > 1e-12
+        whole += int((open_ & passed).sum())
+        rejected += int((open_ & ~passed).sum())
+        one = rows[r:r + 1].clone()
+        one_ids = one[:, 9 * ls:].view(torch.int32)
+        one_ids[:] = -1
+        one_ids[0, s] = ids[r, s]
+        open_ &= ~bvh_ops.seed_occlusion_plain(one, fo, fd, fmin, fmax)
+    return whole, rejected
+
+
+def seed_phase(label, bvh, fronts, traversal, bvh_ops, launches) -> dict:
+    """The seed test (SEED_ROWS rows) on the any-hit front: the kernel
+    against its plain version (verdicts equal), seed-then-walk against the
+    walk (flags equal, every verdict a true occlusion), the share of rays
+    it kills, device times of the kernel and of K1 on the seeded front
+    beside K1 alone, the time of both in a row (CUDA events: the seed
+    test's few small launches around the kernel are host-bound), and the
+    kernel's bound."""
+    fo, fd, fmin, fmax, _ = fronts["nee_any_hit"]
+    seed = bvh_ops.make_seed_test(bvh, SEED_ROWS)
+    rows = bvh.leaf_packed[torch.as_tensor(bvh_ops.seed_leaf_rows(bvh, SEED_ROWS),
+                                           device=fo.device)].contiguous()
+    occ, moved = moved_by(launches, lambda: seed(fo, fd, fmin, fmax))
+    if moved != {"seed": 1}:
+        raise AssertionError(f"{label} seed: launches moved {moved}")
+    plain = lambda: bvh_ops.seed_occlusion_plain(rows, fo, fd, fmin, fmax)
+    differ = int((occ != plain()).sum())
+    if differ:
+        raise AssertionError(f"{label} seed: {differ} of the kernel's verdicts differ from its "
+                             f"plain version")
+    k1 = functools.partial(traversal.traverse, bvh, fo, fd, fmin, fmax, any_hit=True)
+    seeded_d = torch.where(occ[:, None], 0.0, fd)
+    k1_seeded = functools.partial(traversal.traverse, bvh, fo, seeded_d, fmin, fmax,
+                                  any_hit=True)
+    occluded = k1()[1] >= 0
+    if not torch.equal(occluded, (k1_seeded()[1] >= 0) | occ):
+        raise AssertionError(f"{label} seed: seeded any-hit flags differ from the walk's")
+    if bool((occ & ~occluded).any()):
+        raise AssertionError(f"{label} seed: a seeded ray is not occluded")
+
+    def both():
+        o = seed(fo, fd, fmin, fmax)
+        return traversal.traverse(bvh, fo, torch.where(o[:, None], 0.0, fd), fmin, fmax,
+                                  any_hit=True)
+
+    ms = device_ms(lambda: bvh_ops.seed_occlusion_cuda(rows, fo, fd, fmin, fmax), TIMING_REPS)
+    plain_ms = cuda_ms(plain, 1)
+    n, live = fo.shape[0], int((fd * fd).sum(dim=1).gt(0).sum())
+    whole, rejected = seed_tests(bvh_ops, rows, fo, fd, fmin, fmax)
+    n_tris = int((rows[:, 9 * 12:].contiguous().view(torch.int32) >= 0).sum())
+    ops_ms = (whole * TRI_TEST_OPS + rejected * TRI_DET_REJECT_OPS) / F32_OPS * 1e3
+    bytes_ms = (n * (6 + 2) * 4 + n + rows.numel() * 4) / HBM_BYTES_S * 1e3
+    log(f"{label} seed test ({SEED_ROWS} rows, {n_tris} triangles) on the NEE front: "
+        f"{n} rays, {live} live, {int(occluded.sum())} occluded, seeded {int(occ.sum())} "
+        f"({int(occ.sum()) / max(live, 1):.4f} of live, {int(occ.sum()) / max(int(occluded.sum()), 1):.4f} "
+        f"of occluded); device ms: seed kernel {ms:.4f}, K1 alone {device_ms(k1, TIMING_REPS):.4f}, "
+        f"K1 on the seeded front {device_ms(k1_seeded, TIMING_REPS):.4f}; seed test + K1 "
+        f"{cuda_ms(both, TIMING_REPS):.4f} (events); plain version {plain_ms:.3f} ms; "
+        f"verdicts differing from it {differ}; {whole + rejected} triangle tests, {rejected} "
+        f"of them rejected at the determinant; bound {max(ops_ms, bytes_ms):.4f} ms")
+    return {"max_abs_err": float(differ), "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": max(ops_ms, bytes_ms),
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+            "launches": moved["seed"]}
 
 
 # -- rasterizer ----------------------------------------------------------------
@@ -794,8 +1048,8 @@ def main() -> int:
     from rust_renderer_tpu_torch.app.main import Application
     from rust_renderer_tpu_torch.models import create_sponza_scale_scene
     from rust_renderer_tpu_torch.ops import (
-        bvh as bvh_ops, marching_cubes, pathtrace, raster, raster_binned, rays, shadow,
-        traversal)
+        bvh as bvh_ops, compaction, marching_cubes, pathtrace, raster, raster_binned, rays,
+        shadow, traversal)
     from rust_renderer_tpu_torch.settings import RenderGraphMode, StaticConfig
 
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -812,19 +1066,18 @@ def main() -> int:
     for lib in (*traversal.SOURCES, "k45_raster_binned"):
         with open(f"{native.BUILD_DIR}/lib{lib}.so.log") as f:
             log(f.read().strip())
-    launches = Launches(traversal, raster_binned)
+    launches = Launches(traversal, raster_binned, bvh_ops)
     counted = collections.Counter()
     fronts, bvhs = {}, {}
 
-    # PATH_TRACED.
+    # PATH_TRACED, at the StaticConfig defaults and with the schedules off.
     t0 = time.perf_counter()
     app = Application(WIDTH, HEIGHT, cfg=StaticConfig(num_bounces=BOUNCES), device="cuda")
     app.create_scene()
     log(f"PT: scene + BVH build {time.perf_counter() - t0:.3f} s, "
         f"{app.scene.num_triangles} triangles, {app.scene_bvh.wnode_packed.shape[0]} "
         f"wide nodes, wide depth {app.scene_bvh.wide_depth}")
-    counted.update(run_frames("PT", app, launches,
-                              Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0)))
+    pt_schedules("PT", app, launches, counted)
     fronts["default"] = make_fronts(app, traversal, rays, pathtrace)
     bvhs["default"] = app.scene_bvh
     k1 = k1_phase(app, traversal, fronts["default"])
@@ -856,17 +1109,25 @@ def main() -> int:
         f"wide depth {bvh.wide_depth} (K1 stack need {traversal.k1_stack_need(bvh.wide_depth)}"
         f" of {traversal.K1_STACK_CAP}), {bvh.wnode_q32.shape[0]} q32 nodes, q32 depth "
         f"{bvh.q32_depth}, binary depth {bvh.max_depth}")
-    counted.update(run_frames("Sponza-scale PT", app, launches,
-                              Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0)))
+    pt_schedules("Sponza-scale PT", app, launches, counted)
     fronts["sponza_scale"] = make_fronts(app, traversal, rays, pathtrace)
     bvhs["sponza_scale"] = bvh
     log(f"Sponza-scale PT peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del app, bvh
 
-    # The traversal entry points under every kernel option, on both scenes.
+    # The traversal entry points under every kernel option, on both scenes;
+    # then compaction and the seed test on the same fronts.
     variants = {scene: variants_phase(f"variants {scene}", bvhs[scene], fronts[scene],
-                                      traversal, launches)
+                                      traversal, launches,
+                                      k1["plain"] if scene == "default" else None)
                 for scene in fronts}
+    del k1["plain"]
+    launches.reset()
+    for scene in fronts:
+        counted.update(compaction_phase(f"compaction {scene}", bvhs[scene], fronts[scene],
+                                        traversal, compaction, launches))
+    seeds = {scene: seed_phase(f"seed {scene}", bvhs[scene], fronts[scene], traversal, bvh_ops,
+                               launches) for scene in fronts}
     del fronts, bvhs
     deep = deep_tree_phase(traversal, bvh_ops, launches)
 
@@ -874,7 +1135,8 @@ def main() -> int:
     app = Application(WIDTH, HEIGHT, RenderGraphMode.RASTERIZED, device="cuda")
     app.view = app.view.replace(marching_cubes_enabled=np.int32(1))
     app.create_scene()
-    counted.update(run_frames("RASTERIZED", app, launches, Launches.frame_want(2, 1, 4, 1)))
+    counted.update(run_frames("RASTERIZED", app, launches,
+                              Launches.frame_want(2, 1, 4, 1, seed=1))[0])
     gbuffer_depth = pass_times("RASTERIZED", app)["gbuffer"]["gbuffer_depth"]
     k4 = k4_phase(app, raster, raster_binned, shadow)
     k5 = k5_phase(app, raster, raster_binned, marching_cubes, gbuffer_depth)
@@ -884,17 +1146,19 @@ def main() -> int:
     # MINIMAL.
     app = Application(WIDTH, HEIGHT, RenderGraphMode.MINIMAL, device="cuda")
     app.create_scene()
-    counted.update(run_frames("MINIMAL", app, launches, Launches.frame_want(1, 0, 4, 0)))
+    counted.update(run_frames("MINIMAL", app, launches, Launches.frame_want(1, 0, 4, 0))[0])
     pass_times("MINIMAL", app)
     del app
     raster_parity_phase(Application, StaticConfig, RenderGraphMode)
 
-    # Launches: the frames' and the variant runs' (every path's count was
-    # read just after it); times and bounds on the default scene's primary
-    # front; errors over every front.
+    # Launches: the frames', the variant, compaction and seed runs' (every
+    # path's count was read just after it); times and bounds on the default
+    # scene's primary front (the seed kernel's on its NEE front); errors over
+    # every front.
     kernels = []
-    for key in VARIANTS:
-        runs = [variants[scene][key] for scene in variants]
+    for key in dict.fromkeys(kernel for kernel, _ in VARIANTS.values()):
+        labels = [name for name, (kernel, _) in VARIANTS.items() if kernel == key]
+        runs = [variants[scene][name] for scene in variants for name in labels]
         launched = sum(r["launches"] for r in runs)
         err = max(r["max_abs_err"] for r in runs)
         if key == "k1":
@@ -903,10 +1167,16 @@ def main() -> int:
         if key == "k2_sdd":
             launched += deep["launches"]
             err = max(err, deep["max_abs_err"])
-        kernels.append((key, launched, dict(runs[0], max_abs_err=err, outside_own_box=sum(
+        if key == "k3_wide_multi":
+            launched += counted["k3_wide_multi"]
+        shown = variants["default"][LINE_VARIANT.get(key, key)]
+        kernels.append((key, launched, dict(shown, max_abs_err=err, outside_own_box=sum(
             r["outside_own_box"] for r in runs))))
-    kernels += [("k4", counted["k4"], k4), ("k5", counted["k5"], k5)]
-    names = {"k1": "k1_traverse_wide", "k4": "k4_depth_binned", "k5": "k5_vis_binned"}
+    kernels += [("seed", counted["seed"] + sum(r["launches"] for r in seeds.values()),
+                 seeds["default"]),
+                ("k4", counted["k4"], k4), ("k5", counted["k5"], k5)]
+    names = {"k1": "k1_traverse_wide", "k4": "k4_depth_binned", "k5": "k5_vis_binned",
+             "seed": "seed_occlusion"}
     line = []
     for key, launched, stats in kernels:
         source, replaces = SOURCES[key]
@@ -915,8 +1185,8 @@ def main() -> int:
                      "max_abs_err": stats["max_abs_err"], "ms": stats["ms"],
                      "plain_ms": stats["plain_ms"], "bound_ms": stats["bound_ms"],
                      "bound_by": stats["bound_by"], "library_ms": None,
-                     **({"outside_own_box": stats["outside_own_box"]} if key in VARIANTS
-                        else {})})
+                     **({"outside_own_box": stats["outside_own_box"]}
+                        if "outside_own_box" in stats else {})})
         if launched == 0:
             raise AssertionError(f"{key} was never launched on a main path")
     print(card)

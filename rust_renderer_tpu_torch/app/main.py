@@ -6,8 +6,11 @@ progressive-accumulation protocol: total_samples grows by samples_per_frame
 each frame and `reset_accumulation` starts it over (main.rs:400-469).
 Frames render offscreen; `run` returns the last presented image as numpy.
 
+It renders on the card unless the caller passes device="cpu" (there every
+kernel wrapper takes its plain PyTorch version); with no GPU, "cuda" raises.
+
 Usage:
-    app = Application(512, 512, RenderGraphMode.RASTERIZED, device="cuda")
+    app = Application(512, 512, RenderGraphMode.RASTERIZED)
     app.create_scene()
     img = app.run(num_frames=16)
 """
@@ -52,7 +55,7 @@ class Application:
         height: int = 1100,
         mode: RenderGraphMode = RenderGraphMode.PATH_TRACED,
         cfg: StaticConfig | None = None,
-        device="cpu",
+        device="cuda",
     ):
         self.device = init_device(device)
         self.cfg = (cfg or StaticConfig()).replace(width=width, height=height)

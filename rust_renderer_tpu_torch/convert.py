@@ -14,7 +14,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from rust_renderer_tpu_torch.ops.bvh import BVH
+from rust_renderer_tpu_torch.ops.bvh import BVH, leaf_area_order
 from rust_renderer_tpu_torch.ops.raster import VisibilityBuffer
 from rust_renderer_tpu_torch.renderer import PackedScene
 from rust_renderer_tpu_torch.settings import RenderSettings, to_tensor
@@ -46,15 +46,17 @@ def bvh_from_numpy(fields: Mapping, device) -> BVH:
     and the tree depths, on `device`; with the optional row-cursor and q32
     tables (``wnode_meta``, ``wnode_q32``, ``wnode_meta32``,
     ``q32_leaf_perm``, ``q32_depth``) where `fields` holds them and they are
-    not None."""
+    not None; and, on the host, the leaf rows' area ranking that the seed
+    test reads (``ops/bvh.py::leaf_area_order``)."""
 
     def optional(name):
         value = fields.get(name)
         return None if value is None else _tensor(np.asarray(value, np.int32), device)
 
+    leaf_packed = np.asarray(fields["leaf_packed"], np.float32)
     return BVH(
         node_packed=_tensor(np.asarray(fields["node_packed"], np.float32), device),
-        leaf_packed=_tensor(np.asarray(fields["leaf_packed"], np.float32), device),
+        leaf_packed=_tensor(leaf_packed, device),
         wnode_packed=_tensor(np.asarray(fields["wnode_packed"], np.float32), device),
         max_depth=int(fields["max_depth"]),
         wide_depth=int(fields["wide_depth"]),
@@ -63,6 +65,7 @@ def bvh_from_numpy(fields: Mapping, device) -> BVH:
         wnode_meta32=optional("wnode_meta32"),
         q32_leaf_perm=optional("q32_leaf_perm"),
         q32_depth=int(fields.get("q32_depth") or 0),
+        leaf_area_order=leaf_area_order(leaf_packed),
     )
 
 

@@ -112,7 +112,7 @@ class _PassResources(Mapping):
 class Graph:
     """The frame graph (graph.rs:99-106 + 440-1065) on one device."""
 
-    def __init__(self, device="cpu") -> None:
+    def __init__(self, device="cuda") -> None:
         self.device = torch.device(device)
         self.passes: list[RenderPass] = []
         self.descs: dict[str, ResourceDesc] = {}

@@ -27,11 +27,14 @@ Tables, all float32 with int32 payloads bitcast into float columns:
   kernel K1q walks; its leaf ids map to leaf_packed rows through the perm.
 
 Queries (`make_closest_hit`, `make_any_hit`) run the traversal of
-``ops/traversal.py`` and merge the scene's analytic spheres.
+``ops/traversal.py``, within compaction windows (``ops/compaction.py``) where
+asked, and merge the scene's analytic spheres; `make_seed_test` is the
+any-hit query's pre-test against the largest leaf rows.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 from typing import NamedTuple
 
@@ -39,7 +42,7 @@ import numpy as np
 import torch
 
 from rust_renderer_tpu_torch import native
-from rust_renderer_tpu_torch.ops import traversal
+from rust_renderer_tpu_torch.ops import compaction, traversal
 from rust_renderer_tpu_torch.ops.intersect import (
     HIT_NONE,
     HIT_SPHERE,
@@ -70,6 +73,11 @@ class BVH(NamedTuple):
     wnode_meta32: torch.Tensor | None = None  # (W32 + 1, 4) i32
     q32_leaf_perm: torch.Tensor | None = None  # (n,) i32
     q32_depth: int = 0
+    # Host (L,) int64: leaf rows by decreasing summed triangle area
+    # (`leaf_area_order`), which `make_seed_test` takes its rows from. Ranked
+    # once at build time: the frames make their hit queries anew each frame,
+    # and ranking then would read the leaf table back from the device.
+    leaf_area_order: np.ndarray | None = None
 
     @property
     def device(self) -> torch.device:
@@ -229,6 +237,19 @@ def _quantize_wide32(packed32: np.ndarray) -> np.ndarray:
     row[:, 96:99] = origin.astype(np.float32).view(np.uint32)
     row[:, 99:102] = scale.astype(np.float32).view(np.uint32)
     return row.view(np.int32)
+
+
+def leaf_area_order(leaf_packed: np.ndarray) -> np.ndarray:
+    """Leaf rows by decreasing summed triangle area: the ranking of the JAX
+    package's `make_seed_test` (``ops/bvh.py:873-874``), in its numpy
+    operations and order, over an (L, 10 * leaf_size) leaf table."""
+    leaf_packed = np.asarray(leaf_packed, np.float32)
+    ls = leaf_packed.shape[1] // 10
+    geo = leaf_packed[:, :9 * ls].reshape(-1, ls, 9)
+    e1 = np.ascontiguousarray(geo[..., 3:6])
+    e2 = np.ascontiguousarray(geo[..., 6:9])
+    area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1).sum(axis=1)
+    return np.argsort(-area)
 
 
 def _finalize(positions: np.ndarray, indices: np.ndarray, node_min, node_max,
@@ -416,7 +437,7 @@ def build_bvh_numpy(positions: np.ndarray, indices: np.ndarray) -> dict:
                      node_leaf, leaf_tris)
 
 
-def build_bvh(positions: np.ndarray, indices: np.ndarray, device="cpu") -> BVH:
+def build_bvh(positions: np.ndarray, indices: np.ndarray, device="cuda") -> BVH:
     """Build from (V,3) float32 world positions and (T,3) int indices; the
     tables land on `device`."""
     from rust_renderer_tpu_torch.convert import bvh_from_numpy
@@ -430,29 +451,133 @@ def build_scene_bvh(scene) -> BVH:
                      scene.device)
 
 
+# -- occluder seeds --------------------------------------------------------------
+
+# Launches of the seed kernel (csrc/seed_occlusion.cu); nothing else changes it.
+SEED_LAUNCHES = 0
+
+
+def seed_leaf_rows(bvh: BVH, k: int) -> np.ndarray:
+    """The leaf rows the seed test takes: the `k` with the largest summed
+    triangle area (host int64)."""
+    return bvh.leaf_area_order[:max(int(k), 0)]
+
+
+def seed_occlusion_plain(rows, o, d, t_min, t_max) -> torch.Tensor:
+    """The seed test's plain version: (R,) bool, whether a live slot of the
+    leaf-table `rows` (k, 10 * LEAF_SIZE) occludes each ray of (R, 3) o, d
+    in (t_min, t_max), both (R,). One Moller-Trumbore test per live slot,
+    in the JAX package's operations and order (``ops/bvh.py:884-909``)."""
+    ls = rows.shape[1] // 10
+    ids = rows[:, 9 * ls:].contiguous().view(torch.int32).cpu()
+    geo = rows[:, :9 * ls].reshape(-1, ls, 9)
+    ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
+    dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
+    occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
+    for r, s in torch.nonzero(ids >= 0).tolist():
+        a, b, c = geo[r, s, 0:3], geo[r, s, 3:6], geo[r, s, 6:9]
+        px = dy * c[2] - dz * c[1]
+        py = dz * c[0] - dx * c[2]
+        pz = dx * c[1] - dy * c[0]
+        det = b[0] * px + b[1] * py + b[2] * pz
+        inv = torch.where(det.abs() > 1e-12, 1.0 / det, 0.0)
+        tvx, tvy, tvz = ox - a[0], oy - a[1], oz - a[2]
+        u = (tvx * px + tvy * py + tvz * pz) * inv
+        qx = tvy * b[2] - tvz * b[1]
+        qy = tvz * b[0] - tvx * b[2]
+        qz = tvx * b[1] - tvy * b[0]
+        v = (dx * qx + dy * qy + dz * qz) * inv
+        t = (c[0] * qx + c[1] * qy + c[2] * qz) * inv
+        occ |= ((det.abs() > 1e-12) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+                & (t > t_min) & (t < t_max))
+    return occ
+
+
+def seed_occlusion_cuda(rows, o, d, t_min, t_max) -> torch.Tensor:
+    """Launch the seed kernel (``csrc/seed_occlusion.cu``) on CUDA tensors:
+    the function of `seed_occlusion_plain`."""
+    global SEED_LAUNCHES
+    r, dev = traversal._check_rays("the seed kernel", o, d, t_min, t_max)
+    traversal._check("seed rows", rows, torch.float32, (rows.shape[0], 10 * LEAF_SIZE), dev)
+    occ = torch.empty(r, dtype=torch.bool, device=dev)
+    if r:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = traversal.library("seed_occlusion").seed_occlusion(
+            o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
+            rows.data_ptr(), rows.shape[0], r, occ.data_ptr(), stream)
+        traversal._raise_on(err, "the seed kernel")
+        SEED_LAUNCHES += 1
+    return occ
+
+
+def make_seed_test(bvh: BVH, k: int = 4):
+    """The pre-traversal occlusion test against the `k` largest-area leaf
+    rows (the JAX package's ``ops/bvh.py::make_seed_test``, which takes the
+    rows' live slots, at most 4 x 12 = 48 triangles for k = 4).
+
+    Returns fn(origin, direction, t_min, t_max) -> bool occluded, shaped
+    like the rays' leading dims, or None for k <= 0 or a tree with no leaf
+    rows. Exact for occlusion: a seeded verdict is a true occlusion. CPU
+    tensors take `seed_occlusion_plain`, CUDA tensors the seed kernel."""
+    rows_idx = seed_leaf_rows(bvh, k)
+    if len(rows_idx) == 0:
+        return None
+    rows = bvh.leaf_packed[torch.as_tensor(rows_idx, device=bvh.device)].contiguous()
+
+    def test(origin, direction, t_min, t_max):
+        shape = origin.shape[:-1]
+        dev = origin.device
+        o = origin.reshape(-1, 3).to(torch.float32).contiguous()
+        d = direction.reshape(-1, 3).to(torch.float32).contiguous()
+        tmin = traversal.flat_limit(t_min, shape, dev)
+        tmax = traversal.flat_limit(t_max, shape, dev)
+        if dev.type == "cpu":
+            occ = seed_occlusion_plain(rows, o, d, tmin, tmax)
+        elif dev.type == "cuda":
+            occ = seed_occlusion_cuda(rows, o, d, tmin, tmax)
+        else:
+            raise ValueError(f"no seed test for device {dev}")
+        return occ.reshape(shape)
+
+    return test
+
+
 # -- queries -------------------------------------------------------------------
 
 
+def _traversal(compact_window: int, compact_order: str):
+    """traverse, or traverse within compaction windows of `compact_window`
+    ray blocks (the JAX package's `_pick_traversal`)."""
+    if compact_window > 1:
+        return functools.partial(compaction.traverse_compacted,
+                                 window_blocks=compact_window, trav=traversal.traverse,
+                                 order=compact_order)
+    return traversal.traverse
+
+
 def make_closest_hit(bvh: BVH, wide: bool = True, ordered: bool = False,
-                     steady_drain: int = 3, row_cursors: int = 8,
+                     compact_window: int = 0, steady_drain: int = 3,
+                     compact_order: str = "morton", row_cursors: int = 8,
                      q32: bool = False):
     """closest_hit(scene, o, d, t_min, t_max) -> Hit over the BVH's triangles
     plus the scene's analytic spheres.
 
-    The kernel-selecting options of the JAX signature, with its defaults, go
-    to `traversal.traverse` (the rule is `traversal.select_kernel`): `wide`,
-    `ordered`, `steady_drain`, `row_cursors` and `q32`; `dual` is derived as
-    the JAX package derives it. The defaults launch K1. Options that only
+    The options of the JAX signature, with its defaults: `wide`, `ordered`,
+    `steady_drain`, `row_cursors` and `q32` choose the kernel
+    (`traversal.select_kernel`), `dual` derived as the JAX package derives
+    it; the defaults launch K1. `compact_window` > 1 walks the rays within
+    compaction windows of that many ray blocks, live lanes first and, with
+    `compact_order="morton"`, by their origins' Morton code
+    (``ops/compaction.py``); the hits are the same. Options that only
     schedule Mosaic work (`packet`, `sort`, `row_expand`, `skip_drain`,
-    `skip_expand`, `cursor_kill`, `compact_window`, `compact_order`,
-    `seed_rows`, `dma_leaf`) are not taken: no caller of the port passes
-    them."""
+    `skip_expand`, `cursor_kill`, `dma_leaf`) are not taken: no caller of
+    the port passes them."""
     options = dict(wide=wide, ordered=ordered, dual=steady_drain > 0,
                    steady_drain=steady_drain, row_cursors=row_cursors, q32=q32)
+    trav = _traversal(compact_window, compact_order)
 
     def closest_hit(scene, origin, direction, t_min=1e-3, t_max=1e4) -> Hit:
-        t, prim, u, v = traversal.traverse(bvh, origin, direction, t_min, t_max,
-                                           **options)
+        t, prim, u, v = trav(bvh, origin, direction, t_min, t_max, **options)
         best = Hit(
             t=t,
             kind=torch.where(prim >= 0, HIT_TRIANGLE, HIT_NONE).to(torch.int32),
@@ -466,19 +591,33 @@ def make_closest_hit(bvh: BVH, wide: bool = True, ordered: bool = False,
 
 
 def make_any_hit(bvh: BVH, wide: bool = True, ordered: bool = False,
-                 steady_drain: int = 3, row_cursors: int = 8, q32: bool = False):
+                 compact_window: int = 0, steady_drain: int = 3,
+                 compact_order: str = "morton", seed_rows: int = 0,
+                 row_cursors: int = 8, q32: bool = False):
     """any_hit(scene, o, d, t_min, t_max) -> bool occlusion over the BVH's
     triangles plus the scene's analytic spheres. Options as
     `make_closest_hit`; any-hit walks are `dual` and, with a steady drain,
-    `drain_first`, as in the JAX package."""
+    `drain_first`, as in the JAX package. `seed_rows` > 0 first tests every
+    ray against that many largest-area leaf rows (`make_seed_test`): a
+    seeded ray gets a zero direction, so the walk retires it on entry (and
+    compaction moves it out of the live lanes), and its verdict is ORed in
+    (``ops/bvh.py:1501-1511``)."""
     options = dict(wide=wide, ordered=ordered, dual=True,
                    steady_drain=steady_drain, drain_first=steady_drain > 0,
                    row_cursors=row_cursors, q32=q32)
+    trav = _traversal(compact_window, compact_order)
+    seed = make_seed_test(bvh, seed_rows)
 
     def any_hit(scene, origin, direction, t_min=1e-3, t_max=1e4):
-        t, prim, _, _ = traversal.traverse(bvh, origin, direction, t_min, t_max,
-                                           any_hit=True, **options)
+        occ_seed = None
+        if seed is not None:
+            occ_seed = seed(origin, direction, t_min, t_max)
+            direction = torch.where(occ_seed[..., None], 0.0, direction)
+        t, prim, _, _ = trav(bvh, origin, direction, t_min, t_max, any_hit=True,
+                             **options)
         hit = prim >= 0
+        if occ_seed is not None:
+            hit = hit | occ_seed
         if scene.sphere_center.shape[0] > 0:
             shape = t.shape
             best = Hit(

@@ -109,7 +109,7 @@ def specular_prefilter(env_chain: list[torch.Tensor], mips: int = 8,
     return out
 
 
-def brdf_lut(size: int = 512, num_samples: int = 1024, device="cpu") -> torch.Tensor:
+def brdf_lut(size: int = 512, num_samples: int = 1024, *, device) -> torch.Tensor:
     """Split-sum BRDF integration LUT (brdf_lut.frag): (size, size, 2) of
     (scale, bias), row = roughness, column = NdotV."""
     ndotv = (torch.arange(size, dtype=torch.float32, device=device) + 0.5) / size
@@ -139,7 +139,7 @@ def brdf_lut(size: int = 512, num_samples: int = 1024, device="cpu") -> torch.Te
     return torch.stack([a, b], dim=-1) / num_samples
 
 
-def compute_environment(cfg, sun_dir, device="cpu", lut_samples: int = 256) -> dict:
+def compute_environment(cfg, sun_dir, device="cuda", lut_samples: int = 256) -> dict:
     """The whole environment pipeline, as the persistent resources the render
     graphs read: env_cubemap_mip{m}, specular_map_mip{m}, irradiance_map,
     brdf_lut."""
@@ -148,7 +148,7 @@ def compute_environment(cfg, sun_dir, device="cpu", lut_samples: int = 256) -> d
     irr = irradiance_convolution(chain[min(2, len(chain) - 1)], cfg.irradiance_size)
     spec = specular_prefilter(chain, cfg.cubemap_mips)
     out = {"irradiance_map": irr,
-           "brdf_lut": brdf_lut(cfg.brdf_lut_size, lut_samples, device)}
+           "brdf_lut": brdf_lut(cfg.brdf_lut_size, lut_samples, device=device)}
     for m in range(cfg.cubemap_mips):
         out[f"env_cubemap_mip{m}"] = chain[m] if m < len(chain) else chain[-1]
         out[f"specular_map_mip{m}"] = spec[m] if m < len(spec) else chain[-1]

@@ -72,7 +72,10 @@ def marching_cubes(density_fn=default_density, grid: int = 32, voxel_size: float
                    iso_level: float = 0.0, time=0.0, flat_normals: bool = False,
                    device=None) -> MarchingCubesResult:
     """Extract the isosurface: grid^3 * MAX_TRIS_PER_VOXEL slots, slot-major
-    (all voxels' first triangle, then all second ones, ...)."""
+    (all voxels' first triangle, then all second ones, ...), on the device of
+    `time` when it is a tensor, else on `device`, which must then be given."""
+    if device is None and not torch.is_tensor(time):
+        raise ValueError("marching_cubes needs a device, or a time tensor on one")
     time = torch.as_tensor(time, dtype=torch.float32, device=device)
     dev = time.device
     tri_np, count_np = tables()

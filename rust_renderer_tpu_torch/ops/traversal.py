@@ -22,9 +22,13 @@ first use and bound with ctypes:
   queue live in global scratch, so it takes trees of any depth.
 - K3 is the JAX package's other schedules of the same walk: the binary
   skip walk and its ordered form over `node_packed`
-  (``traverse_binary.cu``: ``_make_kernel``, ``_make_kernel_ordered``), and
-  the wide stack walk, ordered or dual, with an optional stats output
-  (``traverse_wide.cu``: ``_make_kernel_wide``, ``_make_kernel_wide_dual``).
+  (``traverse_binary.cu``: ``_make_kernel``, ``_make_kernel_ordered``); the
+  wide stack walk, ordered or dual, with an optional stats output
+  (``traverse_wide.cu``: ``_make_kernel_wide``, ``_make_kernel_wide_dual``);
+  the wide walk with a leaf queue flushed `leaf_queue` rows at a time
+  (``traverse_lq.cu``: ``_make_kernel_wide_lq``, "K3-lq"); and the wide walk
+  with `multi` rays interleaved per thread (``traverse_multi.cu``:
+  ``_make_kernel_wide_multi``, "K3-multi").
 - The plain version, `traverse_plain`, is the JAX package's own reference
   walk (``ops/bvh.py::traverse``): stackless over the binary tree
   `node_packed`. Every kernel computes its function; the wide ones walk
@@ -32,7 +36,8 @@ first use and bound with ctypes:
   check.
 
 `K1_LAUNCHES` and `K1Q_LAUNCHES` count launches by query kind,
-`K2_LAUNCHES` and `K3_LAUNCHES` by variant; nothing else changes them.
+`K2_LAUNCHES` and `K3_LAUNCHES` by variant (K3-lq "wide_lq", K3-multi
+"wide_multi"); nothing else changes them.
 """
 
 from __future__ import annotations
@@ -55,12 +60,21 @@ SOURCES = {
     "k1q_traverse_q32": os.path.join(CSRC, "traverse_q32.cu"),
     "k2_traverse_drain": os.path.join(CSRC, "traverse_drain.cu"),
     "k3_traverse_binary": os.path.join(CSRC, "traverse_binary.cu"),
+    "k3_traverse_lq": os.path.join(CSRC, "traverse_lq.cu"),
+    "k3_traverse_multi": os.path.join(CSRC, "traverse_multi.cu"),
+    # The seed test of ops/bvh.py::make_seed_test (no TPU kernel: XLA fused it).
+    "seed_occlusion": os.path.join(CSRC, "seed_occlusion.cu"),
 }
 # Compile-time constants of the kernels (csrc/*.cu).
 K1_STACK_CAP = 256
 K3_STACK_CAP = 512
 K3B_STACK_CAP = 256
 K1Q_STACK_CAP = 64
+# K3-lq's leaf queue per ray: a flush trigger of flush_k rows needs
+# flush_k - 1 + K1_WIDTH of them (`lq_queue_need`).
+LQ_QUEUE_CAP = 64
+# K3-multi's rays per thread (each ray's stack is K3_STACK_CAP entries).
+MULTI_WIDTHS = (2, 4, 8)
 K1_LEAF_SLOTS = 12
 K1_WIDTH = 16
 THREADS = 128
@@ -80,7 +94,11 @@ K3_LAUNCHES: collections.Counter = collections.Counter()  # by variant
 
 # select_kernel's names, and the counter each one moves.
 KERNELS = ("k1", "k1q", "k2_sd", "k2_sdd", "k3_binary", "k3_binary_ordered",
-           "k3_wide", "k3_wide_ordered", "k3_wide_dual")
+           "k3_wide", "k3_wide_ordered", "k3_wide_dual", "k3_wide_lq",
+           "k3_wide_multi")
+# The JAX package's ray block (one (8, 128) packet) and its 2D tile side.
+BLOCK = 1024
+TILE = 32
 
 
 def _nvcc() -> str:
@@ -109,6 +127,13 @@ _ARGTYPES = {
     + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 6,
     "k3_traverse_binary": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
     + [ctypes.c_void_p] * 5,
+    "k3_traverse_lq": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p] * 6,
+    "k3_traverse_multi": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+    + [ctypes.c_void_p] * 5,
+    # rays (4), the seed rows, then ints, the verdicts, stream
+    "seed_occlusion": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+    + [ctypes.c_void_p] * 2,
 }
 
 
@@ -242,6 +267,88 @@ def traverse_wide_k3_cuda(wnode_packed, leaf_packed, wide_depth: int, o, d,
         _raise_on(err, "K3")
         K3_LAUNCHES["wide_ordered" if ordered else "wide_dual" if dual else "wide"] += 1
     return (*out, st) if stats else out
+
+
+def lq_queue_need(flush_k: int) -> int:
+    """Leaf-queue rows K3-lq needs with a flush trigger of `flush_k`: the
+    queue holds fewer than flush_k rows before a pop, a pop appends at most
+    K1_WIDTH, and a flush takes up to K1_WIDTH (the JAX kernel's rule), so
+    it never holds more than flush_k - 1 + K1_WIDTH."""
+    return int(flush_k) - 1 + K1_WIDTH
+
+
+def traverse_lq_cuda(wnode_packed, leaf_packed, wide_depth: int, o, d, t_min,
+                     t_max, any_hit: bool, flush_k: int, stats: bool = False):
+    """Launch K3-lq, the wide walk whose stack holds internal nodes only: a
+    popped node's hit leaf children go to a per-ray queue, flushed (up to
+    K1_WIDTH rows, newest first) once it holds `flush_k` rows or the stack
+    is empty. Returns (t, prim, u, v), with stats a fifth (4, R) int32
+    tensor: per ray the internal nodes popped, the leaf rows tested, and
+    the slab and triangle tests, as K3 wide's stats count them."""
+    r, dev = _check_rays("K3-lq", o, d, t_min, t_max)
+    _check_wide_tables(wnode_packed, leaf_packed, dev)
+    if flush_k < 1:
+        raise ValueError(f"K3-lq flushes at least one leaf row, got flush_k={flush_k}")
+    if lq_queue_need(flush_k) > LQ_QUEUE_CAP:
+        raise ValueError(f"flush_k={flush_k} needs a {lq_queue_need(flush_k)}-row leaf "
+                         f"queue; K3-lq is built with {LQ_QUEUE_CAP}")
+    need = level_stack_need(wide_depth, False)  # internal nodes only
+    if need > K3_STACK_CAP:
+        raise ValueError(f"tree of wide depth {wide_depth} needs a {need}-entry stack; "
+                         f"K3-lq is built with {K3_STACK_CAP}")
+    out = _hits(r, dev)
+    st = torch.empty((4, r), dtype=torch.int32, device=dev) if stats else None
+    if r:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = library("k3_traverse_lq").k3_traverse_lq(
+            o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
+            wnode_packed.data_ptr(), leaf_packed.data_ptr(), r, int(any_hit),
+            int(flush_k), *(x.data_ptr() for x in out),
+            st.data_ptr() if stats else None, stream)
+        _raise_on(err, "K3-lq")
+        K3_LAUNCHES["wide_lq"] += 1
+    return (*out, st) if stats else out
+
+
+def multi_rays(ray_shape, multi: int) -> int:
+    """The rays one K3-multi thread walks for a front of `ray_shape`: the
+    JAX package's ray blocks per grid step (`traverse_packet_pallas`,
+    ``:2757-2759``). A 2D front whose sides are multiples of TILE packs into
+    H*W/BLOCK blocks, and `multi` halves until it divides that count; any
+    other front is padded to a multiple of BLOCK * multi rays, so its block
+    count always divides."""
+    nb = max(int(multi), 1)
+    shape = tuple(ray_shape)
+    if len(shape) == 2 and shape[0] % TILE == 0 and shape[1] % TILE == 0:
+        blocks = shape[0] * shape[1] // BLOCK
+        while nb > 1 and blocks % nb:
+            nb //= 2
+    return nb
+
+
+def traverse_multi_cuda(wnode_packed, leaf_packed, wide_depth: int, o, d, t_min,
+                        t_max, any_hit: bool, m: int):
+    """Launch K3-multi: K3 wide's walk with `m` rays per thread, each with
+    its own stack; each iteration pops one entry of every ray still
+    walking. Returns (t, prim, u, v)."""
+    r, dev = _check_rays("K3-multi", o, d, t_min, t_max)
+    _check_wide_tables(wnode_packed, leaf_packed, dev)
+    if m not in MULTI_WIDTHS:
+        raise ValueError(f"K3-multi is built for {MULTI_WIDTHS} rays per thread, got {m}")
+    need = level_stack_need(wide_depth + 1, False)  # leaf refs are entries too
+    if need > K3_STACK_CAP:
+        raise ValueError(f"tree of wide depth {wide_depth} needs a {need}-entry stack; "
+                         f"K3-multi is built with {K3_STACK_CAP}")
+    out = _hits(r, dev)
+    if r:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = library("k3_traverse_multi").k3_traverse_multi(
+            o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
+            wnode_packed.data_ptr(), leaf_packed.data_ptr(), r, int(any_hit), int(m),
+            *(x.data_ptr() for x in out), stream)
+        _raise_on(err, "K3-multi")
+        K3_LAUNCHES["wide_multi"] += 1
+    return out
 
 
 def traverse_drain_cuda(wnode_packed, leaf_packed, wide_depth: int, o, d,
@@ -431,9 +538,19 @@ def traverse_plain(node_packed, leaf_packed, o, d, t_min, t_max, any_hit: bool):
     return best_t, best_prim, best_u, best_v
 
 
+def flat_limit(x, shape, device) -> torch.Tensor:
+    """A ray limit (a float, or a tensor broadcastable to the rays' leading
+    dims `shape`) as a contiguous (R,) float32 tensor on `device`."""
+    if not torch.is_tensor(x):
+        return torch.full((shape.numel(),), float(x), dtype=torch.float32, device=device)
+    x = x.to(device=device, dtype=torch.float32)
+    return torch.broadcast_to(x, shape).reshape(-1).contiguous()
+
+
 def select_kernel(bvh, any_hit: bool = False, *, wide: bool = True,
                   ordered: bool = False, dual: bool = False, steady_drain: int = 3,
-                  row_cursors: int = 8, q32: bool = False, stats: bool = False) -> str:
+                  row_cursors: int = 8, q32: bool = False, stats: bool = False,
+                  leaf_queue: int = 0, multi: int = 1, ray_shape=()) -> str:
     """The kernel (a name in KERNELS) that `traverse` launches for these
     options: the rule of the JAX package's `traverse_packet_pallas` / `_run`
     (``ops/pallas/traversal.py:2546-2669``, ``:2763-2802``), branch by
@@ -446,6 +563,12 @@ def select_kernel(bvh, any_hit: bool = False, *, wide: bool = True,
     tree. The VMEM budgets of `_pallas_mode` and its XLA fallback have no
     counterpart: on CUDA a kernel always runs. `any_hit` does not enter
     the rule (`make_any_hit` sets `dual` instead).
+
+    After the row path the order is the JAX one: `multi` rays per thread
+    (`multi_rays` of the front's `ray_shape`, the rays' leading dims; a
+    wide walk neither ordered nor with stats) take K3-multi, whatever
+    `dual` and `steady_drain` say; then a steady drain takes K2; then
+    `leaf_queue` takes K3-lq; then `dual`; then K3 wide or wide-ordered.
     """
     del any_hit
     if not wide:
@@ -460,16 +583,21 @@ def select_kernel(bvh, any_hit: bool = False, *, wide: bool = True,
     if row_cursors and not stats and bvh.wnode_meta is not None \
             and k1_stack_need(bvh.wide_depth) <= K1_STACK_CAP:
         return "k1"
+    if not ordered and not stats and multi_rays(ray_shape, multi) > 1:
+        return "k3_wide_multi"
     if steady_drain > 0 and not ordered:
         return "k2_sdd" if dual else "k2_sd"
+    if leaf_queue > 0 and not ordered:
+        return "k3_wide_lq"
     if dual and not ordered:
         return "k3_wide_dual"
     return "k3_wide_ordered" if ordered else "k3_wide"
 
 
 def _launch(kernel: str, bvh, o, d, tmin, tmax, any_hit: bool, steady_drain: int,
-            drain_first: bool, stats: bool):
-    """Launch `kernel` (a select_kernel name) on CUDA tensors."""
+            drain_first: bool, stats: bool, leaf_queue: int, m: int):
+    """Launch `kernel` (a select_kernel name) on CUDA tensors; `m` is
+    K3-multi's rays per thread."""
     wide_args = (bvh.wnode_packed, bvh.leaf_packed, bvh.wide_depth, o, d, tmin, tmax,
                  any_hit)
     if kernel == "k1":
@@ -486,6 +614,10 @@ def _launch(kernel: str, bvh, o, d, tmin, tmax, any_hit: bool, steady_drain: int
         return traverse_binary_cuda(bvh.node_packed, bvh.leaf_packed, bvh.max_depth,
                                     o, d, tmin, tmax, any_hit,
                                     ordered=kernel == "k3_binary_ordered")
+    if kernel == "k3_wide_lq":
+        return traverse_lq_cuda(*wide_args, flush_k=leaf_queue, stats=stats)
+    if kernel == "k3_wide_multi":
+        return traverse_multi_cuda(*wide_args, m=m)
     return traverse_wide_k3_cuda(*wide_args, ordered=kernel == "k3_wide_ordered",
                                  dual=kernel == "k3_wide_dual", stats=stats)
 
@@ -493,35 +625,31 @@ def _launch(kernel: str, bvh, o, d, tmin, tmax, any_hit: bool, steady_drain: int
 def traverse(bvh, origin, direction, t_min=1e-3, t_max=1e4, any_hit: bool = False,
              *, wide: bool = True, ordered: bool = False, dual: bool = False,
              steady_drain: int = 3, drain_first: bool = False, row_cursors: int = 8,
-             q32: bool = False, stats: bool = False):
+             q32: bool = False, stats: bool = False, leaf_queue: int = 0, multi: int = 1):
     """Closest-hit (or any-hit) traversal of rays (..., 3) over `bvh`.
 
     t_min / t_max: floats or tensors broadcastable to the ray shape. The
     keyword options choose the kernel (`select_kernel`); their defaults are
     those of the JAX package's hit queries (`row_cursors=8`,
-    `steady_drain=3`), which launch K1. `drain_first` applies to K2's dual
-    form, as in the JAX package. Returns (t, prim, u, v) shaped like the
-    rays' leading dims; with `stats`, a fifth tensor (k, ...) int32 of the
-    kernel's per-ray counters (see `traverse_wide_k3_cuda`,
-    `traverse_drain_cuda`). CPU tensors take the plain walk, whatever the
-    options, and have no stats; CUDA tensors launch the selected kernel.
+    `steady_drain=3`), which launch K1; as in the JAX package,
+    `traverse(..., row_cursors=0, steady_drain=0, leaf_queue=k)` reaches
+    K3-lq and `traverse(..., row_cursors=0, multi=m)` K3-multi.
+    `drain_first` applies to K2's dual form. Returns (t, prim, u, v) shaped
+    like the rays' leading dims; with `stats`, a fifth tensor (k, ...) int32
+    of the kernel's per-ray counters (see `traverse_wide_k3_cuda`,
+    `traverse_lq_cuda`, `traverse_drain_cuda`). CPU tensors take the plain
+    walk, whatever the options, and have no stats; CUDA tensors launch the
+    selected kernel.
     """
+    shape = origin.shape[:-1]
     kernel = select_kernel(bvh, any_hit, wide=wide, ordered=ordered, dual=dual,
                            steady_drain=steady_drain, row_cursors=row_cursors,
-                           q32=q32, stats=stats)
-    shape = origin.shape[:-1]
+                           q32=q32, stats=stats, leaf_queue=leaf_queue, multi=multi,
+                           ray_shape=shape)
     dev = origin.device
     o = origin.reshape(-1, 3).to(torch.float32).contiguous()
     d = direction.reshape(-1, 3).to(torch.float32).contiguous()
-
-    def limit(x):
-        if not torch.is_tensor(x):
-            return torch.full((o.shape[0],), float(x), dtype=torch.float32,
-                              device=dev)
-        x = x.to(device=dev, dtype=torch.float32)
-        return torch.broadcast_to(x, shape).reshape(-1).contiguous()
-
-    tmin, tmax = limit(t_min), limit(t_max)
+    tmin, tmax = flat_limit(t_min, shape, dev), flat_limit(t_max, shape, dev)
     if dev.type == "cpu":
         if stats:
             raise ValueError("stats count a kernel's schedule; the plain walk on "
@@ -530,7 +658,7 @@ def traverse(bvh, origin, direction, t_min=1e-3, t_max=1e4, any_hit: bool = Fals
                              any_hit)
     elif dev.type == "cuda":
         out = _launch(kernel, bvh, o, d, tmin, tmax, any_hit, steady_drain,
-                      drain_first, stats)
+                      drain_first, stats, leaf_queue, multi_rays(shape, multi))
     else:
         raise ValueError(f"no traversal for device {dev}")
     hits = tuple(x.reshape(shape) for x in out[:4])

@@ -327,7 +327,7 @@ class Renderer:
             sphere_material=col(spheres, "material", np.int32),
         )
 
-    def pack(self, device="cpu") -> PackedScene:
+    def pack(self, device="cuda") -> PackedScene:
         """Build the scene tensors on `device`: host numpy concat + one copy
         per field."""
         log.info(

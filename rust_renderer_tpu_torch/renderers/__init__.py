@@ -58,7 +58,7 @@ def build_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_dir,
     setup_gbuffer_pass(graph, scene_bvh, w, h)
     declare_env_resources(graph, cfg)
     if raytracing_supported:
-        setup_rt_shadows_pass(graph, scene_bvh, w, h)
+        setup_rt_shadows_pass(graph, scene_bvh, cfg, w, h)
         setup_rt_reflections_pass(graph, scene_bvh, cfg, w, h)
     else:
         # Read by the deferred pass, masked by view.raytracing_supported == 0.
@@ -232,9 +232,14 @@ def build_path_tracing_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_di
             pb.write(name)
         pb.render(spatial).build()
 
-    # 6. reference PT with reservoir NEE (mod.rs:345-358, reference.rgen).
-    closest = bvh_ops.make_closest_hit(scene_bvh)
-    any_hit = bvh_ops.make_any_hit(scene_bvh)
+    # 6. reference PT with reservoir NEE (mod.rs:345-358, reference.rgen),
+    # its hit queries within compaction windows and the any-hit query seeded,
+    # as the StaticConfig sets them.
+    closest = bvh_ops.make_closest_hit(scene_bvh, compact_window=cfg.compact_window,
+                                       compact_order=cfg.compact_order)
+    any_hit = bvh_ops.make_any_hit(
+        scene_bvh, compact_window=cfg.compact_window_any, compact_order=cfg.compact_order,
+        seed_rows=cfg.seed_rows)
 
     def reference_pt(res, scene, view):
         reservoirs = (None if skip_restir

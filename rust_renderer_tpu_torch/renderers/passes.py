@@ -168,11 +168,12 @@ def setup_environment_passes(graph: Graph, cfg, sun_dir) -> None:
 # -- raytraced shadows / reflections (rt_shadows.rs, rt_reflections.rs) --------
 
 
-def setup_rt_shadows_pass(graph: Graph, scene_bvh, width: int, height: int) -> None:
+def setup_rt_shadows_pass(graph: Graph, scene_bvh, cfg, width: int, height: int) -> None:
     """One sun-visibility ray per gbuffer pixel, binary output
-    (rt_shadows.rgen): K1 any-hit on the card."""
+    (rt_shadows.rgen): K1 any-hit on the card, after the seed test of
+    `cfg.seed_rows` leaf rows, as in the JAX package."""
     graph.create_texture("rt_shadows", width, height, 1, clear=1.0)
-    any_hit = bvh_ops.make_any_hit(scene_bvh)
+    any_hit = bvh_ops.make_any_hit(scene_bvh, seed_rows=cfg.seed_rows)
 
     def render(res, scene, view):
         pos = res["gbuffer_position"][..., :3]

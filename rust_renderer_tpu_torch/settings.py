@@ -33,10 +33,13 @@ class RenderGraphMode(enum.Enum):
 class StaticConfig:
     """Frame-shape configuration (the JAX package's field names).
 
-    `compact_window`, `compact_window_any`, `compact_order`, `seed_rows` and
-    `split_pt_program` are kept so that configurations carry over, and do
-    nothing here: they schedule work on the TPU, and the port's results are
-    exact without them.
+    `compact_window` (closest-hit) and `compact_window_any` (any-hit) are
+    the PT frame's compaction windows in ray blocks, `compact_order` their
+    lane order (``ops/compaction.py``), and `seed_rows` the leaf rows of the
+    any-hit queries' seed test (``ops/bvh.py::make_seed_test``; PT and RT
+    shadows): they schedule the walk and leave the hits exact. 0 turns each
+    off. `split_pt_program` is kept so that configurations carry over, and
+    does nothing here: it split a TPU program.
     """
 
     width: int = 2000

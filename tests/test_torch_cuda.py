@@ -1,5 +1,5 @@
-"""Kernels K1, K1q, K2, K3, K4 and K5 on the card, and the guards of their
-wrappers.
+"""Kernels K1, K1q, K2, K3 (K3-lq and K3-multi among them), K4, K5 and the
+seed kernel on the card, and the guards of their wrappers.
 
 This file imports torch and the port only, never jax, so that it runs on a
 GPU machine without jax (tests/conftest.py imports jax, hence
@@ -11,7 +11,9 @@ Tests marked `cuda` skip where torch sees no GPU. On the card, K1 must
 return the plain walk's hits: t to rtol 1e-6, prim equal off exact ties,
 any-hit flags equal; so must every kernel `traverse` selects under the
 traversal options (K1q, K2, K3), each moving its own launch counter by one,
-and K3's binary skip walk must return the plain walk's t bit for bit. The
+and K3's binary skip walk must return the plain walk's t bit for bit;
+K3-multi must return K3 wide's hits bit for bit (each ray walks K3 wide's
+walk), and the seed kernel its plain version's verdicts. The
 PT frame must match the CPU's under the tolerance of
 tests/test_torch_slice.py. K4 must return its plain version's
 depth bit for bit, and K5 its triangle ids, with depth and barycentrics
@@ -125,6 +127,8 @@ _KERNEL_OPTIONS = {
     "k3_wide": (dict(row_cursors=0, steady_drain=0), "K3_LAUNCHES"),
     "k3_wide_ordered": (dict(row_cursors=0, steady_drain=0, ordered=True), "K3_LAUNCHES"),
     "k3_wide_dual": (dict(row_cursors=0, steady_drain=0, dual=True), "K3_LAUNCHES"),
+    "k3_wide_lq": (dict(row_cursors=0, steady_drain=0, leaf_queue=4), "K3_LAUNCHES"),
+    "k3_wide_multi": (dict(row_cursors=0, multi=4), "K3_LAUNCHES"),
 }
 
 
@@ -305,6 +309,108 @@ def test_traversal_stats_count_the_walk(cuda_device):
         torch.testing.assert_close(got[0][hit], want[0][hit], rtol=1e-6, atol=0)
         assert bool(((got[1] == want[1]) | torch.isclose(got[0], want[0], rtol=1e-6,
                                                          atol=0)).all())
+
+
+def test_lq_multi_and_seed_wrappers_refuse_cpu_tensors_and_bad_options():
+    tree = _soup_tree("cpu", n=50)
+    o, d, t_min, t_max = _rays("cpu", 8)
+    rays = (o, d, t_min, t_max, False)
+    rows = tree.leaf_packed[:4].contiguous()
+    for call in (
+            lambda: traversal.traverse_lq_cuda(tree.wnode_packed, tree.leaf_packed,
+                                               tree.wide_depth, *rays, flush_k=4),
+            lambda: traversal.traverse_multi_cuda(tree.wnode_packed, tree.leaf_packed,
+                                                  tree.wide_depth, *rays, m=4),
+            lambda: torch_bvh.seed_occlusion_cuda(rows, o, d, t_min, t_max)):
+        with pytest.raises(ValueError, match="CUDA"):
+            call()
+    assert traversal.lq_queue_need(49) == traversal.LQ_QUEUE_CAP
+    assert traversal.multi_rays((64, 64), 8) == 4  # 4 blocks: 8 halves to 4
+    assert traversal.multi_rays((1080, 1920), 8) == 8  # padded flat front
+
+
+@pytest.mark.cuda
+def test_lq_and_multi_refuse_what_they_cannot_take(cuda_device):
+    tree = _soup_tree(cuda_device, n=200)
+    o, d, t_min, t_max = _rays(cuda_device, 64)
+    wide = (tree.wnode_packed, tree.leaf_packed)
+    with pytest.raises(ValueError, match="leaf queue"):
+        traversal.traverse_lq_cuda(*wide, tree.wide_depth, o, d, t_min, t_max, False,
+                                   flush_k=50)
+    with pytest.raises(ValueError, match="at least one"):
+        traversal.traverse_lq_cuda(*wide, tree.wide_depth, o, d, t_min, t_max, False,
+                                   flush_k=0)
+    with pytest.raises(ValueError, match="stack"):
+        traversal.traverse_lq_cuda(*wide, 33, o, d, t_min, t_max, False, flush_k=4)
+    with pytest.raises(ValueError, match="rays per thread"):
+        traversal.traverse_multi_cuda(*wide, tree.wide_depth, o, d, t_min, t_max, False, m=3)
+    with pytest.raises(ValueError, match="stack"):
+        traversal.traverse_multi_cuda(*wide, 32, o, d, t_min, t_max, False, m=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("front", ["soup", "default_primary"])
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_lq_flush_sweep_on_card(cuda_device, any_hit, front):
+    """K3-lq at the JAX tests' flush sizes (1, 4, 8) and the largest its
+    queue takes; stats count the walk."""
+    if front == "soup":
+        tree = _soup_tree(cuda_device)
+        o, d, t_min, t_max = _rays(cuda_device, 50000)
+    else:
+        tree, o, d, t_min, t_max = _default_scene_primary(cuda_device)
+    want = traversal.traverse_plain(tree.node_packed, tree.leaf_packed, o, d, t_min, t_max,
+                                    any_hit)
+    hit = want[1] >= 0
+    for k in (1, 4, 8, traversal.LQ_QUEUE_CAP + 1 - traversal.K1_WIDTH):
+        before = traversal.K3_LAUNCHES["wide_lq"]
+        got = traversal.traverse(tree, o, d, t_min, t_max, any_hit=any_hit, row_cursors=0,
+                                 steady_drain=0, leaf_queue=k, stats=True)
+        assert traversal.K3_LAUNCHES["wide_lq"] == before + 1
+        assert torch.equal(got[1] >= 0, hit)
+        pops, leaf_pops, boxes, tris = got[4].long()
+        assert bool((boxes <= traversal.K1_WIDTH * pops).all())
+        assert bool((tris <= traversal.K1_LEAF_SLOTS * leaf_pops).all())
+        if not any_hit:
+            torch.testing.assert_close(got[0][hit], want[0][hit], rtol=1e-6, atol=0)
+            assert bool(((got[1] == want[1]) | torch.isclose(got[0], want[0], rtol=1e-6,
+                                                             atol=0)).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_multi_walks_k3_wide_bit_for_bit(cuda_device, any_hit):
+    tree, o, d, t_min, t_max = _default_scene_primary(cuda_device)
+    want = traversal.traverse(tree, o, d, t_min, t_max, any_hit=any_hit, row_cursors=0,
+                              steady_drain=0)
+    for m in traversal.MULTI_WIDTHS:
+        # A ray count that leaves the last thread's rays short.
+        got = traversal.traverse_multi_cuda(tree.wnode_packed, tree.leaf_packed,
+                                            tree.wide_depth, o[:-3], d[:-3], t_min[:-3],
+                                            t_max[:-3], any_hit, m)
+        assert torch.equal(got[0].view(torch.int32), want[0][:-3].view(torch.int32))
+        assert torch.equal(got[1], want[1][:-3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("front", ["soup", "default_primary"])
+def test_seed_kernel_matches_plain_on_card(cuda_device, front):
+    if front == "soup":
+        tree = _soup_tree(cuda_device)
+        o, d, t_min, t_max = _rays(cuda_device, 50000)
+    else:
+        tree, o, d, t_min, t_max = _default_scene_primary(cuda_device)
+    rows = tree.leaf_packed[torch.as_tensor(torch_bvh.seed_leaf_rows(tree, 4),
+                                            device=cuda_device)].contiguous()
+    before = torch_bvh.SEED_LAUNCHES
+    got = torch_bvh.seed_occlusion_cuda(rows, o, d, t_min, t_max)
+    assert torch_bvh.SEED_LAUNCHES == before + 1
+    want = torch_bvh.seed_occlusion_plain(rows, o, d, t_min, t_max)
+    assert torch.equal(got, want)
+    occluded = traversal.traverse_plain(tree.node_packed, tree.leaf_packed, o, d, t_min,
+                                        t_max, True)[1] >= 0
+    assert not bool((got & ~occluded).any())
+    assert int(got.sum()) > 0
 
 
 def _raster_bins(device, vis, n=20000, width=1920, height=1080, seed=21):

@@ -140,7 +140,7 @@ def _chain(seed, size=16, levels=4):
 
 def case_cubemap():
     for f in range(6):
-        _close(cubemap.face_directions(f, 8), jax_cubemap.face_directions(f, 8))
+        _close(cubemap.face_directions(f, 8, "cpu"), jax_cubemap.face_directions(f, 8))
     d = _unit(_rng(3).normal(size=(2000, 3)))
     face, u, v = cubemap.direction_to_face_uv(torch.tensor(d))
     jface, ju, jv = jax_cubemap.direction_to_face_uv(jnp.asarray(d))
@@ -169,7 +169,7 @@ def case_ibl():
            jax_ibl.irradiance_convolution(chain[2], 8), rtol=1e-4, atol=1e-6)
     for a, b in zip(ibl.specular_prefilter(tchain, 4), jax_ibl.specular_prefilter(chain, 4)):
         _close(a, b, rtol=0, atol=2e-3)
-    _close(ibl.brdf_lut(16, 64), jax_ibl.brdf_lut(16, 64), rtol=1e-4, atol=1e-5)
+    _close(ibl.brdf_lut(16, 64, device="cpu"), jax_ibl.brdf_lut(16, 64), rtol=1e-4, atol=1e-5)
 
 
 def _lit_scene():
@@ -248,7 +248,7 @@ def case_noise():
 def case_marching_cubes():
     for time in (0.0, 2.5):
         want = jax_mc.marching_cubes(grid=8, voxel_size=4.0, time=time)
-        got = marching_cubes.marching_cubes(grid=8, voxel_size=4.0, time=time)
+        got = marching_cubes.marching_cubes(grid=8, voxel_size=4.0, time=time, device="cpu")
         np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
         assert int(got.vertex_count) == int(want.vertex_count) > 0
         _close(got.positions, want.positions)

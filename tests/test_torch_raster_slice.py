@@ -57,7 +57,7 @@ def _compare(mode: str, frames: int = 1, marching_cubes: int = 1, **cfg):
                       marching_cubes)
     before = _launches()
     app, got = _render(Application(SIZE, SIZE, getattr(RenderGraphMode, mode),
-                                   StaticConfig(**SMALL, **cfg)), frames,
+                                   StaticConfig(**SMALL, **cfg), device="cpu"), frames,
                        lambda x: x.cpu().numpy(), marching_cubes)
     assert _launches() == before
     for (img, _), (ref, _) in zip(got, want):
@@ -107,7 +107,7 @@ def test_environment_pass_writes_what_compute_environment_makes():
     graph = Graph("cpu")
     setup_environment_passes(graph, cfg, view.sun_dir)
     got = graph.render(None, view)
-    want = compute_environment(cfg, view.sun_dir)
+    want = compute_environment(cfg, view.sun_dir, "cpu")
     assert sorted(want) == sorted(name for name in got if name in graph.persist)
     for name, value in want.items():
         assert torch.equal(got[name], value), name
@@ -115,7 +115,7 @@ def test_environment_pass_writes_what_compute_environment_makes():
 
 
 def test_hybrid_graph_is_empty_like_the_reference():
-    app = Application(16, 16, RenderGraphMode.HYBRID, StaticConfig(**SMALL))
+    app = Application(16, 16, RenderGraphMode.HYBRID, StaticConfig(**SMALL), device="cpu")
     app.create_scene()
     assert app.run(1) is None
     assert app.graph.passes == []
@@ -124,7 +124,7 @@ def test_hybrid_graph_is_empty_like_the_reference():
 @pytest.mark.parametrize("setting", ["sky_mode", "marching_cubes"])
 def test_pt_graph_refuses_what_is_not_ported(setting):
     cfg = StaticConfig(**SMALL, sky_mode="nope" if setting == "sky_mode" else "exact")
-    app = Application(16, 16, cfg=cfg)
+    app = Application(16, 16, cfg=cfg, device="cpu")
     app.create_scene()
     if setting == "marching_cubes":
         app.view = app.view.replace(marching_cubes_enabled=np.int32(1))
