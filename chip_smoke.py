@@ -28,7 +28,8 @@ one nvcc per source, started together; then:
    at flush_k 4 and 8, K3-multi at m 2, 4 and 8 among them): each launch
    moves the counter of the kernel that `select_kernel` names, each result
    is held against the plain walk (K3-multi also against K3 wide, bit for
-   bit), each option set is timed beside K1 on the same front;
+   bit), each option set is timed beside K1 on the same front; a table of
+   K1 beside K3 wide and K3 wide ordered on the six fronts;
 7. K1's bound: K3's stats count the child-box slab tests and triangle
    tests that the walk performs on each front; the bound is the larger of
    operations over 33.5e12 unfused f32 operations/s and bytes over
@@ -53,8 +54,11 @@ one nvcc per source, started together; then:
    frame;
 12. MINIMAL main path: the same at 1920x1080;
 13. K4 against its plain version on the 4 cascades of the default scene at
-   4096^2, and K5 on the marching-cubes front at 1920x1080 over the gbuffer
-   depth, with times, global-list lengths, longest segments and bounds;
+   4096^2 (bit for bit), with its work plan (items, the longest item's
+   rows), the (row, pixel) box pairs it tests and the share of (tile,
+   global row) pairs the boxes cull; and K5 on the marching-cubes front at
+   1920x1080 over the gbuffer depth; times, global-list lengths, longest
+   segments and bounds;
 14. raster parity: one small RASTERIZED frame with marching cubes on the CPU
    (brute rasterizer, plain walk) and on the card (K4, K5, K1, the seed
    kernel).
@@ -687,6 +691,18 @@ def variants_phase(label, bvh, fronts, traversal, launches, plain=None) -> dict:
     return results
 
 
+def k1_table(variants) -> None:
+    """K1 beside K3 wide and K3 wide ordered, the yardsticks of its walk, on
+    the six fronts (device ms: the variants phase's medians)."""
+    for scene, results in variants.items():
+        for front in ("primary", "bounce", "nee_any_hit"):
+            k1, wide, ordered = (results[name][front]
+                                 for name in ("k1", "k3_wide", "k3_wide_ordered"))
+            log(f"K1 {scene} {front}: K1 {k1:.4f}, K3 wide {wide:.4f}, K3 wide ordered "
+                f"{ordered:.4f} ms; K1 / K3 wide {k1 / wide:.3f}, K1 / K3 wide ordered "
+                f"{k1 / ordered:.3f}")
+
+
 def nested_shells(device, traversal, bvh_ops):
     """A mesh whose wide tree is deeper than K1's stack takes: nested
     shells, each DEEP_RATIO the size of the last (SAH splits off one shell
@@ -905,16 +921,10 @@ def raster_bound(raster_binned, bins, width: int, height: int, pair_ops: int,
     """The least time of a binned raster: the (row, pixel) tests that the
     data needs — each row on the pixels of its triangle's box widened by one
     pixel, inside its tile for a segment row, as the plain version
-    enumerates them — at `pair_ops` operations each, against the bytes of
-    the table, the tile lists and the output, each once."""
-    x0, x1, y0, y1 = bins.row_box
-    seg = bins.row_tile >= 0
-    tx = torch.where(seg, bins.row_tile % bins.nx, 0) * raster_binned.TILE_W
-    ty = torch.where(seg, bins.row_tile // bins.nx, 0) * raster_binned.TILE_H
-    x0 = torch.where(seg, torch.maximum(x0, tx), x0)
-    x1 = torch.where(seg, torch.minimum(x1, tx + raster_binned.TILE_W - 1), x1)
-    y0 = torch.where(seg, torch.maximum(y0, ty), y0)
-    y1 = torch.where(seg, torch.minimum(y1, ty + raster_binned.TILE_H - 1), y1)
+    enumerates them and K4 tests them — at `pair_ops` operations each,
+    against the bytes of the table, the tile lists and the output, each
+    once."""
+    x0, x1, y0, y1 = raster_binned.row_boxes(bins)
     pairs = int(((x1 - x0 + 1).clamp_min(0) * (y1 - y0 + 1).clamp_min(0)).sum())
     nbytes = (bins.table.numel() * 4 + bins.starts.numel() * 4 + bins.counts.numel() * 4
               + width * height * out_bytes)
@@ -923,8 +933,26 @@ def raster_bound(raster_binned, bins, width: int, height: int, pair_ops: int,
             "bytes_ms": bytes_ms, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
+def k4_plan_stats(raster_binned, bins) -> dict:
+    """K4's work plan on `bins`: its items, the longest item's rows, and
+    the share of (tile, global row) pairs whose box misses the tile (one
+    comparison each in the kernel)."""
+    plan = raster_binned.depth_plan(bins)
+    _, _, rows = raster_binned.depth_plan_items(bins, plan)
+    x0, x1, y0, y1 = (b[bins.g_base:] for b in bins.row_box)
+    live = (x1 >= x0) & (y1 >= y0)
+    tiles = torch.where(live, (x1 // raster_binned.TILE_W - x0 // raster_binned.TILE_W + 1)
+                        * (y1 // raster_binned.TILE_H - y0 // raster_binned.TILE_H + 1), 0)
+    pairs = bins.g_count * bins.nx * bins.ny
+    return {"items": rows.numel(), "longest_item": int(rows.max()) if rows.numel() else 0,
+            "global_culled": 1.0 - int(tiles.sum()) / pairs if pairs else 0.0}
+
+
 def k4_phase(app, raster, raster_binned, shadow) -> dict:
-    """K4 against its plain version on the default scene's cascades."""
+    """K4 against its plain version on the default scene's cascades: bit for
+    bit, its plan, its time on the device alone (its wrapper's clear and
+    plan included) and by events around back-to-back calls (the host's
+    enqueueing included), the plain version's by events."""
     cfg, scene = app.cfg, app.scene
     size = cfg.shadow_map_size
     matrices, _ = shadow.cascade_matrices(
@@ -943,15 +971,23 @@ def k4_phase(app, raster, raster_binned, shadow) -> dict:
             raise AssertionError(f"K4 cascade {i}: depth differs from the plain version on "
                                  f"{int((got != want).sum())} texels")
         err = max(err, float((got - want).abs().max()))
-        k4_ms.append(cuda_ms(k4, 5))
+        k4()  # warm-up
+        k4_ms.append(device_ms(k4, TIMING_REPS))
+        events_ms = cuda_ms(k4, TIMING_REPS)
         plain_ms.append(cuda_ms(plain, 1))
         bounds.append(raster_bound(raster_binned, bins, size, size, K4_PAIR_OPS, 4))
+        plan = k4_plan_stats(raster_binned, bins)
+        if not k4_ms[-1] < plain_ms[-1]:
+            raise AssertionError(f"K4 cascade {i}: {k4_ms[-1]:.4f} ms, not faster than its plain "
+                                 f"version ({plain_ms[-1]:.3f} ms)")
         log(f"kernel K4 cascade={i} {size}x{size} rows={bins.table.shape[0]} "
             f"global={bins.g_count} longest_segment={int(bins.counts.max())} "
+            f"items={plan['items']} longest_item={plan['longest_item']} rows "
+            f"box_pairs={bounds[-1]['pairs']} global_culled_by_box={plan['global_culled']:.4f} "
             f"covered={float((got < 1).float().mean()):.4f} bit_equal=True "
-            f"k4_ms={k4_ms[-1]:.4f} plain_ms={plain_ms[-1]:.3f} "
-            f"bound_ms={bounds[-1]['bound_ms']:.4f} ({bounds[-1]['bound_by']}, "
-            f"{bounds[-1]['pairs']} pixel tests)")
+            f"k4_ms={k4_ms[-1]:.4f} (device alone; events {events_ms:.4f}) "
+            f"plain_ms={plain_ms[-1]:.3f} bound_ms={bounds[-1]['bound_ms']:.4f} "
+            f"({bounds[-1]['bound_by']})")
     # ms is the mean cascade's, and so is the bound.
     ops_ms = sum(b["ops_ms"] for b in bounds) / len(bounds)
     bytes_ms = sum(b["bytes_ms"] for b in bounds) / len(bounds)
@@ -1122,6 +1158,7 @@ def main() -> int:
                                       k1["plain"] if scene == "default" else None)
                 for scene in fronts}
     del k1["plain"]
+    k1_table(variants)
     launches.reset()
     for scene in fronts:
         counted.update(compaction_phase(f"compaction {scene}", bvhs[scene], fronts[scene],

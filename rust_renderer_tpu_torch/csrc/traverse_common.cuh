@@ -143,6 +143,95 @@ __device__ __forceinline__ bool leaf_test(const float* __restrict__ lrow,
   return found;
 }
 
+// Component c (a constant once unrolled) of a 16-byte vector.
+__device__ __forceinline__ float lane4(const float4& a, int c) {
+  return c == 0 ? a.x : c == 1 ? a.y : c == 2 ? a.z : a.w;
+}
+__device__ __forceinline__ int lane4(const int4& a, int c) {
+  return c == 0 ? a.x : c == 1 ? a.y : c == 2 ? a.z : a.w;
+}
+
+// leaf_test over a row read with 16-byte loads through the read-only path:
+// its ids as 3 int4, then for each group of 4 slots with a live one, the
+// group's 36 floats as 9 float4 (30 loads for a full row). The same tests in
+// the same order. Rows are 480 bytes, so a 16-byte-aligned table keeps every
+// row aligned.
+__device__ __forceinline__ bool leaf_test_v4(const float* __restrict__ lrow,
+                                             const Ray& r, Best& best,
+                                             bool any_hit) {
+  const float4* geo = reinterpret_cast<const float4*>(lrow);
+  const int4* ids4 = reinterpret_cast<const int4*>(lrow + 9 * TRV_LEAF_SLOTS);
+  bool found = false;
+#pragma unroll
+  for (int g = 0; g < TRV_LEAF_SLOTS / 4; ++g) {
+    const int4 ids = __ldg(ids4 + g);
+    if (ids.x < 0 && ids.y < 0 && ids.z < 0 && ids.w < 0) continue;
+    float f[36];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) {
+      const float4 x = __ldg(geo + 9 * g + k);
+      f[4 * k] = x.x;
+      f[4 * k + 1] = x.y;
+      f[4 * k + 2] = x.z;
+      f[4 * k + 3] = x.w;
+    }
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const int tri = lane4(ids, s);
+      if (tri < 0) continue;
+      // leaf_test's arithmetic, op for op, kept apart from it: one shared
+      // helper changed the other kernels' generated code and slowed them by
+      // up to 18% on an H100.
+      const float* q = f + 9 * s;
+      const float v0x = q[0], v0y = q[1], v0z = q[2];
+      const float e1x = q[3], e1y = q[4], e1z = q[5];
+      const float e2x = q[6], e2y = q[7], e2z = q[8];
+      const float px = r.dy * e2z - r.dz * e2y;
+      const float py = r.dz * e2x - r.dx * e2z;
+      const float pz = r.dx * e2y - r.dy * e2x;
+      const float det = e1x * px + e1y * py + e1z * pz;
+      if (!(fabsf(det) > 1e-12f)) continue;
+      const float inv_det = 1.0f / det;
+      const float tvx = r.ox - v0x, tvy = r.oy - v0y, tvz = r.oz - v0z;
+      const float u = (tvx * px + tvy * py + tvz * pz) * inv_det;
+      const float qx = tvy * e1z - tvz * e1y;
+      const float qy = tvz * e1x - tvx * e1z;
+      const float qz = tvx * e1y - tvy * e1x;
+      const float v = (r.dx * qx + r.dy * qy + r.dz * qz) * inv_det;
+      const float t = (e2x * qx + e2y * qy + e2z * qz) * inv_det;
+      if (u >= 0.0f && v >= 0.0f && u + v <= 1.0f && t > r.t_min && t < best.t) {
+        best.t = t;
+        best.u = u;
+        best.v = v;
+        best.prim = tri;
+        found = true;
+        if (any_hit) return true;
+      }
+    }
+  }
+  return found;
+}
+
+// Children 4g .. 4g + 3 of a wide row as 16-byte loads through the
+// read-only path: plane k (min.xyz, max.xyz) of the four in p[k], then their
+// refs. A row is 448 bytes, so a 16-byte-aligned table keeps every row
+// aligned; a node is 28 loads.
+struct WideGroup {
+  float4 p[6];
+  int4 ref;
+};
+
+__device__ __forceinline__ WideGroup load_wide_group(const float* __restrict__ row,
+                                                     int g) {
+  WideGroup w;
+#pragma unroll
+  for (int k = 0; k < 6; ++k) {
+    w.p[k] = __ldg(reinterpret_cast<const float4*>(row + TRV_WIDTH * k) + g);
+  }
+  w.ref = __ldg(reinterpret_cast<const int4*>(row + 6 * TRV_WIDTH) + g);
+  return w;
+}
+
 __device__ __forceinline__ const float* leaf_row(const float* __restrict__ leaf,
                                                  int64_t row) {
   return leaf + row * TRV_LEAF_COLS;

@@ -29,19 +29,35 @@
 //   leaf (L, 120) f32: 12 slots of [v0, e1, e2], then 12 triangle ids (int32
 //     bits, -1 = empty slot).
 //
-// What bounds it on an H100: dependent loads. Every step reads one 448-byte
-// node row or one 480-byte leaf row whose address came from the previous
-// step, so a ray's walk is a chain of memory latencies. The tables of the
-// default scene are about 2 MB and stay in the 50 MB L2, so each link costs
-// an L2 hit, not a trip to HBM. The design keeps that chain short and wide:
-// a width-16 node tests 16 child boxes per load (a shallow tree), K1 tests
-// the 12 triangles of a leaf inline without a stack push, rows are read
-// through the read-only path, and 128-thread blocks keep many rays' chains
-// in flight per SM to hide the latency. The stack lives in local memory
-// (L1-cached), sized by the wrapper's bound on the tree's wide depth.
-// Measured on chip_smoke.py's 1080p fronts, K1 takes 3-15x its operations
-// bound and the binary skip walk (traverse_binary.cu) keeps pace with it, so
-// the chain's length alone does not set its time (PERF.md).
+// K1: what bounds it on an H100, and the design. Its operations (the slab
+// and triangle tests that K3's stats count) bound it at 0.09-0.26 ms on the
+// 1080p fronts of chip_smoke.py; a walk with scalar loads in slot order took
+// 3.3x that on the primary fronts and 14-15x on the bounce fronts (PERF.md).
+// The chain of dependent loads does not explain it: K3's binary walk, whose
+// chain is longer, keeps pace. What does: (1) a popped node read as 112
+// scalar 4-byte loads: on an incoherent front each load instruction of a
+// warp touches up to 32 rows, so the L1's tag and data throughput, not its
+// latency, is spent; (2) children
+// taken in slot order: a far subtree is often walked before the near one
+// that would have shortened best.t; K3's ordered walk, which only changes
+// that, runs the bounce fronts in 0.60-0.71x the time. The design:
+//   - a node is read as 28 16-byte loads (load_wide_group), a leaf row as at
+//     most 30 (leaf_test_v4), through the read-only path;
+//   - closest hit: the 16 children are slab-tested against best.t, the hit
+//     ones kept as (ref, tnear) in a per-thread list in shared memory sorted
+//     by tnear (insertion, stable, so slot order breaks ties); the hit leaves
+//     are tested nearest first, each only while its tnear <= best.t (the slab
+//     test at the current best.t, so K1 culls what the plain walk culls);
+//     then the inner children are pushed far to near with their tnear, and a
+//     popped entry whose tnear exceeds best.t is dropped unread;
+//   - any hit: the hit leaves are tested in slot order before any inner child
+//     is pushed, since a hit ends the walk; no ordering (it does not pay on
+//     the NEE fronts, PERF.md);
+//   - the stack holds (ref, tnear) pairs in local memory, sized by the
+//     wrapper's bound on the tree's wide depth.
+//
+// K3 keeps its scalar loads: its walks are the JAX package's other
+// schedules, and the yardstick K1 is timed beside.
 
 #include "traverse_common.cuh"
 
@@ -53,44 +69,76 @@ namespace {
 using trv::Best;
 using trv::Ray;
 
+template <bool kAnyHit>
 __global__ void __launch_bounds__(TRV_THREADS)
 k1_traverse_wide_kernel(const float* __restrict__ origin,
                         const float* __restrict__ direction,
                         const float* __restrict__ t_min_in,
                         const float* __restrict__ t_max_in,
                         const float* __restrict__ wnode,
-                        const float* __restrict__ leaf, int n_rays, int any_hit,
+                        const float* __restrict__ leaf, int n_rays,
                         float* __restrict__ t_out, int* __restrict__ prim_out,
                         float* __restrict__ u_out, float* __restrict__ v_out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  // The hit children of the node being expanded, [entry][thread].
+  __shared__ int hit_ref[TRV_WIDTH][TRV_THREADS];
+  __shared__ float hit_tn[TRV_WIDTH][TRV_THREADS];
+  const int lane = threadIdx.x;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + lane;
   if (i >= n_rays) return;
   Ray r;
   Best best;
   if (trv::load_ray(origin, direction, t_min_in, t_max_in, i, r, best)) {
-    int stack[K1_STACK_CAP];
+    int2 stack[K1_STACK_CAP];  // (ref, tnear bits); the wrapper sizes the cap
     int sp = 0;
-    stack[sp++] = 0;
-    bool done = false;
-    while (sp > 0 && !done) {
-      const float* row = wnode + static_cast<size_t>(stack[--sp]) * TRV_NODE_COLS;
-      const int* refs = reinterpret_cast<const int*>(row + 6 * TRV_WIDTH);
-      for (int c = 0; c < TRV_WIDTH; ++c) {
-        const int ref = __ldg(refs + c);
-        if (ref == TRV_WIDE_EMPTY) continue;
-        float tnear;
-        if (!trv::wide_child_hit(row, c, r, best.t, tnear)) continue;
-        if (ref >= 0) {
-          stack[sp++] = ref;  // the wrapper sizes K1_STACK_CAP for the tree
-        } else if (trv::leaf_test(trv::leaf_row(leaf, -(ref + 2)), r, best,
-                                  any_hit) &&
-                   any_hit) {
-          done = true;
-          break;
+    stack[sp++] = make_int2(0, __float_as_int(-TRV_INF));
+    while (sp > 0) {
+      const int2 top = stack[--sp];
+      if (!kAnyHit && !(__int_as_float(top.y) <= best.t)) continue;
+      const float* row = wnode + static_cast<size_t>(top.x) * TRV_NODE_COLS;
+      int n = 0;
+#pragma unroll
+      for (int g = 0; g < TRV_WIDTH / 4; ++g) {
+        const trv::WideGroup w = trv::load_wide_group(row, g);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int child = trv::lane4(w.ref, c);
+          if (child == TRV_WIDE_EMPTY) continue;
+          float tnear;
+          if (!trv::slab(r, trv::lane4(w.p[0], c), trv::lane4(w.p[1], c),
+                         trv::lane4(w.p[2], c), trv::lane4(w.p[3], c),
+                         trv::lane4(w.p[4], c), trv::lane4(w.p[5], c), best.t,
+                         tnear)) {
+            continue;
+          }
+          int a = n++;
+          if (!kAnyHit) {  // insertion by tnear; an equal tnear stays behind
+            for (; a > 0 && hit_tn[a - 1][lane] > tnear; --a) {
+              hit_ref[a][lane] = hit_ref[a - 1][lane];
+              hit_tn[a][lane] = hit_tn[a - 1][lane];
+            }
+          }
+          hit_ref[a][lane] = child;
+          hit_tn[a][lane] = tnear;
+        }
+      }
+      bool done = false;
+      for (int a = 0; a < n && !done; ++a) {  // leaves, nearest first
+        const int child = hit_ref[a][lane];
+        if (child >= 0 || !(kAnyHit || hit_tn[a][lane] <= best.t)) continue;
+        done = trv::leaf_test_v4(trv::leaf_row(leaf, -(child + 2)), r, best, kAnyHit) &&
+               kAnyHit;
+      }
+      if (done) break;
+      for (int a = n - 1; a >= 0; --a) {  // inner nodes, far to near
+        const int child = hit_ref[a][lane];
+        const float tn = hit_tn[a][lane];
+        if (child >= 0 && (kAnyHit || tn <= best.t)) {
+          stack[sp++] = make_int2(child, __float_as_int(tn));
         }
       }
     }
   }
-  trv::store_hit(i, best, any_hit, t_out, prim_out, u_out, v_out);
+  trv::store_hit(i, best, kAnyHit, t_out, prim_out, u_out, v_out);
 }
 
 // The per-ray counters of K3's stats form.
@@ -210,9 +258,16 @@ extern "C" int k1_traverse_wide(const float* origin, const float* direction,
                                 int* prim_out, float* u_out, float* v_out,
                                 void* stream) {
   const int blocks = (n_rays + TRV_THREADS - 1) / TRV_THREADS;
-  k1_traverse_wide_kernel<<<blocks, TRV_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      origin, direction, t_min, t_max, wnode, leaf, n_rays, any_hit, t_out,
-      prim_out, u_out, v_out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (any_hit) {
+    k1_traverse_wide_kernel<true><<<blocks, TRV_THREADS, 0, s>>>(
+        origin, direction, t_min, t_max, wnode, leaf, n_rays, t_out, prim_out,
+        u_out, v_out);
+  } else {
+    k1_traverse_wide_kernel<false><<<blocks, TRV_THREADS, 0, s>>>(
+        origin, direction, t_min, t_max, wnode, leaf, n_rays, t_out, prim_out,
+        u_out, v_out);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

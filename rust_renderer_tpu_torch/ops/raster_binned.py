@@ -22,7 +22,10 @@ and the plain PyTorch version of each (the port of
 `rasterize_depth_binned` / `rasterize_binned` launch K4 / K5 on CUDA
 tensors and take the plain versions on CPU tensors; any other device
 raises. `K4_LAUNCHES` and `K5_LAUNCHES` count kernel launches; nothing else
-changes them.
+changes them. K5 runs one block per tile. K4 tests each row only on its
+pixel box (`row_boxes`) and takes its work in items of at most
+`K4_ITEM_ROWS` rows of one tile (`depth_plan`, `depth_plan_items`), so that
+a crowded tile is spread over the card.
 
 The plain versions compute the same function over the same table without
 tiles' pixel blocks: every table row is tested only on the pixels of its
@@ -52,8 +55,10 @@ SPAN_X = 2  # tiles a triangle may span horizontally before going global
 SPAN_Y = 4
 DEPTH_STRIDE = 16  # f32 per depth row
 VIS_STRIDE = 24  # f32 per visibility row
-# Launch limits of raster_binned.cu: grid.y is at most 65535 tiles.
+# Launch limit of K5 (raster_binned.cu): grid.y is at most 65535 tiles.
 MAX_TILES_Y = 65535
+# K4's work item: at most this many rows of one tile (raster_binned.cu).
+K4_ITEM_ROWS = 1024
 _PAIR_BUDGET = 1 << 24
 
 SOURCE = os.path.join(native.PACKAGE_DIR, "csrc", "raster_binned.cu")
@@ -74,7 +79,8 @@ class TriRows(NamedTuple):
 
 
 class Bins(NamedTuple):
-    """What K4 / K5 read, plus what the plain versions use to skip pixels."""
+    """What K5 reads, plus the row boxes that K4 and the plain versions
+    test rows on (`row_boxes`)."""
 
     table: torch.Tensor  # (R, stride) f32: [segments | globals]
     starts: torch.Tensor  # (ny*nx,) i32 first segment row of each tile
@@ -197,32 +203,84 @@ def bin_triangles(tr: TriRows, width: int, height: int) -> Bins:
 def library() -> ctypes.CDLL:
     """Build (at first use) and bind K4 and K5."""
     lib = native.load_library("k45_raster_binned", [SOURCE], nvcc_command())
-    for fn, n_out in ((lib.k4_depth_binned, 1), (lib.k5_vis_binned, 4)):
+    # pointers in, then ints, then the outputs and the stream
+    for fn, n_in, n_out in ((lib.k4_depth_binned, 5, 1), (lib.k5_vis_binned, 3, 4)):
         if fn.argtypes is None:
             fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+            fn.argtypes = ([ctypes.c_void_p] * n_in + [ctypes.c_int] * 6
                            + [ctypes.c_void_p] * (n_out + 1))
     return lib
 
 
-def _launch_args(bins: Bins, width: int, height: int):
-    """The C arguments of a K4 / K5 launch; raises on what the kernels do
-    not take (nothing is truncated)."""
+def _check_bins(bins: Bins, width: int, height: int, kernel: str) -> None:
+    """Raises on bins a K4 / K5 launch does not take (nothing is truncated)."""
     if bins.nx != -(-width // TILE_W) or bins.ny != -(-height // TILE_H):
         raise ValueError("bins were made for another image size")
-    if bins.ny > MAX_TILES_Y:
-        raise ValueError(f"{bins.ny} tile rows exceed the grid limit {MAX_TILES_Y}")
     if width * height >= 2 ** 31 or bins.table.shape[0] >= 2 ** 31:
         raise ValueError("image or table too large for int32 offsets")
     dev = bins.table.device
     if dev.type != "cuda":
-        raise ValueError(f"K4/K5 run on CUDA tensors, got {dev}")
+        raise ValueError(f"{kernel} runs on CUDA tensors, got {dev}")
     n_tiles = bins.nx * bins.ny
     _check("table", bins.table, torch.float32, (bins.table.shape[0], bins.table.shape[1]), dev)
     _check("starts", bins.starts, torch.int32, (n_tiles,), dev)
     _check("counts", bins.counts, torch.int32, (n_tiles,), dev)
-    return (bins.table.data_ptr(), bins.starts.data_ptr(), bins.counts.data_ptr(),
-            bins.g_base, bins.g_count, bins.nx, bins.ny, width, height)
+
+
+class DepthPlan(NamedTuple):
+    """K4's work: items of at most K4_ITEM_ROWS rows of one tile, the global
+    list's first, then the tile's segment."""
+
+    boxes: torch.Tensor  # (R, 4) i32 per row x0, x1, y0, y1 (`row_boxes`)
+    ends: torch.Tensor  # (ny*nx + 1,) i32: cumulative items per tile, then 0
+    g_items: int  # items of the global list per tile
+
+
+def row_boxes(bins: Bins):
+    """Each row's pixel box, (x0, x1, y0, y1) inclusive, (R,) i64 each: its
+    triangle's box widened by one pixel, and for a segment row clipped to
+    the row's tile (empty where x1 < x0 or y1 < y0)."""
+    x0, x1, y0, y1 = bins.row_box
+    seg = bins.row_tile >= 0
+    tx, ty = bins.row_tile % bins.nx, bins.row_tile // bins.nx
+    x0 = torch.where(seg, torch.maximum(x0, tx * TILE_W), x0)
+    x1 = torch.where(seg, torch.minimum(x1, tx * TILE_W + TILE_W - 1), x1)
+    y0 = torch.where(seg, torch.maximum(y0, ty * TILE_H), y0)
+    y1 = torch.where(seg, torch.minimum(y1, ty * TILE_H + TILE_H - 1), y1)
+    return x0, x1, y0, y1
+
+
+def depth_plan(bins: Bins) -> DepthPlan:
+    """K4's work items, made on the bins' device with no host sync. Tile t
+    has ceil(g_count / K4_ITEM_ROWS) global items and ceil(counts[t] /
+    K4_ITEM_ROWS) segment items; `ends[t]` is the number of items of tiles
+    0..t. The kernel takes items from a counter in `ends[-1]`."""
+    g_items = -(-bins.g_count // K4_ITEM_ROWS)
+    n_tiles = bins.nx * bins.ny
+    if n_tiles * (g_items + 1) + bins.table.shape[0] // K4_ITEM_ROWS >= 2 ** 31:
+        raise ValueError("K4's work items exceed int32 offsets")
+    per_tile = torch.div(bins.counts + (K4_ITEM_ROWS - 1), K4_ITEM_ROWS,
+                         rounding_mode="floor") + g_items
+    ends = torch.zeros(n_tiles + 1, dtype=torch.int32, device=bins.table.device)
+    torch.cumsum(per_tile, 0, dtype=torch.int32, out=ends[:n_tiles])
+    boxes = torch.stack(row_boxes(bins), dim=1).to(torch.int32)
+    return DepthPlan(boxes, ends, g_items)
+
+
+def depth_plan_items(bins: Bins, plan: DepthPlan):
+    """The items in K4's numbering, as the kernel decodes them: (tile, first
+    row, rows) per item, (n_items,) i64 each."""
+    ends = plan.ends[:-1].to(torch.int64)
+    item = torch.arange(int(ends[-1]), device=ends.device)
+    tile = torch.searchsorted(ends, item, right=True)  # the first t with ends[t] > item
+    k = item - torch.cat([ends.new_zeros(1), ends[:-1]])[tile]
+    glob = k < plan.g_items
+    s = (k - plan.g_items) * K4_ITEM_ROWS
+    first = torch.where(glob, bins.g_base + k * K4_ITEM_ROWS,
+                        bins.starts.to(torch.int64)[tile] + s)
+    rows = torch.where(glob, (bins.g_count - k * K4_ITEM_ROWS).clamp_max(K4_ITEM_ROWS),
+                       (bins.counts.to(torch.int64)[tile] - s).clamp_max(K4_ITEM_ROWS))
+    return tile, first, rows
 
 
 def depth_binned_cuda(bins: Bins, width: int, height: int) -> torch.Tensor:
@@ -230,11 +288,15 @@ def depth_binned_cuda(bins: Bins, width: int, height: int) -> torch.Tensor:
     global K4_LAUNCHES
     if bins.table.shape[1] != DEPTH_STRIDE:
         raise ValueError(f"K4 reads rows of {DEPTH_STRIDE} floats")
-    args = _launch_args(bins, width, height)
+    plan = depth_plan(bins)
+    _check_bins(bins, width, height, "K4")
     dev = bins.table.device
-    out = torch.empty((height, width), dtype=torch.float32, device=dev)
+    out = torch.ones((height, width), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = library().k4_depth_binned(*args, out.data_ptr(), stream)
+    err = library().k4_depth_binned(
+        bins.table.data_ptr(), plan.boxes.data_ptr(), bins.starts.data_ptr(),
+        bins.counts.data_ptr(), plan.ends.data_ptr(), bins.nx * bins.ny, bins.nx,
+        bins.g_base, bins.g_count, plan.g_items, width, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"K4 launch failed: cudaError {err}")
     K4_LAUNCHES += 1
@@ -246,7 +308,9 @@ def vis_binned_cuda(bins: Bins, width: int, height: int) -> VisibilityBuffer:
     global K5_LAUNCHES
     if bins.table.shape[1] != VIS_STRIDE:
         raise ValueError(f"K5 reads rows of {VIS_STRIDE} floats")
-    args = _launch_args(bins, width, height)
+    if bins.ny > MAX_TILES_Y:
+        raise ValueError(f"{bins.ny} tile rows exceed the grid limit {MAX_TILES_Y}")
+    _check_bins(bins, width, height, "K5")
     dev = bins.table.device
     out = VisibilityBuffer(
         depth=torch.empty((height, width), dtype=torch.float32, device=dev),
@@ -254,7 +318,9 @@ def vis_binned_cuda(bins: Bins, width: int, height: int) -> VisibilityBuffer:
         bary_u=torch.empty((height, width), dtype=torch.float32, device=dev),
         bary_v=torch.empty((height, width), dtype=torch.float32, device=dev))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = library().k5_vis_binned(*args, *(x.data_ptr() for x in out), stream)
+    err = library().k5_vis_binned(
+        bins.table.data_ptr(), bins.starts.data_ptr(), bins.counts.data_ptr(), bins.g_base,
+        bins.g_count, bins.nx, bins.ny, width, height, *(x.data_ptr() for x in out), stream)
     if err != 0:
         raise RuntimeError(f"K5 launch failed: cudaError {err}")
     K5_LAUNCHES += 1
@@ -267,14 +333,7 @@ def vis_binned_cuda(bins: Bins, width: int, height: int) -> VisibilityBuffer:
 def _row_pixel_pairs(bins: Bins, width: int, height: int):
     """(table row, px, py) for every pixel a row can cover: its triangle's
     box, and for a segment row only inside the row's tile."""
-    x0, x1, y0, y1 = bins.row_box
-    seg = bins.row_tile >= 0
-    tx, ty = bins.row_tile % bins.nx, bins.row_tile // bins.nx
-    x0 = torch.where(seg, torch.maximum(x0, tx * TILE_W), x0)
-    x1 = torch.where(seg, torch.minimum(x1, tx * TILE_W + TILE_W - 1), x1)
-    y0 = torch.where(seg, torch.maximum(y0, ty * TILE_H), y0)
-    y1 = torch.where(seg, torch.minimum(y1, ty * TILE_H + TILE_H - 1), y1)
-    return pixel_pairs(x0, x1, y0, y1, _PAIR_BUDGET)
+    return pixel_pairs(*row_boxes(bins), _PAIR_BUDGET)
 
 
 def _edges(q, px, py):

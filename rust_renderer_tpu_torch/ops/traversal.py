@@ -13,8 +13,10 @@ Every kernel is CUDA C++ (``csrc/``), one thread per ray, built with nvcc at
 first use and bound with ctypes:
 
 - K1 (``traverse_wide.cu``) walks the width-16 tree `wnode_packed` with a
-  private stack and tests leaves inline. It replaces the TPU kernel
-  ``rust_renderer_tpu/ops/pallas/traversal.py::_make_kernel_wide_row``.
+  private stack, reading rows with 16-byte loads; a closest-hit walk tests
+  a node's hit leaves nearest first and visits its inner children near to
+  far, dropping any whose entry lies beyond the best hit. It replaces the
+  TPU kernel ``rust_renderer_tpu/ops/pallas/traversal.py::_make_kernel_wide_row``.
 - K1q (``traverse_q32.cu``) walks the quantized width-32 tree `wnode_q32`
   (``_make_kernel_wide_row32``).
 - K2 (``traverse_drain.cu``) is the steady-drain walk of `wnode_packed`
@@ -223,6 +225,9 @@ def traverse_wide_cuda(wnode_packed, leaf_packed, wide_depth: int, o, d,
         raise ValueError(
             f"tree of wide depth {wide_depth} needs a {need}-entry stack; "
             f"K1 is built with {K1_STACK_CAP}")
+    for name, table in (("wnode_packed", wnode_packed), ("leaf_packed", leaf_packed)):
+        if table.data_ptr() % 16:
+            raise ValueError(f"K1 reads {name} with 16-byte loads: it must be 16-byte aligned")
     out = _hits(r, dev)
     if r == 0:
         return out

@@ -13,10 +13,13 @@ any-hit flags equal; so must every kernel `traverse` selects under the
 traversal options (K1q, K2, K3), each moving its own launch counter by one,
 and K3's binary skip walk must return the plain walk's t bit for bit;
 K3-multi must return K3 wide's hits bit for bit (each ray walks K3 wide's
-walk), and the seed kernel its plain version's verdicts. The
+walk), and the seed kernel its plain version's verdicts. K1's near-first
+walk is also held to the plain walk on a soup of tied triangles and on
+the default scene's primary, bounce and NEE fronts. The
 PT frame must match the CPU's under the tolerance of
 tests/test_torch_slice.py. K4 must return its plain version's
-depth bit for bit, and K5 its triangle ids, with depth and barycentrics
+depth bit for bit (also where a crowded tile is cut into several work
+items), and K5 its triangle ids, with depth and barycentrics
 within 1e-5 (both walk one table in one order); the rasterized frames must
 match the CPU's under the tolerance of tests/test_torch_raster_slice.py.
 """
@@ -88,6 +91,79 @@ def test_k1_matches_plain_on_card(cuda_device, any_hit):
         hit = p2 >= 0
         np.testing.assert_allclose(t1[hit], t2[hit], rtol=1e-6)
         assert np.all((p1 == p2) | np.isclose(t1, t2, rtol=1e-6, atol=0))
+
+
+def _tie_soup(device, n=2000, seed=31):
+    """A soup in which every triangle appears twice (exact ties) and many
+    lie in a few shared planes (near ties)."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
+    base[: n // 2, 2] = rng.integers(-2, 3, n // 2).astype(np.float32)  # 5 planes z = k
+    e = rng.uniform(-0.8, 0.8, (n, 2, 3)).astype(np.float32)
+    e[: n // 2, :, 2] = 0.0
+    tris = np.concatenate([base, base + e[:, 0], base + e[:, 1]], 1).reshape(n, 3, 3)
+    pos = np.concatenate([tris, tris[::-1]]).reshape(-1, 3)
+    return torch_bvh.build_bvh(pos, np.arange(len(pos)).reshape(-1, 3), device)
+
+
+def _default_fronts(device, size=256, seed=5):
+    """The default scene's primary front at size^2 and, from its hits, a
+    bounce front (random directions) and an NEE front (to the lights)."""
+    tree, o, d, t_min, t_max = _default_scene_primary(device, size)
+    t, prim = traversal.traverse_plain(tree.node_packed, tree.leaf_packed, o, d, t_min, t_max,
+                                       False)[:2]
+    hit = (prim >= 0)[:, None]
+    rng = np.random.default_rng(seed)
+    bounce = torch.tensor(rng.normal(size=tuple(o.shape)), dtype=torch.float32, device=device)
+    bounce = torch.where(hit, bounce / bounce.norm(dim=1, keepdim=True), 0.0).contiguous()
+    origin = torch.where(hit, o + t[:, None] * d - 1e-3 * d, o).contiguous()
+    light = torch.tensor(rng.uniform(-4, 4, tuple(o.shape)) + [0, 6, 0], dtype=torch.float32,
+                         device=device)
+    to_light = light - origin
+    dist = to_light.norm(dim=1)
+    nee = torch.where(hit, to_light / dist[:, None], 0.0).contiguous()
+    return tree, {"primary": (o, d, t_min, t_max), "bounce": (origin, bounce, t_min, t_max),
+                  "nee": (origin, nee, t_min, (dist * (1.0 - 1e-4)).contiguous())}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("front", ["ties", "primary", "bounce", "nee"])
+def test_k1_near_first_walk_matches_plain_on_card(cuda_device, front, any_hit):
+    """K1's near-first walk against the plain walk: hit flags equal; t to
+    rtol 1e-6 and prim equal off ties (a tie may go to either triangle)."""
+    if front == "ties":
+        tree = _tie_soup(cuda_device)
+        o, d, t_min, t_max = _rays(cuda_device, 50000)
+    else:
+        tree, fronts = _default_fronts(cuda_device)
+        o, d, t_min, t_max = fronts[front]
+    got = traversal.traverse_wide_cuda(tree.wnode_packed, tree.leaf_packed, tree.wide_depth,
+                                       o, d, t_min, t_max, any_hit)
+    want = traversal.traverse_plain(tree.node_packed, tree.leaf_packed, o, d, t_min, t_max,
+                                    any_hit)
+    t1, p1 = (x.cpu().numpy() for x in got[:2])
+    t2, p2 = (x.cpu().numpy() for x in want[:2])
+    np.testing.assert_array_equal(p1 >= 0, p2 >= 0)
+    assert (p2 >= 0).sum() > 1000
+    if not any_hit:
+        hit = p2 >= 0
+        np.testing.assert_allclose(t1[hit], t2[hit], rtol=1e-6)
+        assert np.all((p1 == p2) | np.isclose(t1, t2, rtol=1e-6, atol=0))
+        if front == "ties":
+            assert (p1 != p2).sum() < hit.sum()  # ties exist and most hits agree
+
+
+@pytest.mark.cuda
+def test_k1_refuses_misaligned_tables(cuda_device):
+    tree = _soup_tree(cuda_device, n=50)
+    o, d, t_min, t_max = _rays(cuda_device, 8)
+    shifted = torch.empty(tree.wnode_packed.numel() + 1, device=cuda_device)[1:].view_as(
+        tree.wnode_packed)
+    shifted.copy_(tree.wnode_packed)
+    with pytest.raises(ValueError, match="16-byte"):
+        traversal.traverse_wide_cuda(shifted, tree.leaf_packed, tree.wide_depth,
+                                     o, d, t_min, t_max, False)
 
 
 @pytest.mark.cuda
@@ -435,9 +511,12 @@ def test_k45_wrappers_refuse_cpu_tensors_and_oversized_grids():
     with pytest.raises(ValueError, match="another image size"):
         raster_binned.depth_binned_cuda(bins, w + 256, h)
     tall = raster_binned.MAX_TILES_Y + 1
-    with pytest.raises(ValueError, match="grid limit"):
-        raster_binned.depth_binned_cuda(bins._replace(ny=tall), w, tall * 32)
+    # K4's grid is persistent: its limit is the int32 numbering of its items.
+    with pytest.raises(ValueError, match="work items"):
+        raster_binned.depth_binned_cuda(bins._replace(ny=tall, g_count=1 << 24), w, tall * 32)
     vis_bins, _, _ = _raster_bins("cpu", vis=True, n=50, width=300, height=70)
+    with pytest.raises(ValueError, match="grid limit"):
+        raster_binned.vis_binned_cuda(vis_bins._replace(ny=tall), w, tall * 32)
     with pytest.raises(ValueError, match="rows of 24"):
         raster_binned.vis_binned_cuda(bins, w, h)
     with pytest.raises(ValueError, match="CUDA"):
@@ -451,6 +530,37 @@ def test_k4_matches_plain_on_card(cuda_device):
     got = raster_binned.depth_binned_cuda(bins, w, h)
     want = raster_binned.depth_binned_plain(bins, w, h)
     assert (want < 1.0).float().mean() > 0.5
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_k4_spreads_a_crowded_tile_over_items_bit_for_bit(cuda_device):
+    """A crowd of small triangles over a few tiles (several thousand rows in
+    one tile, so several items; triangles straddling tile edges, so rows in
+    two segments) under a global list of a few large triangles: K4's depth
+    is its plain version's bit for bit."""
+    width, height, n = 1024, 256, 12000
+    rng = np.random.default_rng(23)
+    centers = np.stack([rng.normal(0.0, 0.08, n), rng.normal(0.0, 0.12, n),
+                        rng.uniform(-0.5, 0.5, n)], 1)
+    tris = centers[:, None] + rng.normal(0, 0.01, (n, 3, 3))
+    big = rng.uniform(-6, 6, (6, 3, 3)) * [1, 1, 0.05]
+    v = np.concatenate([tris, big]).reshape(-1, 3).astype(np.float32)
+    clip = np.stack([v[:, 0], v[:, 1], 0.5 + 0.4 * v[:, 2], np.ones(len(v))], -1)
+    clip = torch.tensor(clip, dtype=torch.float32, device=cuda_device)
+    idx = torch.arange(len(v), dtype=torch.int32, device=cuda_device).reshape(-1, 3)
+    rows = raster_binned.tri_rows(clip, idx, width, height)
+    bins = raster_binned.bin_triangles(rows, width, height)
+    plan = raster_binned.depth_plan(bins)
+    per_tile = plan.ends[:-1] - torch.cat([plan.ends.new_zeros(1), plan.ends[:-2]])
+    assert bins.g_count >= 1
+    assert int(bins.counts.max()) > 2 * raster_binned.K4_ITEM_ROWS
+    assert int((per_tile > 2).sum()) >= 1
+    binned = rows.valid & ~rows.is_global
+    assert int((binned & ((rows.span_w > 1) | (rows.span_h > 1))).sum()) > 100  # straddlers
+    got = raster_binned.depth_binned_cuda(bins, width, height)
+    want = raster_binned.depth_binned_plain(bins, width, height)
+    assert (want < 1.0).float().mean() > 0.3
     assert torch.equal(got, want)
 
 

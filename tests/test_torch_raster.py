@@ -13,8 +13,13 @@ meets them):
   pixels both cover (depth ties may break either way: the JAX package's
   sort does not promise stability) with barycentrics within 2e-3;
 - the brute path names the same triangle on every pixel, with depth and
-  barycentrics within 1e-5.
+  barycentrics within 1e-5;
+- K4's work plan covers every (tile, row) pair once, its row boxes are the
+  plain version's, and folding its items gives the plain version's depth
+  bit for bit.
 """
+
+import functools
 
 import jax.numpy as jnp
 import numpy as np
@@ -108,6 +113,99 @@ def test_depth_plain_matches_jax_binned(case):
     assert raster_binned.K4_LAUNCHES == launches  # CPU tensors: the plain version
     assert got.shape == (H, W)
     _assert_depth_close(got, want)
+
+
+# K4's work plan (ops/raster_binned.py::depth_plan), at the kernel's item
+# size and at a small one that cuts every tile's segment into several items.
+ITEM_ROWS = [raster_binned.K4_ITEM_ROWS, 37]
+
+
+def _bins(case):
+    (_, _), (tc, ti) = _both(*CASES[case]())
+    return raster_binned.bin_triangles(raster_binned.tri_rows(tc, ti, W, H), W, H)
+
+
+@pytest.mark.parametrize("item_rows", ITEM_ROWS)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_k4_plan_covers_every_tile_row_pair_once(case, item_rows, monkeypatch):
+    """The items walk each tile's global rows and segment rows, each once,
+    and no item holds more than K4_ITEM_ROWS rows."""
+    monkeypatch.setattr(raster_binned, "K4_ITEM_ROWS", item_rows)
+    bins = _bins(case)
+    tile, first, rows = raster_binned.depth_plan_items(bins, raster_binned.depth_plan(bins))
+    assert int(rows.min()) >= 1 and int(rows.max()) <= item_rows
+    pairs = torch.cat([torch.stack([torch.full((n,), t), torch.arange(f, f + n)], 1)
+                       for t, f, n in zip(tile.tolist(), first.tolist(), rows.tolist())])
+    want = []
+    for t in range(bins.nx * bins.ny):
+        s, c = int(bins.starts[t]), int(bins.counts[t])
+        walked = list(range(bins.g_base, bins.g_base + bins.g_count)) + list(range(s, s + c))
+        want += [(t, r) for r in walked]
+    assert sorted(map(tuple, pairs.tolist())) == sorted(want)
+    if item_rows < raster_binned.K4_ITEM_ROWS:
+        assert int((rows == item_rows).sum()) > 0  # some tile needs several items
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_k4_boxes_are_the_plain_versions_pixel_boxes(case):
+    """K4's int32 row boxes are the boxes whose pixels the plain version
+    enumerates (`_row_pixel_pairs`: the triangle's box widened by one pixel,
+    a segment row's clipped to its tile)."""
+    bins = _bins(case)
+    boxes = raster_binned.depth_plan(bins).boxes
+    assert boxes.dtype == torch.int32 and boxes.shape == (bins.table.shape[0], 4)
+    row, px, py = (torch.cat(x) for x in zip(*raster_binned._row_pixel_pairs(bins, W, H)))
+    n = bins.table.shape[0]
+    got = torch.stack([
+        torch.full((n,), 1 << 30).scatter_reduce(0, row, px, "amin"),
+        torch.full((n,), -1).scatter_reduce(0, row, px, "amax"),
+        torch.full((n,), 1 << 30).scatter_reduce(0, row, py, "amin"),
+        torch.full((n,), -1).scatter_reduce(0, row, py, "amax")], 1)
+    live = (boxes[:, 1] >= boxes[:, 0]) & (boxes[:, 3] >= boxes[:, 2])
+    assert torch.equal(torch.unique(row), torch.nonzero(live).squeeze(1))
+    assert torch.equal(got[live], boxes[live].long())
+    tx, ty = bins.row_tile % bins.nx, bins.row_tile // bins.nx
+    seg = live & (bins.row_tile >= 0)
+    assert bool((boxes[seg, 0] >= tx[seg] * raster_binned.TILE_W).all())
+    assert bool((boxes[seg, 3] < (ty[seg] + 1) * raster_binned.TILE_H).all())
+
+
+def _fold_plan(bins, plan, width, height):
+    """K4's function computed item by item as the kernel walks it: each row
+    of an item on its box clipped to the item's tile, in `_edges`'
+    arithmetic, folded by a minimum onto a clear of 1.0."""
+    out = torch.ones(height * width)
+    for t, f, n in zip(*(x.tolist() for x in raster_binned.depth_plan_items(bins, plan))):
+        tx0, ty0 = (t % bins.nx) * raster_binned.TILE_W, (t // bins.nx) * raster_binned.TILE_H
+        rows = torch.arange(f, f + n)
+        b = plan.boxes[rows].long()
+        box = (b[:, 0].clamp_min(tx0), b[:, 1].clamp_max(tx0 + raster_binned.TILE_W - 1),
+               b[:, 2].clamp_min(ty0), b[:, 3].clamp_max(ty0 + raster_binned.TILE_H - 1))
+        for j, px, py in raster.pixel_pairs(*box, 1 << 20):
+            q = bins.table[rows[j]]
+            e0, e1, e2, inside = raster_binned._edges(q, px, py)
+            z = (e1 * q[:, 9] + e2 * q[:, 10] + e0 * q[:, 11]) * q[:, 12]
+            out.scatter_reduce_(0, py * width + px, torch.where(inside, z, 3.0e38), "amin")
+    return out.reshape(height, width)
+
+
+@functools.cache
+def _jax_depth(case):
+    (jc, ji), _ = _both(*CASES[case]())
+    return np.asarray(jax_binned.rasterize_depth_binned(jc, ji, W, H, interpret=True))
+
+
+@pytest.mark.parametrize("item_rows", ITEM_ROWS)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_k4_plan_fold_matches_plain_and_jax(case, item_rows, monkeypatch):
+    """Folding the plan's items gives the plain version's depth bit for bit,
+    and the JAX kernel's under test_depth_plain_matches_jax_binned's
+    tolerance."""
+    monkeypatch.setattr(raster_binned, "K4_ITEM_ROWS", item_rows)
+    bins = _bins(case)
+    got = _fold_plan(bins, raster_binned.depth_plan(bins), W, H)
+    assert torch.equal(got, raster_binned.depth_binned_plain(bins, W, H))
+    _assert_depth_close(got.numpy(), _jax_depth(case))
 
 
 def _assert_vis_close(got, want, same_share=0.98):
