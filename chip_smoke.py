@@ -1,6 +1,7 @@
 """Smoke test of the PyTorch / CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --k5    # K5's times alone (`k5_alone`)
 
 Builds the traversal kernels (rust_renderer_tpu_torch/csrc/traverse_wide.cu:
 K1 and K3's wide forms; traverse_q32.cu: K1q; traverse_drain.cu: K2;
@@ -12,16 +13,17 @@ one nvcc per source, started together; then:
 1. device: versions, the card's name and power limit, build times;
 2. PT main path: Application(1920, 1080, PATH_TRACED) on the default scene,
    5 bounces, 4 frames at the StaticConfig defaults (compaction windows of
-   64 / 128 ray blocks, Morton order, seed test of 4 rows), then 4 with
-   those four fields 0; launch counts, per-frame times, active rays, the
-   ratio of the two frame times;
+   64 / 128 ray blocks, Morton order, seed test of 4 rows), then frames in
+   turns with those four fields 0, at the defaults, and with seed_rows 0
+   alone; launch counts, per-frame times, active rays, the ratios of the
+   frame times;
 3. K1 against its plain PyTorch version on the card, on the fronts the PT
    path gives it at 1920x1080, with times;
 4. PT parity: one 128x128 scene at the defaults on the CPU (plain versions)
    and on the card;
 5. Sponza-scale PT main path: the 260k-triangle scene with the bench's
    settings (cubemap sky, 5 bounces, 1 spp), 4 frames at 1920x1080 at the
-   defaults and 4 with the four fields 0; scene and BVH build times (the
+   defaults, then the turns of phase 2; scene and BVH build times (the
    q32 collapse included), launch counts;
 6. traversal variants: on the primary, bounce and any-hit fronts of both
    scenes at 1920x1080, `traverse(...)` under every kernel option set (K3-lq
@@ -30,11 +32,13 @@ one nvcc per source, started together; then:
    is held against the plain walk (K3-multi also against K3 wide, bit for
    bit), each option set is timed beside K1 on the same front; a table of
    K1 beside K3 wide and K3 wide ordered on the six fronts;
-7. K1's bound: K3's stats count the child-box slab tests and triangle
-   tests that the walk performs on each front; the bound is the larger of
-   operations over 33.5e12 unfused f32 operations/s and bytes over
-   3.35 TB/s. K2's leaf-queue depth per ray on each front, with the queue
-   uncapped and at K2_QUEUE_CAP, and its scratch bytes per launch;
+7. K1's bounds: K1's stats form (`traverse(..., phase_stats=True)`) counts
+   the child-box slab tests and triangle tests of K1's own walk on each
+   front, K3's stats those of K3 wide's walk (the yardstick of the other
+   kernels); a bound is the larger of operations over 33.5e12 unfused f32
+   operations/s and bytes over 3.35 TB/s. K2's leaf-queue depth per ray on
+   each front, with the queue uncapped and at K2_QUEUE_CAP, and its scratch
+   bytes per launch;
 8. compaction: on the same fronts, `traverse_compacted` around K1 at the
    frame's two window requests (45 / 81 blocks on a 1080p front, 54 / 90 on
    the doubled any-hit front), "live" and "morton" orders, and around
@@ -43,8 +47,9 @@ one nvcc per source, started together; then:
    event times of the permutation and of the whole call, beside K1 alone;
    the live-lane share;
 9. seed test: on the any-hit front of each scene, the seed kernel against
-   its plain version, seeded any-hit against the walk, the share of rays
-   it kills, its time beside K1's and its bound;
+   its plain version (verdicts and walk directions), seeded any-hit against
+   the walk, the share of rays it kills, its device time against its
+   bound, seed + K1 against K1 alone by events;
 10. a tree deeper than K1's stack takes (nested shells, wide depth > 14):
    the hit queries send it to K2, which matches the plain walk;
 11. RASTERIZED main path: Application(1920, 1080, RASTERIZED), default
@@ -57,11 +62,15 @@ one nvcc per source, started together; then:
    4096^2 (bit for bit), with its work plan (items, the longest item's
    rows), the (row, pixel) box pairs it tests and the share of (tile,
    global row) pairs the boxes cull; and K5 on the marching-cubes front at
-   1920x1080 over the gbuffer depth; times, global-list lengths, longest
-   segments and bounds;
+   1920x1080 over the gbuffer depth, with its plan and box pairs; times on
+   the device alone and by events, global-list lengths, longest segments
+   and bounds;
 14. raster parity: one small RASTERIZED frame with marching cubes on the CPU
    (brute rasterizer, plain walk) and on the card (K4, K5, K1, the seed
-   kernel).
+   kernel);
+15. furnace test: a small PT frame of four spheres with
+   StaticConfig(furnace_test=True) and the sky, sun and lights off, on the
+   card and on the CPU: the frames agree and the top row (the sky) is 1.0.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after. Every failed check raises. Exits non-zero, printing no
@@ -84,6 +93,7 @@ import torch
 WIDTH, HEIGHT, BOUNCES, FRAMES = 1920, 1080, 5, 4
 PARITY_SIZE, PARITY_FRAMES, PARITY_TIME = 128, 2, 0.25
 RASTER_PARITY_SIZE = 96
+FURNACE_SIZE = 64
 TPU = "rust_renderer_tpu/ops/pallas/traversal.py"
 CSRC = "rust_renderer_tpu_torch/csrc"
 # kernel -> (source, the TPU kernel it replaces)
@@ -148,9 +158,11 @@ K2_QUEUE_UNCAPPED = 1024
 # + 6 (t) + 1 add + 5 compares.
 BOX_TEST_OPS = 25
 TRI_TEST_OPS = 52
-# A slot rejected at its determinant (|det| <= 1e-12: every slot of a ray
-# with a zero direction) costs the 9 + 5 + 1 operations up to that compare.
-TRI_DET_REJECT_OPS = 15
+# The seed kernel's test (csrc/seed_occlusion.cu) by the stage it ends at:
+# the determinant (|det| <= 1e-12: the 9 + 5 + 1 operations up to that
+# compare); u out of [0, 1] (+ 1 div + 3 + 6 + 2 compares); v or u + v
+# (+ 9 + 6 + 1 add + 2 compares); t (+ 6 + 2 compares).
+SEED_DET_OPS, SEED_U_OPS, SEED_V_OPS, SEED_T_OPS = 15, 27, 45, 53
 # K4 / K5 per (row, pixel) test (csrc/raster_binned.cu): 3 edges x 3 ops, 3
 # compares, the depth 6 (K4) or the barycentrics and depth 8 (K5), the
 # depth compare / select 2.
@@ -310,18 +322,20 @@ def run_frames(label: str, app, launches: Launches, want: dict) -> dict:
 
 def pt_schedules(label, app, launches, counted) -> None:
     """The PT main path at the StaticConfig defaults (compaction windows and
-    the seed test on), then frames with the four fields off and on in turns
-    (SCHEDULE_PAIRS of each; frame times drift across a call, so the two
-    are compared in turns): launch counts (K1's unchanged; the seed kernel
-    once per any-hit front when on), both medians and their ratio."""
+    the seed test on), then frames with the four fields off, at the
+    defaults, and with only the seed test off, in turns (SCHEDULE_PAIRS of
+    each; frame times drift across a call, so they are compared in turns):
+    launch counts (K1's unchanged; the seed kernel once per any-hit front
+    when on), the medians and their ratios."""
     per_frame = dict(k1_closest=1 + BOUNCES, k1_any_hit=BOUNCES, k4=0, k5=0)
     counted.update(run_frames(label, app, launches,
                               Launches.frame_want(**per_frame, seed=BOUNCES))[0])
-    on_cfg, off_cfg = app.cfg, app.cfg.replace(**SCHEDULES_OFF)
-    times = {"off": [], "on": []}
-    for i in range(2 * SCHEDULE_PAIRS):
-        key = "on" if i % 2 else "off"
-        app.cfg = on_cfg if key == "on" else off_cfg
+    cfgs = {"off": app.cfg.replace(**SCHEDULES_OFF), "on": app.cfg,
+            "seed_off": app.cfg.replace(seed_rows=0)}
+    times = {k: [] for k in cfgs}
+    for i in range(len(cfgs) * SCHEDULE_PAIRS):
+        key = list(cfgs)[i % len(cfgs)]
+        app.cfg = cfgs[key]
         launches.reset()
         start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         start.record()
@@ -334,11 +348,14 @@ def pt_schedules(label, app, launches, counted) -> None:
         if got != want:
             raise AssertionError(f"{label} (schedules {key}): launches {got}, expected {want}")
         counted.update(got)
+    app.cfg = cfgs["on"]
     med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
-    log(f"{label}: frames in turns, off / on: {[round(x, 2) for x in times['off']]} / "
-        f"{[round(x, 2) for x in times['on']]} ms; median at the StaticConfig defaults "
-        f"{med['on']:.1f} ms, with compact_window, compact_window_any and seed_rows 0 "
-        f"{med['off']:.1f} ms, ratio {med['on'] / med['off']:.3f}")
+    log(f"{label}: frames in turns, off / on / seed off: "
+        + " / ".join(str([round(x, 2) for x in times[k]]) for k in cfgs)
+        + f" ms; median at the StaticConfig defaults {med['on']:.1f} ms, with compact_window, "
+        f"compact_window_any and seed_rows 0 {med['off']:.1f} ms (ratio "
+        f"{med['on'] / med['off']:.3f}), with seed_rows 0 only {med['seed_off']:.1f} ms "
+        f"(seed_rows 4 vs 0: ratio {med['on'] / med['seed_off']:.3f})")
 
 
 def pass_times(label: str, app) -> dict:
@@ -562,6 +579,24 @@ def walk_counts(traversal, bvh, front) -> dict:
                               + leaf_pops * traversal.K1_LEAF_SLOTS * TRI_TEST_OPS)}
 
 
+def k1_walk_counts(traversal, bvh, front) -> dict:
+    """The child-box slab tests and triangle tests of K1's own walk of
+    `front` (its stats form: near first, leaves tested inline, entries
+    beyond the best hit dropped), their operations, and its other counts."""
+    fo, fd, fmin, fmax, any_hit = front
+    stats = traversal.traverse(bvh, fo, fd, fmin, fmax, any_hit=any_hit, phase_stats=True)[4]
+    iterations, expanded, leaf_rows, culled, box_tests, tri_tests = (
+        int(x) for x in stats.sum(dim=1, dtype=torch.int64))
+    # K1 walks ray i in lane i % 32 of warp i // 32, and a warp iterates as
+    # long as its longest walk: the share of its lanes' iterations that work.
+    per_warp = torch.nn.functional.pad(stats[0], (0, -fo.shape[0] % 32)).view(-1, 32)
+    warp_iterations = int(per_warp.max(dim=1).values.sum(dtype=torch.int64)) * 32
+    return {"iterations": iterations, "expanded": expanded, "leaf_rows": leaf_rows,
+            "culled": culled, "box_tests": box_tests, "tri_tests": tri_tests,
+            "lanes_busy": iterations / max(warp_iterations, 1),
+            "ops": box_tests * BOX_TEST_OPS + tri_tests * TRI_TEST_OPS, "rays": fo.shape[0]}
+
+
 def walk_bound(counts: dict, bvh, kernel: str) -> dict:
     """The least time of the walk: the larger of its operations over the
     unfused f32 rate and its bytes (rays and limits read, hits written, the
@@ -646,6 +681,10 @@ def variants_phase(label, bvh, fronts, traversal, launches, plain=None) -> dict:
                 bvh.node_packed, bvh.leaf_packed, fo, fd, fmin, fmax, any_hit))
         counts = walk_counts(traversal, bvh, front)
         bound = walk_bound(counts, bvh, "k1")
+        own = k1_walk_counts(traversal, bvh, front)
+        own_bound = walk_bound(own, bvh, "k1")
+        results["k1"].setdefault("bounds", {})[fname] = (own_bound["bound_ms"],
+                                                         bound["bound_ms"], own["lanes_busy"])
         log(f"{label} front={fname} K2 leaf queue: {k2_queue(traversal, bvh, front)}")
         runs = {}
         for name, (kernel, _) in VARIANTS.items():
@@ -677,30 +716,40 @@ def variants_phase(label, bvh, fronts, traversal, launches, plain=None) -> dict:
             r = results[name]
             r[fname] = ms
             if fname == "primary":
-                kb = walk_bound(counts, bvh, VARIANTS[name][0])
+                kb = own_bound if name == "k1" else walk_bound(counts, bvh, VARIANTS[name][0])
                 r.update(ms=ms, plain_ms=plain_ms, bound_ms=kb["bound_ms"],
                          bound_by=kb["bound_by"])
             line.append(f"{name} {ms:.4f} ({min(ts):.4f}-{max(ts):.4f})")
         log(f"{label} front={fname} rays={fo.shape[0]} hits={int((want[1] >= 0).sum())} "
             f"plain_ms={plain_ms:.1f} (one run) pops={counts['pops']} "
             f"leaf_pops={counts['leaf_pops']} box_tests={counts['box_tests']} "
-            f"tri_tests={counts['tri_tests']} K1 bound {bound['bound_ms']:.4f} ms "
+            f"tri_tests={counts['tri_tests']} K3-walk bound {bound['bound_ms']:.4f} ms "
             f"({bound['bound_by']}: {counts['ops']:.3e} ops, every slot counted "
-            f"{counts['all_slots_ops']:.3e}; {bound['bytes']:.3e} B); "
+            f"{counts['all_slots_ops']:.3e}; {bound['bytes']:.3e} B); K1's own walk: "
+            f"iterations={own['iterations']} expanded={own['expanded']} "
+            f"leaf_rows={own['leaf_rows']} culled={own['culled']} box_tests={own['box_tests']} "
+            f"tri_tests={own['tri_tests']} lanes_busy={own['lanes_busy']:.3f}, bound "
+            f"{own_bound['bound_ms']:.4f} ms "
+            f"({own_bound['bound_by']}: {own['ops']:.3e} ops); "
             f"device ms, median (range) of {TIMING_ROUNDS} rounds: " + ", ".join(line))
     return results
 
 
 def k1_table(variants) -> None:
     """K1 beside K3 wide and K3 wide ordered, the yardsticks of its walk, on
-    the six fronts (device ms: the variants phase's medians)."""
+    the six fronts (device ms: the variants phase's medians), K1's bound
+    from its own walk's tests beside the bound from K3 wide's, and the share
+    of K1's lane-iterations that do work (its warps' divergence)."""
     for scene, results in variants.items():
         for front in ("primary", "bounce", "nee_any_hit"):
             k1, wide, ordered = (results[name][front]
                                  for name in ("k1", "k3_wide", "k3_wide_ordered"))
+            own, walk, busy = results["k1"]["bounds"][front]
             log(f"K1 {scene} {front}: K1 {k1:.4f}, K3 wide {wide:.4f}, K3 wide ordered "
                 f"{ordered:.4f} ms; K1 / K3 wide {k1 / wide:.3f}, K1 / K3 wide ordered "
-                f"{k1 / ordered:.3f}")
+                f"{k1 / ordered:.3f}; K1's own bound {own:.4f} ms ({k1 / own:.2f}x), "
+                f"K3-walk bound {walk:.4f} ms ({k1 / walk:.2f}x); lanes busy in K1's "
+                f"iterations {busy:.3f}")
 
 
 def nested_shells(device, traversal, bvh_ops):
@@ -833,53 +882,67 @@ def compaction_phase(label, bvh, fronts, traversal, compaction, launches) -> dic
     return counted
 
 
-def seed_tests(bvh_ops, rows, fo, fd, fmin, fmax) -> tuple[int, int]:
-    """The triangle tests the seed kernel performs on these rays, as (tests
-    that pass the determinant, tests rejected at it): each ray tests the
-    live slots in order up to its first occluder, or all."""
-    ls = rows.shape[1] // 10
-    ids = rows[:, 9 * ls:].contiguous().view(torch.int32)
-    open_ = torch.ones(fo.shape[0], dtype=torch.bool, device=fo.device)
-    whole = rejected = 0
-    for r, s in torch.nonzero(ids >= 0).tolist():
-        e1, e2 = rows[r, 9 * s + 3:9 * s + 6], rows[r, 9 * s + 6:9 * s + 9]
-        px = fd[:, 1] * e2[2] - fd[:, 2] * e2[1]
-        py = fd[:, 2] * e2[0] - fd[:, 0] * e2[2]
-        pz = fd[:, 0] * e2[1] - fd[:, 1] * e2[0]
-        passed = (e1[0] * px + e1[1] * py + e1[2] * pz).abs() > 1e-12
-        whole += int((open_ & passed).sum())
-        rejected += int((open_ & ~passed).sum())
-        one = rows[r:r + 1].clone()
-        one_ids = one[:, 9 * ls:].view(torch.int32)
-        one_ids[:] = -1
-        one_ids[0, s] = ids[r, s]
-        open_ &= ~bvh_ops.seed_occlusion_plain(one, fo, fd, fmin, fmax)
-    return whole, rejected
+def seed_tests(tris, fo, fd, fmin, fmax) -> dict:
+    """The work the seed test needs on these rays: a ray with a zero
+    direction takes no test (none can pass its determinant); any other ray
+    tests the triangles of the table `tris` in order up to its first
+    occluder, or all; a test stops at the first condition that fails (the
+    seed kernel's early exits). Returns the tests and the stage each ended
+    at, and the operations with the early exits (`ops`) and with every value
+    of a test computed (`full_ops`, the count before the kernel had them)."""
+    dev = fd.device
+    open_ = (fd != 0).any(dim=1)
+    n = {"tests": 0, "det": 0, "u": 0, "v": 0}
+    for j in range(tris.shape[1]):
+        a, b, c = (tris[k:k + 3, j].to(dev) for k in (0, 3, 6))
+        px = fd[:, 1] * c[2] - fd[:, 2] * c[1]
+        py = fd[:, 2] * c[0] - fd[:, 0] * c[2]
+        pz = fd[:, 0] * c[1] - fd[:, 1] * c[0]
+        det = b[0] * px + b[1] * py + b[2] * pz
+        passed = det.abs() > 1e-12
+        inv = torch.where(passed, 1.0 / det, 0.0)
+        tv = fo - a
+        u = (tv[:, 0] * px + tv[:, 1] * py + tv[:, 2] * pz) * inv
+        q = torch.stack([tv[:, 1] * b[2] - tv[:, 2] * b[1], tv[:, 2] * b[0] - tv[:, 0] * b[2],
+                         tv[:, 0] * b[1] - tv[:, 1] * b[0]], 1)
+        v = (fd[:, 0] * q[:, 0] + fd[:, 1] * q[:, 1] + fd[:, 2] * q[:, 2]) * inv
+        t = (c[0] * q[:, 0] + c[1] * q[:, 1] + c[2] * q[:, 2]) * inv
+        u_ok = passed & (u >= 0.0) & (u <= 1.0)
+        v_ok = u_ok & (v >= 0.0) & (u + v <= 1.0)
+        n["tests"] += int(open_.sum())
+        n["det"] += int((open_ & ~passed).sum())
+        n["u"] += int((open_ & passed & ~u_ok).sum())
+        n["v"] += int((open_ & u_ok & ~v_ok).sum())
+        open_ &= ~(v_ok & (t > fmin) & (t < fmax))
+    whole = n["tests"] - n["det"] - n["u"] - n["v"]
+    return dict(n, ops=n["det"] * SEED_DET_OPS + n["u"] * SEED_U_OPS + n["v"] * SEED_V_OPS
+                + whole * SEED_T_OPS,
+                full_ops=n["det"] * SEED_DET_OPS + (n["tests"] - n["det"]) * TRI_TEST_OPS)
 
 
 def seed_phase(label, bvh, fronts, traversal, bvh_ops, launches) -> dict:
     """The seed test (SEED_ROWS rows) on the any-hit front: the kernel
-    against its plain version (verdicts equal), seed-then-walk against the
-    walk (flags equal, every verdict a true occlusion), the share of rays
-    it kills, device times of the kernel and of K1 on the seeded front
-    beside K1 alone, the time of both in a row (CUDA events: the seed
-    test's few small launches around the kernel are host-bound), and the
-    kernel's bound."""
+    against its plain version (verdicts and walk directions equal, bit for
+    bit), seed-then-walk against the walk (flags equal, every verdict a true
+    occlusion), the share of rays it kills, device times of the kernel and
+    of K1 on the seeded front beside K1 alone, the times of the seed test
+    and K1 in a row and of K1 alone by CUDA events (host enqueueing
+    included), and the kernel's bound."""
     fo, fd, fmin, fmax, _ = fronts["nee_any_hit"]
     seed = bvh_ops.make_seed_test(bvh, SEED_ROWS)
-    rows = bvh.leaf_packed[torch.as_tensor(bvh_ops.seed_leaf_rows(bvh, SEED_ROWS),
-                                           device=fo.device)].contiguous()
-    occ, moved = moved_by(launches, lambda: seed(fo, fd, fmin, fmax))
+    tris = bvh_ops.seed_table(bvh, SEED_ROWS)
+    (occ, walk_d), moved = moved_by(launches, lambda: seed(fo, fd, fmin, fmax))
     if moved != {"seed": 1}:
         raise AssertionError(f"{label} seed: launches moved {moved}")
-    plain = lambda: bvh_ops.seed_occlusion_plain(rows, fo, fd, fmin, fmax)
-    differ = int((occ != plain()).sum())
+    plain = lambda: bvh_ops.seed_occlusion_plain(tris, fo, fd, fmin, fmax)
+    want, want_d = plain()
+    differ = int((occ != want).sum()) + int(
+        (walk_d.view(torch.int32) != want_d.view(torch.int32)).any(dim=1).sum())
     if differ:
-        raise AssertionError(f"{label} seed: {differ} of the kernel's verdicts differ from its "
-                             f"plain version")
+        raise AssertionError(f"{label} seed: {differ} of the kernel's verdicts or directions "
+                             f"differ from its plain version")
     k1 = functools.partial(traversal.traverse, bvh, fo, fd, fmin, fmax, any_hit=True)
-    seeded_d = torch.where(occ[:, None], 0.0, fd)
-    k1_seeded = functools.partial(traversal.traverse, bvh, fo, seeded_d, fmin, fmax,
+    k1_seeded = functools.partial(traversal.traverse, bvh, fo, walk_d, fmin, fmax,
                                   any_hit=True)
     occluded = k1()[1] >= 0
     if not torch.equal(occluded, (k1_seeded()[1] >= 0) | occ):
@@ -888,25 +951,28 @@ def seed_phase(label, bvh, fronts, traversal, bvh_ops, launches) -> dict:
         raise AssertionError(f"{label} seed: a seeded ray is not occluded")
 
     def both():
-        o = seed(fo, fd, fmin, fmax)
-        return traversal.traverse(bvh, fo, torch.where(o[:, None], 0.0, fd), fmin, fmax,
-                                  any_hit=True)
+        _, d = seed(fo, fd, fmin, fmax)
+        return traversal.traverse(bvh, fo, d, fmin, fmax, any_hit=True)
 
-    ms = device_ms(lambda: bvh_ops.seed_occlusion_cuda(rows, fo, fd, fmin, fmax), TIMING_REPS)
+    ms = device_ms(lambda: bvh_ops.seed_occlusion_cuda(tris, fo, fd, fmin, fmax), TIMING_REPS)
     plain_ms = cuda_ms(plain, 1)
     n, live = fo.shape[0], int((fd * fd).sum(dim=1).gt(0).sum())
-    whole, rejected = seed_tests(bvh_ops, rows, fo, fd, fmin, fmax)
-    n_tris = int((rows[:, 9 * 12:].contiguous().view(torch.int32) >= 0).sum())
-    ops_ms = (whole * TRI_TEST_OPS + rejected * TRI_DET_REJECT_OPS) / F32_OPS * 1e3
-    bytes_ms = (n * (6 + 2) * 4 + n + rows.numel() * 4) / HBM_BYTES_S * 1e3
-    log(f"{label} seed test ({SEED_ROWS} rows, {n_tris} triangles) on the NEE front: "
+    need = seed_tests(tris, fo, fd, fmin, fmax)
+    ops_ms = need["ops"] / F32_OPS * 1e3
+    # rays and limits read, verdicts and walk directions written
+    bytes_ms = (n * (6 + 2) * 4 + n * (1 + 3 * 4)) / HBM_BYTES_S * 1e3
+    k1_events, both_events = cuda_ms(k1, TIMING_REPS), cuda_ms(both, TIMING_REPS)
+    log(f"{label} seed test ({SEED_ROWS} rows, {tris.shape[1]} triangles) on the NEE front: "
         f"{n} rays, {live} live, {int(occluded.sum())} occluded, seeded {int(occ.sum())} "
         f"({int(occ.sum()) / max(live, 1):.4f} of live, {int(occ.sum()) / max(int(occluded.sum()), 1):.4f} "
         f"of occluded); device ms: seed kernel {ms:.4f}, K1 alone {device_ms(k1, TIMING_REPS):.4f}, "
-        f"K1 on the seeded front {device_ms(k1_seeded, TIMING_REPS):.4f}; seed test + K1 "
-        f"{cuda_ms(both, TIMING_REPS):.4f} (events); plain version {plain_ms:.3f} ms; "
-        f"verdicts differing from it {differ}; {whole + rejected} triangle tests, {rejected} "
-        f"of them rejected at the determinant; bound {max(ops_ms, bytes_ms):.4f} ms")
+        f"K1 on the seeded front {device_ms(k1_seeded, TIMING_REPS):.4f}; events: seed test + K1 "
+        f"{both_events:.4f}, K1 alone {k1_events:.4f} (ratio {both_events / k1_events:.3f}); "
+        f"plain version {plain_ms:.3f} ms; verdicts or directions differing from it {differ}; "
+        f"{need['tests']} triangle tests needed, ended at the determinant {need['det']}, at u "
+        f"{need['u']}, at v {need['v']}; bound {max(ops_ms, bytes_ms):.4f} ms "
+        f"({ms / max(ops_ms, bytes_ms):.2f}x; with every value of a test computed "
+        f"{need['full_ops'] / F32_OPS * 1e3:.4f} ms)")
     return {"max_abs_err": float(differ), "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(ops_ms, bytes_ms),
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
@@ -934,10 +1000,13 @@ def raster_bound(raster_binned, bins, width: int, height: int, pair_ops: int,
 
 
 def k4_plan_stats(raster_binned, bins) -> dict:
-    """K4's work plan on `bins`: its items, the longest item's rows, and
-    the share of (tile, global row) pairs whose box misses the tile (one
-    comparison each in the kernel)."""
+    """K4's work plan on `bins` (the plan kernel's, held to its plain
+    version): its items, the longest item's rows, and the share of (tile,
+    global row) pairs whose box misses the tile (one comparison each in the
+    kernel)."""
     plan = raster_binned.depth_plan(bins)
+    if not torch.equal(plan.ends, raster_binned.depth_plan_plain(bins).ends):
+        raise AssertionError("the plan kernel differs from its plain version")
     _, _, rows = raster_binned.depth_plan_items(bins, plan)
     x0, x1, y0, y1 = (b[bins.g_base:] for b in bins.row_box)
     live = (x1 >= x0) & (y1 >= y0)
@@ -996,9 +1065,9 @@ def k4_phase(app, raster, raster_binned, shadow) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
-def k5_phase(app, raster, raster_binned, marching_cubes, gbuffer_depth) -> dict:
-    """K5 against its plain version on the marching-cubes front at 1080p,
-    and the LOAD-op merge over the gbuffer depth."""
+def mc_bins(app, raster, raster_binned, marching_cubes):
+    """The marching-cubes draw's front at WIDTH x HEIGHT: the surface of
+    the app's view, its visibility bins, and its slot count."""
     dev = app.device
     view = app.view.to(dev)
     result = marching_cubes.marching_cubes(grid=app.cfg.mc_grid,
@@ -1009,9 +1078,30 @@ def k5_phase(app, raster, raster_binned, marching_cubes, gbuffer_depth) -> dict:
     idx = torch.arange(3 * t, dtype=torch.int32, device=dev).reshape(-1, 3)
     bins = raster_binned.bin_triangles(
         raster_binned.tri_rows(clip, idx, WIDTH, HEIGHT, vis=True), WIDTH, HEIGHT)
+    return result, bins, t
+
+
+def k5_times(raster_binned, bins) -> tuple[float, float]:
+    """K5's wrapper on `bins` (the plan kernel, K5's launcher and the
+    wrapper's allocations): its ms on the device alone, and by events
+    around back-to-back calls (the host's enqueueing included)."""
     k5 = lambda: raster_binned.vis_binned_cuda(bins, WIDTH, HEIGHT)
-    plain = lambda: raster_binned.vis_binned_plain(bins, WIDTH, HEIGHT)
-    got, want = k5(), plain()
+    k5()  # warm-up
+    return device_ms(k5, TIMING_REPS), cuda_ms(k5, TIMING_REPS)
+
+
+def k5_phase(app, raster, raster_binned, marching_cubes, gbuffer_depth) -> dict:
+    """K5 against its plain version on the marching-cubes front at 1080p
+    (triangle ids bit for bit, depth and barycentrics within VIS_ATOL), raw
+    and after the LOAD-op merge over the gbuffer depth; its plan (K4's, over
+    the visibility bins), its times (`k5_times`), the plain version's by
+    events. Its bound counts the bytes its function needs (the table, the
+    tile lists and the 16 B per pixel of the buffer); the key plane's 8 B
+    per pixel, written and read, are its design's own traffic, shown
+    beside it."""
+    result, bins, t = mc_bins(app, raster, raster_binned, marching_cubes)
+    got = raster_binned.vis_binned_cuda(bins, WIDTH, HEIGHT)
+    want = raster_binned.vis_binned_plain(bins, WIDTH, HEIGHT)
     torch.cuda.synchronize()
     init = raster.VisibilityBuffer(
         depth=gbuffer_depth, tri=torch.full_like(want.tri, -1),
@@ -1027,18 +1117,46 @@ def k5_phase(app, raster, raster_binned, marching_cubes, gbuffer_depth) -> dict:
             if e > VIS_ATOL:
                 raise AssertionError(f"K5 {label}: {name} differs by {e}")
             err = max(err, e)
-    k5_ms = cuda_ms(k5, 10)
-    plain_ms = cuda_ms(plain, 2)
+    k5_ms, events_ms = k5_times(raster_binned, bins)
+    plain_ms = cuda_ms(lambda: raster_binned.vis_binned_plain(bins, WIDTH, HEIGHT), 2)
     bound = raster_bound(raster_binned, bins, WIDTH, HEIGHT, K5_PAIR_OPS, 16)
+    key_ms = WIDTH * HEIGHT * 8 * 2 / HBM_BYTES_S * 1e3
+    plan = k4_plan_stats(raster_binned, bins)
     log(f"kernel K5 marching-cubes front {WIDTH}x{HEIGHT} slots={t} rows={bins.table.shape[0]} "
         f"valid={int(result.valid.sum())} global={bins.g_count} "
-        f"longest_segment={int(bins.counts.max())} "
+        f"longest_segment={int(bins.counts.max())} items={plan['items']} "
+        f"longest_item={plan['longest_item']} rows box_pairs={bound['pairs']} "
+        f"global_culled_by_box={plan['global_culled']:.4f} "
         f"covered={float((got.tri >= 0).float().mean()):.4f} "
         f"drawn_over_gbuffer={float((merged[0].tri >= 0).float().mean()):.4f} "
-        f"max_abs_err={err:.3e} k5_ms={k5_ms:.4f} plain_ms={plain_ms:.3f} "
-        f"bound_ms={bound['bound_ms']:.4f} ({bound['bound_by']}, {bound['pairs']} pixel tests)")
+        f"max_abs_err={err:.3e} k5_ms={k5_ms:.4f} (device alone; events {events_ms:.4f}) "
+        f"plain_ms={plain_ms:.3f} bound_ms={bound['bound_ms']:.4f} ({bound['bound_by']}; "
+        f"the key plane's own traffic, written and read once, adds {key_ms:.4f})")
     return {"max_abs_err": err, "ms": k5_ms, "plain_ms": plain_ms,
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+
+
+def k5_alone() -> int:
+    """`chip_smoke.py --k5`: K5's times (`k5_times`) on the marching-cubes
+    front of a fresh RASTERIZED app's camera at view time PARITY_TIME, in
+    TIMING_ROUNDS rounds, and nothing else. It reads K5 through `vis_binned_cuda(bins, width, height)` and
+    the binning, so a copy of this script beside another checkout's package
+    times that checkout's K5 on the same front."""
+    from rust_renderer_tpu_torch.app.main import Application
+    from rust_renderer_tpu_torch.ops import marching_cubes, raster, raster_binned
+    from rust_renderer_tpu_torch.settings import RenderGraphMode
+
+    print(card_line(), flush=True)
+    app = Application(WIDTH, HEIGHT, RenderGraphMode.RASTERIZED, device="cuda")
+    app.view = app.view.with_camera(app.camera, WIDTH, HEIGHT).replace(
+        time=np.float32(PARITY_TIME), marching_cubes_enabled=np.int32(1))
+    _, bins, t = mc_bins(app, raster, raster_binned, marching_cubes)
+    for r in range(TIMING_ROUNDS):
+        k5_ms, events_ms = k5_times(raster_binned, bins)
+        log(f"K5 alone round {r}: marching-cubes front {WIDTH}x{HEIGHT}, {t} slots, "
+            f"{bins.table.shape[0]} rows: {k5_ms:.4f} ms on the device alone, "
+            f"{events_ms:.4f} by events")
+    return 0
 
 
 def raster_parity_phase(Application, StaticConfig, RenderGraphMode) -> None:
@@ -1076,10 +1194,70 @@ def raster_parity_phase(Application, StaticConfig, RenderGraphMode) -> None:
             raise AssertionError(f"raster parity: card and {label} frames disagree")
 
 
+def four_spheres(renderer, camera) -> None:
+    """The JAX package's RTIOW scene (its `create_rtiow_scene`, not ported
+    yet): diffuse ground and centre spheres, glass, metal; no lights."""
+    from rust_renderer_tpu_torch.scene import Material, MaterialType
+
+    camera.set_position_target([0.0, 1.0, 4.0], [0.0, 0.5, -1.0])
+    for center, radius, material in (
+            ([0.0, -100.5, -1.0], 100.0,
+             Material(base_color_factor=np.array([0.5, 0.5, 0.5, 1.0], np.float32))),
+            ([0.0, 0.5, -1.0], 0.5,
+             Material(base_color_factor=np.array([0.1, 0.2, 0.5, 1.0], np.float32))),
+            ([-1.1, 0.5, -1.0], 0.5,
+             Material(material_type=MaterialType.DIELECTRIC, material_property=1.5)),
+            ([1.1, 0.5, -1.0], 0.5,
+             Material(material_type=MaterialType.METAL, material_property=0.0))):
+        renderer.add_sphere(center, radius, material=material)
+
+
+def furnace_phase(Application, StaticConfig, launches) -> dict:
+    """The furnace test (StaticConfig(furnace_test=True), the
+    energy-conservation diagnostic): one PT frame of `four_spheres` with the
+    sky, sun and lights off, on the card and on the CPU. Every miss sees a
+    white sky, so the top row (the sky) is 1.0 on both; the frames agree
+    under the PT parity tolerance; the card's frame launches K1 (on the
+    empty triangle tree) only."""
+    size, bounces = FURNACE_SIZE, 2
+    frames = {}
+    for device in ("cpu", "cuda"):
+        app = Application(size, size, cfg=StaticConfig(num_bounces=bounces, furnace_test=True),
+                          device=device)
+        app.fps_timer.elapsed_seconds = lambda: PARITY_TIME
+        app.view = app.view.replace(sky_enabled=np.int32(0), sun_shadow_enabled=np.int32(0),
+                                    lights_enabled=np.int32(0))
+        app.create_scene(four_spheres)
+        launches.reset()
+        frames[device] = app.render_frame()["present_output"].cpu()
+        got = launches.read()
+    # No lights: the graph is the path tracer and present, without the
+    # gbuffer's primary front; the tree holds no triangle, so no seed test.
+    want = Launches.frame_want(bounces, bounces, 0, 0)
+    if got != want:
+        raise AssertionError(f"furnace: launches {got}, expected {want}")
+    a, b = frames["cpu"], frames["cuda"]
+    diff = (a - b).abs()
+    within = float((diff.amax(dim=-1) <= 1e-3).float().mean())
+    top = max(float((a[0] - 1.0).abs().max()), float((b[0] - 1.0).abs().max()))
+    log(f"furnace {size}x{size}: top row |x - 1| max {top:.3e}, card vs CPU within_1e-3="
+        f"{within:.5f} mean_abs={float(diff.mean()):.3e} max_abs={float(diff.max()):.3e}, "
+        f"launches {got}")
+    if top > 1e-5 or within < 0.99 or float(diff.mean()) > 1e-3 \
+            or not bool(torch.isfinite(b).all()):
+        raise AssertionError("furnace: the card's frame fails the furnace test")
+    return got
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no GPU", file=sys.stderr)
         return 1
+    if sys.argv[1:] == ["--k5"]:
+        return k5_alone()
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
     from rust_renderer_tpu_torch import native
     from rust_renderer_tpu_torch.app.main import Application
     from rust_renderer_tpu_torch.models import create_sponza_scale_scene
@@ -1187,6 +1365,7 @@ def main() -> int:
     pass_times("MINIMAL", app)
     del app
     raster_parity_phase(Application, StaticConfig, RenderGraphMode)
+    counted.update(furnace_phase(Application, StaticConfig, launches))
 
     # Launches: the frames', the variant, compaction and seed runs' (every
     # path's count was read just after it); times and bounds on the default

@@ -47,13 +47,15 @@ def bvh_from_numpy(fields: Mapping, device) -> BVH:
     tables (``wnode_meta``, ``wnode_q32``, ``wnode_meta32``,
     ``q32_leaf_perm``, ``q32_depth``) where `fields` holds them and they are
     not None; and, on the host, the leaf rows' area ranking that the seed
-    test reads (``ops/bvh.py::leaf_area_order``)."""
+    test reads (``ops/bvh.py::leaf_area_order``) and the leaf rows in that
+    order (``BVH.seed_rows``)."""
 
     def optional(name):
         value = fields.get(name)
         return None if value is None else _tensor(np.asarray(value, np.int32), device)
 
     leaf_packed = np.asarray(fields["leaf_packed"], np.float32)
+    order = leaf_area_order(leaf_packed)
     return BVH(
         node_packed=_tensor(np.asarray(fields["node_packed"], np.float32), device),
         leaf_packed=_tensor(leaf_packed, device),
@@ -65,7 +67,8 @@ def bvh_from_numpy(fields: Mapping, device) -> BVH:
         wnode_meta32=optional("wnode_meta32"),
         q32_leaf_perm=optional("q32_leaf_perm"),
         q32_depth=int(fields.get("q32_depth") or 0),
-        leaf_area_order=leaf_area_order(leaf_packed),
+        leaf_area_order=order,
+        seed_rows=leaf_packed[order],
     )
 
 

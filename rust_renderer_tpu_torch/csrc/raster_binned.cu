@@ -23,15 +23,15 @@
 // way of a tile-per-block kernel: every row was tested on all 8,192 pixels
 // of its tile, and one tile's segment (27k rows on a far cascade) was one
 // block's work while the other SMs idled. So:
-//   - each row carries its pixel box (int32, made by the wrapper; a segment
-//     row's already clipped to its tile, a global row's clipped here), and is
-//     tested only there: K4 tests exactly the plain version's pairs, in its
-//     operation order, and a global row that misses the tile costs one
-//     comparison;
+//   - each row is tested only on its pixel box (Bins.row_box, clipped here to
+//     the item's tile; a segment row meets only its own tile's items): K4
+//     tests exactly the plain version's pairs, in its operation order, and a
+//     global row that misses the tile costs one comparison;
 //   - the work is cut into items of at most K4_ITEM_ROWS rows of one tile
 //     (the global list, then the segment), numbered by a cumulative sum per
-//     tile (`plan`, made on the device from counts); a persistent grid sized
-//     to the SMs takes items from a counter in `plan`, so no item count is
+//     tile (`plan`, made on the device from counts by plan_kernel, which
+//     ops/raster_binned.py::depth_plan launches); a persistent grid sized to
+//     the SMs takes items from a counter in `plan`, so no item count is
 //     needed on the host and no block walks a long segment alone;
 //   - a row whose box holds at most K4_SMALL_BOX pixels is tested by one
 //     thread; a larger one by a warp, its pixels spread over the lanes;
@@ -42,10 +42,20 @@
 //     to 1.0. The minimum does not depend on the order, so the result does
 //     not depend on the schedule.
 //
-// K5 runs one 512-thread block per tile: the block stages rows in shared
-// memory in chunks that all its threads load together, every thread reads
-// the same row (a broadcast) and tests it on the 16 pixels of its column that
-// it keeps in registers, in table order (its last-wins tie rule needs it).
+// K5: the same work (each row on its box's pixels, ~22 operations a pair), and
+// the same two obstacles, so the same scheme: K4's plan and persistent grid,
+// each row tested on its box only. K5 keeps the row that is inside, has the
+// least z <= 1 and is the latest of the walk on a tie (global list, then the
+// segment). That is the least key (float_order_key(z) << 32) | (0x7FFFFFFF -
+// pos) over the pixel's candidates, pos the row's place in the walk: the key
+// vis_binned_plain reduces, kept with its sign bit flipped so that the
+// unsigned order is its order. An item lowers its tile's keys in shared
+// memory (64 KB) with 64-bit atomic minima and then the global key plane, so
+// the result does not depend on the schedule. A second pass decodes each
+// pixel's row and computes (depth, tri, u, v) once, in the plain version's
+// operation order. A call is the plan kernel, a memset of the key plane and
+// the two passes: as PyTorch's small operations, the plan and the boxes'
+// clip had cost K5 about as much device time as its kernels (PERF.md).
 //
 // The operation order follows the JAX kernels and the plain PyTorch
 // versions; build with -fmad=false so no multiply-add is contracted and K4's
@@ -59,45 +69,18 @@
 #define RB_TILE_H 32
 #define RB_TILE_W 256
 #define RB_TILE_PIX (RB_TILE_H * RB_TILE_W)
-#define RB_THREADS 512
-#define RB_PIX 16  // pixels of one column per thread: TILE_H * TILE_W / THREADS
 #define RB_DEPTH_STRIDE 16
 #define RB_VIS_STRIDE 24
-#define RB_VIS_CHUNK 256  // 24 KB
 #define RB_ONE_BITS 0x3F800000  // 1.0f
 #define K4_THREADS 512
 #define K4_ITEM_ROWS 1024   // ops/raster_binned.py K4_ITEM_ROWS
 #define K4_SMALL_BOX 32     // pixels a thread tests alone
+#define K5_THREADS 512
+#define K5_DECODE_THREADS 256
+#define PLAN_THREADS 1024
+#define K5_KEY_NONE 0xFFFFFFFFFFFFFFFFull  // a pixel no row covers
 
 namespace {
-
-// Copies rows [first, first + n) of the table into shared memory, all
-// threads of the block together.
-template <int STRIDE>
-__device__ __forceinline__ void stage_rows(const float* __restrict__ table,
-                                           int64_t first, int n,
-                                           float* rows) {
-  const float* src = table + first * STRIDE;
-  for (int i = threadIdx.x; i < n * STRIDE; i += blockDim.x) rows[i] = src[i];
-}
-
-struct Pixels {
-  float x;           // this thread's pixel-center column
-  float y[RB_PIX];   // its pixel-center rows
-  int col, row0;     // pixel coordinates of the first one
-};
-
-__device__ __forceinline__ Pixels tile_pixels() {
-  Pixels p;
-  const int local_col = threadIdx.x % RB_TILE_W;
-  const int local_row = (threadIdx.x / RB_TILE_W) * RB_PIX;
-  p.col = blockIdx.x * RB_TILE_W + local_col;
-  p.row0 = blockIdx.y * RB_TILE_H + local_row;
-  p.x = static_cast<float>(p.col) + 0.5f;
-#pragma unroll
-  for (int k = 0; k < RB_PIX; ++k) p.y[k] = static_cast<float>(p.row0 + k) + 0.5f;
-  return p;
-}
 
 // min(*slot, z) on float storage by integer atomics: a non-negative float
 // orders as its bits read as a signed int, a negative one inversely as its
@@ -146,18 +129,54 @@ struct Box {
   int x0, x1, y0, y1;
 };
 
-// Row `row`'s pixel box clipped to the tile at (tx0, ty0); empty where
-// x1 < x0 or y1 < y0.
-__device__ __forceinline__ Box tile_box(const int4* __restrict__ boxes, int row,
-                                        int tx0, int ty0) {
-  const int4 b = __ldg(boxes + row);  // x0, x1, y0, y1
-  return {max(b.x, tx0), min(b.y, tx0 + RB_TILE_W - 1), max(b.z, ty0),
-          min(b.w, ty0 + RB_TILE_H - 1)};
+// Row `row`'s pixel box (Bins.row_box: int64 x0, x1, y0, y1, the triangle's
+// box widened by one pixel) clipped to the tile at (tx0, ty0); empty where
+// x1 < x0 or y1 < y0. For a segment row, which the kernels meet only in its
+// own tile's items, this is row_boxes'.
+__device__ __forceinline__ Box tile_box(const long long* __restrict__ x0,
+                                        const long long* __restrict__ x1,
+                                        const long long* __restrict__ y0,
+                                        const long long* __restrict__ y1, int row, int tx0,
+                                        int ty0) {
+  return {static_cast<int>(max(__ldg(x0 + row), static_cast<long long>(tx0))),
+          static_cast<int>(min(__ldg(x1 + row), static_cast<long long>(tx0 + RB_TILE_W - 1))),
+          static_cast<int>(max(__ldg(y0 + row), static_cast<long long>(ty0))),
+          static_cast<int>(min(__ldg(y1 + row), static_cast<long long>(ty0 + RB_TILE_H - 1)))};
+}
+
+// The plan of K4 and K5, one block on the device: ends[t] the items of tiles
+// 0..t (each tile g_items global items and ceil(counts[t] / K4_ITEM_ROWS)
+// segment items), then the item counter ends[n_tiles] = 0.
+__global__ void __launch_bounds__(PLAN_THREADS)
+plan_kernel(const int* __restrict__ counts, int n_tiles, int g_items,
+            int* __restrict__ ends) {
+  __shared__ int warp_sums[PLAN_THREADS / 32];
+  __shared__ int carry;
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  if (threadIdx.x == 0) carry = 0;
+  for (int base = 0; base < n_tiles; base += PLAN_THREADS) {
+    const int t = base + threadIdx.x;
+    int v = t < n_tiles ? (__ldg(counts + t) + K4_ITEM_ROWS - 1) / K4_ITEM_ROWS + g_items : 0;
+    for (int o = 1; o < 32; o <<= 1) {  // inclusive scan of the warp
+      const int u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
+    }
+    if (lane == 31) warp_sums[warp] = v;
+    __syncthreads();
+    int before = carry;
+    for (int w = 0; w < warp; ++w) before += warp_sums[w];
+    if (t < n_tiles) ends[t] = before + v;
+    __syncthreads();
+    if (threadIdx.x == PLAN_THREADS - 1) carry = before + v;
+    __syncthreads();
+  }
+  if (threadIdx.x == 0) ends[n_tiles] = 0;
 }
 
 __global__ void __launch_bounds__(K4_THREADS)
-k4_depth_kernel(const float* __restrict__ table, const int4* __restrict__ boxes,
-                const int* __restrict__ starts, const int* __restrict__ counts,
+k4_depth_kernel(const float* __restrict__ table, const long long* __restrict__ x0,
+                const long long* __restrict__ x1, const long long* __restrict__ y0,
+                const long long* __restrict__ y1, const int* __restrict__ starts, const int* __restrict__ counts,
                 int* __restrict__ plan, int n_tiles, int nx, int g_base,
                 int g_count, int g_items, int width, float* __restrict__ out) {
   __shared__ float depth[RB_TILE_PIX];
@@ -196,7 +215,7 @@ k4_depth_kernel(const float* __restrict__ table, const int4* __restrict__ boxes,
 
     // Small boxes: a row per thread.
     for (int j = threadIdx.x; j < n; j += blockDim.x) {
-      const Box b = tile_box(boxes, first + j, tx0, ty0);
+      const Box b = tile_box(x0, x1, y0, y1, first + j, tx0, ty0);
       if (b.x1 < b.x0 || b.y1 < b.y0) continue;
       if ((b.x1 - b.x0 + 1) * (b.y1 - b.y0 + 1) > K4_SMALL_BOX) {
         big[atomicAdd(&n_big, 1)] = first + j;
@@ -212,7 +231,7 @@ k4_depth_kernel(const float* __restrict__ table, const int4* __restrict__ boxes,
     // Large boxes: a row per warp, its pixels over the lanes.
     for (int j = warp; j < n_big; j += K4_THREADS / 32) {
       const int row = big[j];
-      const Box b = tile_box(boxes, row, tx0, ty0);
+      const Box b = tile_box(x0, x1, y0, y1, row, tx0, ty0);
       const int bw = b.x1 - b.x0 + 1;
       const int area = bw * (b.y1 - b.y0 + 1);
       const DepthRow q = load_depth_row(table, row);
@@ -234,84 +253,194 @@ k4_depth_kernel(const float* __restrict__ table, const int4* __restrict__ boxes,
   }
 }
 
-__global__ void __launch_bounds__(RB_THREADS)
-k5_vis_kernel(const float* __restrict__ table, const int* __restrict__ starts,
-              const int* __restrict__ counts, int g_base, int g_count,
-              int width, int height, float* __restrict__ depth_out,
-              int* __restrict__ tri_out, float* __restrict__ u_out,
-              float* __restrict__ v_out) {
-  __shared__ float rows[RB_VIS_CHUNK * RB_VIS_STRIDE];
-  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
-  const Pixels p = tile_pixels();
-  float depth[RB_PIX], bu[RB_PIX], bv[RB_PIX];
-  int tri[RB_PIX];
-#pragma unroll
-  for (int k = 0; k < RB_PIX; ++k) {
-    depth[k] = 1.0f;
-    tri[k] = -1;
-    bu[k] = 0.0f;
-    bv[k] = 0.0f;
-  }
+// K5's key of a candidate at walk position pos (vis_binned_plain's int64
+// key, its sign bit flipped): z orders as float_order_key(z), -0.0 as 0.0.
+__device__ __forceinline__ unsigned long long vis_key(float z, int pos) {
+  int bits = __float_as_int(z);
+  if (bits == static_cast<int>(0x80000000u)) bits = 0;
+  const long long order = bits < 0 ? -static_cast<long long>(bits & 0x7FFFFFFF) : bits;
+  const long long key = order * 4294967296LL + (0x7FFFFFFF - pos);
+  return static_cast<unsigned long long>(key) ^ 0x8000000000000000ull;
+}
 
-  for (int part = 0; part < 2; ++part) {
-    const int64_t first = part == 0 ? g_base : starts[tile];
-    const int n = part == 0 ? g_count : counts[tile];
-    for (int c = 0; c < n; c += RB_VIS_CHUNK) {
-      const int m = min(RB_VIS_CHUNK, n - c);
-      __syncthreads();
-      stage_rows<RB_VIS_STRIDE>(table, first + c, m, rows);
-      __syncthreads();
-      for (int j = 0; j < m; ++j) {
-        const float* q = rows + j * RB_VIS_STRIDE;
-        const float ax0 = q[0] * p.x, ax1 = q[3] * p.x, ax2 = q[6] * p.x;
-        const float ia = q[12];
-#pragma unroll
-        for (int k = 0; k < RB_PIX; ++k) {
-          const float e0 = ax0 + q[1] * p.y[k] + q[2];
-          const float e1 = ax1 + q[4] * p.y[k] + q[5];
-          const float e2 = ax2 + q[7] * p.y[k] + q[8];
-          const bool inside = e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f;
-          // barycentrics from the edge functions (l0 = edge v1->v2, ...)
-          const float l0 = e1 * ia, l1 = e2 * ia, l2 = e0 * ia;
-          const float z = l0 * q[9] + l1 * q[10] + l2 * q[11];
-          if (inside && z <= depth[k] && z <= 1.0f) {
-            // perspective correction, composed through the original
-            // triangle's barycentrics (ops/raster.py semantics)
-            const float lw0 = l0 * q[13], lw1 = l1 * q[14], lw2 = l2 * q[15];
-            const float denom = lw0 + lw1 + lw2;
-            const float rden = 1.0f / (fabsf(denom) < 1e-12f ? 1.0f : denom);
-            depth[k] = z;
-            tri[k] = static_cast<int>(q[22]);
-            bu[k] = (lw0 * q[16] + lw1 * q[18] + lw2 * q[20]) * rden;
-            bv[k] = (lw0 * q[17] + lw1 * q[19] + lw2 * q[21]) * rden;
-          }
-        }
+// A K5 row's first 13 columns, which are a K4 row's.
+__device__ __forceinline__ DepthRow load_vis_row(const float* __restrict__ table,
+                                               int row) {
+  const float4* q = reinterpret_cast<const float4*>(table) +
+                    static_cast<int64_t>(row) * (RB_VIS_STRIDE / 4);
+  const float4 u = __ldg(q), v = __ldg(q + 1), w = __ldg(q + 2), s = __ldg(q + 3);
+  return {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w, w.x, w.y, w.z, w.w, s.x};
+}
+
+// One (row, pixel) test in the plain version's order (_vis_terms): where
+// inside and z <= 1, lowers the tile's key at pixel (x, y). The high word of
+// a key only falls, so a candidate whose high word is above it can skip the
+// atomic; a 32-bit read of it is never torn.
+__device__ __forceinline__ void vis_test(const DepthRow& q, int x, int y, int tx0,
+                                         int ty0, int pos,
+                                         unsigned long long* keys) {
+  const float px = static_cast<float>(x) + 0.5f;
+  const float py = static_cast<float>(y) + 0.5f;
+  const float e0 = q.a0 * px + q.b0 * py + q.c0;
+  const float e1 = q.a1 * px + q.b1 * py + q.c1;
+  const float e2 = q.a2 * px + q.b2 * py + q.c2;
+  if (!(e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f)) return;
+  const float l0 = e1 * q.ia, l1 = e2 * q.ia, l2 = e0 * q.ia;
+  const float z = l0 * q.z0 + l1 * q.z1 + l2 * q.z2;
+  if (!(z <= 1.0f)) return;
+  const unsigned long long key = vis_key(z, pos);
+  unsigned long long* slot = keys + (y - ty0) * RB_TILE_W + (x - tx0);
+  const unsigned high = reinterpret_cast<const volatile unsigned*>(slot)[1];
+  if (static_cast<unsigned>(key >> 32) <= high) atomicMin(slot, key);
+}
+
+// K5's first pass: K4's items over the same plan, lowering a key plane
+// (cleared to K5_KEY_NONE) instead of a depth.
+__global__ void __launch_bounds__(K5_THREADS)
+k5_key_kernel(const float* __restrict__ table, const long long* __restrict__ x0,
+              const long long* __restrict__ x1, const long long* __restrict__ y0,
+              const long long* __restrict__ y1,
+              const int* __restrict__ starts, const int* __restrict__ counts,
+              int* __restrict__ plan, int n_tiles, int nx, int g_base,
+              int g_count, int g_items, int width,
+              unsigned long long* __restrict__ out) {
+  extern __shared__ unsigned long long keys[];  // RB_TILE_PIX
+  __shared__ int big[K4_ITEM_ROWS];
+  __shared__ int n_big, item;
+  const int total = __ldg(plan + n_tiles - 1);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (;;) {
+    if (threadIdx.x == 0) item = atomicAdd(plan + n_tiles, 1);
+    __syncthreads();
+    const int i = item;
+    if (i >= total) return;
+    int lo = 0, hi = n_tiles - 1;  // the item's tile: the first t with plan[t] > i
+    while (lo < hi) {
+      const int mid = (lo + hi) / 2;
+      if (__ldg(plan + mid) > i) hi = mid; else lo = mid + 1;
+    }
+    const int t = lo;
+    const int tile_first = t > 0 ? __ldg(plan + t - 1) : 0;
+    const bool alone = __ldg(plan + t) - tile_first == 1;
+    const int k = i - tile_first;
+    int first, n, pos0;  // pos0: the walk position of row `first`
+    if (k < g_items) {
+      pos0 = k * K4_ITEM_ROWS;
+      first = g_base + pos0;
+      n = min(K4_ITEM_ROWS, g_count - pos0);
+    } else {
+      const int s = (k - g_items) * K4_ITEM_ROWS;
+      first = __ldg(starts + t) + s;
+      n = min(K4_ITEM_ROWS, __ldg(counts + t) - s);
+      pos0 = g_count + s;
+    }
+    const int tx0 = (t % nx) * RB_TILE_W, ty0 = (t / nx) * RB_TILE_H;
+    for (int p = threadIdx.x; p < RB_TILE_PIX; p += blockDim.x) keys[p] = K5_KEY_NONE;
+    if (threadIdx.x == 0) n_big = 0;
+    __syncthreads();
+
+    for (int j = threadIdx.x; j < n; j += blockDim.x) {  // small boxes: a row per thread
+      const Box b = tile_box(x0, x1, y0, y1, first + j, tx0, ty0);
+      if (b.x1 < b.x0 || b.y1 < b.y0) continue;
+      if ((b.x1 - b.x0 + 1) * (b.y1 - b.y0 + 1) > K4_SMALL_BOX) {
+        big[atomicAdd(&n_big, 1)] = j;
+        continue;
+      }
+      const DepthRow q = load_vis_row(table, first + j);
+      for (int y = b.y0; y <= b.y1; ++y) {
+        for (int x = b.x0; x <= b.x1; ++x) vis_test(q, x, y, tx0, ty0, pos0 + j, keys);
       }
     }
+    __syncthreads();
+
+    for (int w = warp; w < n_big; w += K5_THREADS / 32) {  // large: a row per warp
+      const int j = big[w];
+      const Box b = tile_box(x0, x1, y0, y1, first + j, tx0, ty0);
+      const int bw = b.x1 - b.x0 + 1;
+      const int area = bw * (b.y1 - b.y0 + 1);
+      const DepthRow q = load_vis_row(table, first + j);
+      for (int p = lane; p < area; p += 32) {
+        vis_test(q, b.x0 + p % bw, b.y0 + p / bw, tx0, ty0, pos0 + j, keys);
+      }
+    }
+    __syncthreads();
+
+    for (int p = threadIdx.x; p < RB_TILE_PIX; p += blockDim.x) {
+      const unsigned long long v = keys[p];
+      if (v == K5_KEY_NONE) continue;
+      unsigned long long* o = out + static_cast<int64_t>(ty0 + p / RB_TILE_W) * width +
+                              tx0 + p % RB_TILE_W;
+      if (alone) *o = v; else atomicMin(o, v);
+    }
+    __syncthreads();  // before the next item clears `keys` and sets `item`
   }
-  if (p.col >= width) return;
-#pragma unroll
-  for (int k = 0; k < RB_PIX; ++k) {
-    const int y = p.row0 + k;
-    if (y >= height) continue;
-    const int64_t i = static_cast<int64_t>(y) * width + p.col;
-    depth_out[i] = depth[k];
-    tri_out[i] = tri[k];
-    u_out[i] = bu[k];
-    v_out[i] = bv[k];
+}
+
+// K5's second pass, a thread per pixel: the winning row of its key, and
+// (depth, tri, u, v) computed from it in vis_binned_plain's operation order;
+// (1, -1, 0, 0) where no row covers the pixel.
+__global__ void __launch_bounds__(K5_DECODE_THREADS)
+k5_decode_kernel(const float* __restrict__ table,
+                 const unsigned long long* __restrict__ keys,
+                 const int* __restrict__ starts, int g_base, int g_count, int nx,
+                 int width, int n_pix, float* __restrict__ depth,
+                 int* __restrict__ tri, float* __restrict__ u_out,
+                 float* __restrict__ v_out) {
+  const int i = blockIdx.x * K5_DECODE_THREADS + threadIdx.x;
+  if (i >= n_pix) return;
+  const unsigned long long key = keys[i];
+  if (key == K5_KEY_NONE) {
+    depth[i] = 1.0f;
+    tri[i] = -1;
+    u_out[i] = 0.0f;
+    v_out[i] = 0.0f;
+    return;
   }
+  const int pos = 0x7FFFFFFF - static_cast<int>(key & 0xFFFFFFFFull);
+  const int x = i % width, y = i / width;
+  const int tile = (y / RB_TILE_H) * nx + x / RB_TILE_W;
+  const int row = pos < g_count ? g_base + pos : __ldg(starts + tile) + pos - g_count;
+  const float* q = table + static_cast<int64_t>(row) * RB_VIS_STRIDE;
+  const float px = static_cast<float>(x) + 0.5f;
+  const float py = static_cast<float>(y) + 0.5f;
+  const float e0 = __ldg(q + 0) * px + __ldg(q + 1) * py + __ldg(q + 2);
+  const float e1 = __ldg(q + 3) * px + __ldg(q + 4) * py + __ldg(q + 5);
+  const float e2 = __ldg(q + 6) * px + __ldg(q + 7) * py + __ldg(q + 8);
+  const float ia = __ldg(q + 12);
+  const float l0 = e1 * ia, l1 = e2 * ia, l2 = e0 * ia;
+  const float z = l0 * __ldg(q + 9) + l1 * __ldg(q + 10) + l2 * __ldg(q + 11);
+  // perspective correction, composed through the original triangle's
+  // barycentrics (ops/raster.py semantics)
+  const float lw0 = l0 * __ldg(q + 13), lw1 = l1 * __ldg(q + 14), lw2 = l2 * __ldg(q + 15);
+  const float denom = lw0 + lw1 + lw2;
+  const float rden = 1.0f / (fabsf(denom) < 1e-12f ? 1.0f : denom);
+  depth[i] = z;
+  tri[i] = static_cast<int>(__ldg(q + 22));
+  u_out[i] = (lw0 * __ldg(q + 16) + lw1 * __ldg(q + 18) + lw2 * __ldg(q + 20)) * rden;
+  v_out[i] = (lw0 * __ldg(q + 17) + lw1 * __ldg(q + 19) + lw2 * __ldg(q + 21)) * rden;
 }
 
 }  // namespace
 
 #if defined(__CUDACC__)
-// The wrapper (ops/raster_binned.py) checks shapes, types and limits and
-// clears `out` to 1.0; these return cudaGetLastError() after the launch.
-// K4's grid: as many blocks as stay resident on the card's SMs at once.
-extern "C" int k4_depth_binned(const float* table, const int* boxes,
-                               const int* starts, const int* counts, int* plan,
-                               int n_tiles, int nx, int g_base, int g_count,
-                               int g_items, int width, float* out, void* stream) {
+// The wrappers (ops/raster_binned.py) check shapes, types and limits; these
+// return cudaGetLastError() after the launches. x0, x1, y0, y1 are
+// Bins.row_box, `plan` holds n_tiles + 1 ints (raster_plan's). The kernels'
+// grids: as many blocks as stay resident on the card's SMs at once.
+extern "C" int raster_plan(const int* counts, int n_tiles, int g_items, int* plan,
+                           void* stream) {
+  plan_kernel<<<1, PLAN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(counts, n_tiles,
+                                                                         g_items, plan);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K4: `out` cleared to 1.0 by the wrapper.
+extern "C" int k4_depth_binned(const float* table, const long long* x0,
+                               const long long* x1, const long long* y0,
+                               const long long* y1, const int* starts,
+                               const int* counts, int* plan, int n_tiles, int nx,
+                               int g_base, int g_count, int g_items, int width,
+                               float* out, void* stream) {
   static int grid = 0;
   if (grid == 0) {
     int dev = 0, sms = 0, per_sm = 0;
@@ -327,19 +456,47 @@ extern "C" int k4_depth_binned(const float* table, const int* boxes,
     grid = sms * (per_sm > 0 ? per_sm : 1);
   }
   k4_depth_kernel<<<grid, K4_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      table, reinterpret_cast<const int4*>(boxes), starts, counts, plan, n_tiles,
-      nx, g_base, g_count, g_items, width, out);
+      table, x0, x1, y0, y1, starts, counts, plan, n_tiles, nx, g_base, g_count, g_items,
+      width, out);
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int k5_vis_binned(const float* table, const int* starts,
-                             const int* counts, int g_base, int g_count,
-                             int nx, int ny, int width, int height,
-                             float* depth, int* tri, float* u, float* v,
-                             void* stream) {
-  k5_vis_kernel<<<dim3(nx, ny), RB_THREADS, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      table, starts, counts, g_base, g_count, width, height, depth, tri, u, v);
+// K5: `keys` holds height * width keys; this clears them, runs the key pass
+// and then the decode.
+extern "C" int k5_vis_binned(const float* table, const long long* x0,
+                             const long long* x1, const long long* y0,
+                             const long long* y1, const int* starts,
+                             const int* counts, int* plan, int n_tiles, int nx,
+                             int g_base, int g_count, int g_items, int width,
+                             int height, unsigned long long* keys, float* depth,
+                             int* tri, float* u, float* v, void* stream) {
+  const int smem = RB_TILE_PIX * static_cast<int>(sizeof(unsigned long long));
+  static int grid = 0;
+  if (grid == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaFuncSetAttribute(
+        k5_key_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) {
+      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    }
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, k5_key_kernel,
+                                                          K5_THREADS, smem);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
+    grid = sms * (per_sm > 0 ? per_sm : 1);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_pix = width * height;
+  cudaError_t err = cudaMemsetAsync(keys, 0xFF, sizeof(unsigned long long) * n_pix, s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  k5_key_kernel<<<grid, K5_THREADS, smem, s>>>(table, x0, x1, y0, y1, starts, counts, plan,
+                                              n_tiles, nx, g_base, g_count, g_items, width,
+                                              keys);
+  k5_decode_kernel<<<(n_pix + K5_DECODE_THREADS - 1) / K5_DECODE_THREADS,
+                     K5_DECODE_THREADS, 0, s>>>(table, keys, starts, g_base, g_count, nx,
+                                                width, n_pix, depth, tri, u, v);
   return static_cast<int>(cudaGetLastError());
 }
 #endif

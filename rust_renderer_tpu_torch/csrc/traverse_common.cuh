@@ -155,10 +155,12 @@ __device__ __forceinline__ int lane4(const int4& a, int c) {
 // its ids as 3 int4, then for each group of 4 slots with a live one, the
 // group's 36 floats as 9 float4 (30 loads for a full row). The same tests in
 // the same order. Rows are 480 bytes, so a 16-byte-aligned table keeps every
-// row aligned.
+// row aligned. kCount adds the live slots reached to *tests (K1's stats form);
+// without it the form compiles as it did before the counter existed.
+template <bool kCount = false>
 __device__ __forceinline__ bool leaf_test_v4(const float* __restrict__ lrow,
                                              const Ray& r, Best& best,
-                                             bool any_hit) {
+                                             bool any_hit, int* tests = nullptr) {
   const float4* geo = reinterpret_cast<const float4*>(lrow);
   const int4* ids4 = reinterpret_cast<const int4*>(lrow + 9 * TRV_LEAF_SLOTS);
   bool found = false;
@@ -179,6 +181,7 @@ __device__ __forceinline__ bool leaf_test_v4(const float* __restrict__ lrow,
     for (int s = 0; s < 4; ++s) {
       const int tri = lane4(ids, s);
       if (tri < 0) continue;
+      if (kCount) ++*tests;
       // leaf_test's arithmetic, op for op, kept apart from it: one shared
       // helper changed the other kernels' generated code and slowed them by
       // up to 18% on an H100.

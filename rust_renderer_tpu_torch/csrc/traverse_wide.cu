@@ -55,6 +55,12 @@
 //     the NEE fronts, PERF.md);
 //   - the stack holds (ref, tnear) pairs in local memory, sized by the
 //     wrapper's bound on the tree's wide depth.
+// K1's stats form (kStats, `traverse(..., phase_stats=True)`) counts per ray
+// the loop iterations (pops), the entries expanded, the leaf rows tested, the
+// pops culled by tnear > best.t, the child-box slab tests (non-empty slots of
+// the expanded nodes) and the triangle tests (live slots reached): the work
+// of this walk, which its bound counts. The JAX kernel's phase_stats count
+// TPU phases per 1024-ray block; they have no meaning here.
 //
 // K3 keeps its scalar loads: its walks are the JAX package's other
 // schedules, and the yardstick K1 is timed beside.
@@ -69,7 +75,7 @@ namespace {
 using trv::Best;
 using trv::Ray;
 
-template <bool kAnyHit>
+template <bool kAnyHit, bool kStats>
 __global__ void __launch_bounds__(TRV_THREADS)
 k1_traverse_wide_kernel(const float* __restrict__ origin,
                         const float* __restrict__ direction,
@@ -78,7 +84,8 @@ k1_traverse_wide_kernel(const float* __restrict__ origin,
                         const float* __restrict__ wnode,
                         const float* __restrict__ leaf, int n_rays,
                         float* __restrict__ t_out, int* __restrict__ prim_out,
-                        float* __restrict__ u_out, float* __restrict__ v_out) {
+                        float* __restrict__ u_out, float* __restrict__ v_out,
+                        int* __restrict__ stats_out) {
   // The hit children of the node being expanded, [entry][thread].
   __shared__ int hit_ref[TRV_WIDTH][TRV_THREADS];
   __shared__ float hit_tn[TRV_WIDTH][TRV_THREADS];
@@ -87,13 +94,21 @@ k1_traverse_wide_kernel(const float* __restrict__ origin,
   if (i >= n_rays) return;
   Ray r;
   Best best;
+  // kStats: loop iterations, entries expanded, leaf rows tested, pops culled,
+  // child-box slab tests, triangle tests.
+  int st[6] = {0, 0, 0, 0, 0, 0};
   if (trv::load_ray(origin, direction, t_min_in, t_max_in, i, r, best)) {
     int2 stack[K1_STACK_CAP];  // (ref, tnear bits); the wrapper sizes the cap
     int sp = 0;
     stack[sp++] = make_int2(0, __float_as_int(-TRV_INF));
     while (sp > 0) {
       const int2 top = stack[--sp];
-      if (!kAnyHit && !(__int_as_float(top.y) <= best.t)) continue;
+      if (kStats) ++st[0];
+      if (!kAnyHit && !(__int_as_float(top.y) <= best.t)) {
+        if (kStats) ++st[3];
+        continue;
+      }
+      if (kStats) ++st[1];
       const float* row = wnode + static_cast<size_t>(top.x) * TRV_NODE_COLS;
       int n = 0;
 #pragma unroll
@@ -103,6 +118,7 @@ k1_traverse_wide_kernel(const float* __restrict__ origin,
         for (int c = 0; c < 4; ++c) {
           const int child = trv::lane4(w.ref, c);
           if (child == TRV_WIDE_EMPTY) continue;
+          if (kStats) ++st[4];
           float tnear;
           if (!trv::slab(r, trv::lane4(w.p[0], c), trv::lane4(w.p[1], c),
                          trv::lane4(w.p[2], c), trv::lane4(w.p[3], c),
@@ -125,7 +141,9 @@ k1_traverse_wide_kernel(const float* __restrict__ origin,
       for (int a = 0; a < n && !done; ++a) {  // leaves, nearest first
         const int child = hit_ref[a][lane];
         if (child >= 0 || !(kAnyHit || hit_tn[a][lane] <= best.t)) continue;
-        done = trv::leaf_test_v4(trv::leaf_row(leaf, -(child + 2)), r, best, kAnyHit) &&
+        if (kStats) ++st[2];
+        done = trv::leaf_test_v4<kStats>(trv::leaf_row(leaf, -(child + 2)), r, best,
+                                         kAnyHit, &st[5]) &&
                kAnyHit;
       }
       if (done) break;
@@ -139,6 +157,10 @@ k1_traverse_wide_kernel(const float* __restrict__ origin,
     }
   }
   trv::store_hit(i, best, kAnyHit, t_out, prim_out, u_out, v_out);
+  if (kStats) {
+#pragma unroll
+    for (int k = 0; k < 6; ++k) stats_out[k * static_cast<int64_t>(n_rays) + i] = st[k];
+  }
 }
 
 // The per-ray counters of K3's stats form.
@@ -251,23 +273,27 @@ k3_traverse_wide_kernel(const float* __restrict__ origin,
 
 }  // namespace
 
+// stats_out is (6, n_rays) int32 (K1's stats form) or null.
 extern "C" int k1_traverse_wide(const float* origin, const float* direction,
                                 const float* t_min, const float* t_max,
                                 const float* wnode, const float* leaf,
                                 int n_rays, int any_hit, float* t_out,
                                 int* prim_out, float* u_out, float* v_out,
-                                void* stream) {
+                                int* stats_out, void* stream) {
   const int blocks = (n_rays + TRV_THREADS - 1) / TRV_THREADS;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (any_hit) {
-    k1_traverse_wide_kernel<true><<<blocks, TRV_THREADS, 0, s>>>(
-        origin, direction, t_min, t_max, wnode, leaf, n_rays, t_out, prim_out,
-        u_out, v_out);
+#define K1_LAUNCH(A, S)                                                         \
+  k1_traverse_wide_kernel<A, S><<<blocks, TRV_THREADS, 0, s>>>(                 \
+      origin, direction, t_min, t_max, wnode, leaf, n_rays, t_out, prim_out,    \
+      u_out, v_out, stats_out)
+  if (stats_out != nullptr) {
+    if (any_hit) K1_LAUNCH(true, true);
+    else K1_LAUNCH(false, true);
   } else {
-    k1_traverse_wide_kernel<false><<<blocks, TRV_THREADS, 0, s>>>(
-        origin, direction, t_min, t_max, wnode, leaf, n_rays, t_out, prim_out,
-        u_out, v_out);
+    if (any_hit) K1_LAUNCH(true, false);
+    else K1_LAUNCH(false, false);
   }
+#undef K1_LAUNCH
   return static_cast<int>(cudaGetLastError());
 }
 

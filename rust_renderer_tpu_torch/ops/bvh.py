@@ -78,6 +78,10 @@ class BVH(NamedTuple):
     # once at build time: the frames make their hit queries anew each frame,
     # and ranking then would read the leaf table back from the device.
     leaf_area_order: np.ndarray | None = None
+    # Host (L, 10 * leaf_size) f32: the leaf rows in `leaf_area_order`, from
+    # which `seed_table` compacts the seed test's triangles for any k without
+    # reading the device's leaf table back.
+    seed_rows: np.ndarray | None = None
 
     @property
     def device(self) -> torch.device:
@@ -455,27 +459,42 @@ def build_scene_bvh(scene) -> BVH:
 
 # Launches of the seed kernel (csrc/seed_occlusion.cu); nothing else changes it.
 SEED_LAUNCHES = 0
+# The triangles one launch of the seed kernel holds in its parameters (its
+# SEED_MAX_TRIS); the wrapper's launcher runs a larger table in chunks.
+SEED_LAUNCH_TRIS = 8 * LEAF_SIZE
 
 
-def seed_leaf_rows(bvh: BVH, k: int) -> np.ndarray:
-    """The leaf rows the seed test takes: the `k` with the largest summed
-    triangle area (host int64)."""
-    return bvh.leaf_area_order[:max(int(k), 0)]
-
-
-def seed_occlusion_plain(rows, o, d, t_min, t_max) -> torch.Tensor:
-    """The seed test's plain version: (R,) bool, whether a live slot of the
-    leaf-table `rows` (k, 10 * LEAF_SIZE) occludes each ray of (R, 3) o, d
-    in (t_min, t_max), both (R,). One Moller-Trumbore test per live slot,
-    in the JAX package's operations and order (``ops/bvh.py:884-909``)."""
+def seed_table(bvh: BVH, k: int) -> torch.Tensor | None:
+    """The live triangles of the seed test's rows, the `k` leaf rows with
+    the largest summed triangle area (`BVH.leaf_area_order`), in row and
+    slot order, as a host (9, n) float32 table: row c holds component
+    c (v0.xyz, e1.xyz, e2.xyz) of each triangle; the JAX package's list of
+    trace-time triangles. None where there are none. Read from the rows the
+    build kept on the host (`BVH.seed_rows`), so no frame reads the leaf
+    table back."""
+    rows = bvh.seed_rows[:max(int(k), 0)]
     ls = rows.shape[1] // 10
-    ids = rows[:, 9 * ls:].contiguous().view(torch.int32).cpu()
+    ids = rows[:, 9 * ls:].view(np.int32)
+    r, s = np.nonzero(ids >= 0)
+    if r.size == 0:
+        return None
     geo = rows[:, :9 * ls].reshape(-1, ls, 9)
+    return torch.from_numpy(np.ascontiguousarray(geo[r, s].T))
+
+
+def seed_occlusion_plain(tris, o, d, t_min, t_max):
+    """The seed test's plain version. Per ray of (R, 3) o, d and (R,)
+    t_min, t_max: whether a triangle of the (9, n) table `tris`
+    (`seed_table`) occludes it in (t_min, t_max), as (R,) bool, and the
+    direction the walk then takes, (R, 3): zero where occluded, else d. One
+    Moller-Trumbore test per triangle, in the JAX package's operations and
+    order (``ops/bvh.py:884-909``; the direction as ``:1505``)."""
+    tris = tris.to(o.device)
     ox, oy, oz = o[:, 0], o[:, 1], o[:, 2]
     dx, dy, dz = d[:, 0], d[:, 1], d[:, 2]
     occ = torch.zeros(o.shape[0], dtype=torch.bool, device=o.device)
-    for r, s in torch.nonzero(ids >= 0).tolist():
-        a, b, c = geo[r, s, 0:3], geo[r, s, 3:6], geo[r, s, 6:9]
+    for j in range(tris.shape[1]):
+        a, b, c = tris[0:3, j], tris[3:6, j], tris[6:9, j]
         px = dy * c[2] - dz * c[1]
         py = dz * c[0] - dx * c[2]
         pz = dx * c[1] - dy * c[0]
@@ -490,39 +509,46 @@ def seed_occlusion_plain(rows, o, d, t_min, t_max) -> torch.Tensor:
         t = (c[0] * qx + c[1] * qy + c[2] * qz) * inv
         occ |= ((det.abs() > 1e-12) & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
                 & (t > t_min) & (t < t_max))
-    return occ
+    return occ, torch.where(occ[:, None], 0.0, d)
 
 
-def seed_occlusion_cuda(rows, o, d, t_min, t_max) -> torch.Tensor:
-    """Launch the seed kernel (``csrc/seed_occlusion.cu``) on CUDA tensors:
-    the function of `seed_occlusion_plain`."""
+def seed_occlusion_cuda(tris, o, d, t_min, t_max):
+    """Launch the seed kernel (``csrc/seed_occlusion.cu``) on CUDA rays: the
+    function of `seed_occlusion_plain`. `tris` stays on the host: its values
+    travel in the launches' parameters, SEED_LAUNCH_TRIS at a time."""
     global SEED_LAUNCHES
     r, dev = traversal._check_rays("the seed kernel", o, d, t_min, t_max)
-    traversal._check("seed rows", rows, torch.float32, (rows.shape[0], 10 * LEAF_SIZE), dev)
+    n = tris.shape[1]
+    traversal._check("seed table", tris, torch.float32, (9, n), torch.device("cpu"))
+    if n < 1:
+        raise ValueError("the seed kernel takes at least one triangle")
     occ = torch.empty(r, dtype=torch.bool, device=dev)
+    walk_d = torch.empty((r, 3), dtype=torch.float32, device=dev)
     if r:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = traversal.library("seed_occlusion").seed_occlusion(
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
-            rows.data_ptr(), rows.shape[0], r, occ.data_ptr(), stream)
+            tris.data_ptr(), n, r, occ.data_ptr(), walk_d.data_ptr(), stream)
         traversal._raise_on(err, "the seed kernel")
         SEED_LAUNCHES += 1
-    return occ
+    return occ, walk_d
 
 
 def make_seed_test(bvh: BVH, k: int = 4):
     """The pre-traversal occlusion test against the `k` largest-area leaf
     rows (the JAX package's ``ops/bvh.py::make_seed_test``, which takes the
-    rows' live slots, at most 4 x 12 = 48 triangles for k = 4).
+    rows' live slots, at most k x 12 triangles).
 
-    Returns fn(origin, direction, t_min, t_max) -> bool occluded, shaped
-    like the rays' leading dims, or None for k <= 0 or a tree with no leaf
-    rows. Exact for occlusion: a seeded verdict is a true occlusion. CPU
-    tensors take `seed_occlusion_plain`, CUDA tensors the seed kernel."""
-    rows_idx = seed_leaf_rows(bvh, k)
-    if len(rows_idx) == 0:
+    Returns fn(origin, direction, t_min, t_max) -> (occluded, walk
+    direction): occluded shaped like the rays' leading dims, the walk's
+    direction like `direction`, zeroed where occluded (the rewrite
+    `make_any_hit` makes, fused); or None for k <= 0 or no live triangle,
+    as in the JAX package. Exact for occlusion: a seeded verdict is a true
+    occlusion. CPU tensors take `seed_occlusion_plain`, CUDA tensors the
+    seed kernel."""
+    tris = seed_table(bvh, k)
+    if tris is None:
         return None
-    rows = bvh.leaf_packed[torch.as_tensor(rows_idx, device=bvh.device)].contiguous()
 
     def test(origin, direction, t_min, t_max):
         shape = origin.shape[:-1]
@@ -532,12 +558,12 @@ def make_seed_test(bvh: BVH, k: int = 4):
         tmin = traversal.flat_limit(t_min, shape, dev)
         tmax = traversal.flat_limit(t_max, shape, dev)
         if dev.type == "cpu":
-            occ = seed_occlusion_plain(rows, o, d, tmin, tmax)
+            occ, walk_d = seed_occlusion_plain(tris, o, d, tmin, tmax)
         elif dev.type == "cuda":
-            occ = seed_occlusion_cuda(rows, o, d, tmin, tmax)
+            occ, walk_d = seed_occlusion_cuda(tris, o, d, tmin, tmax)
         else:
             raise ValueError(f"no seed test for device {dev}")
-        return occ.reshape(shape)
+        return occ.reshape(shape), walk_d.reshape(origin.shape)
 
     return test
 
@@ -611,8 +637,7 @@ def make_any_hit(bvh: BVH, wide: bool = True, ordered: bool = False,
     def any_hit(scene, origin, direction, t_min=1e-3, t_max=1e4):
         occ_seed = None
         if seed is not None:
-            occ_seed = seed(origin, direction, t_min, t_max)
-            direction = torch.where(occ_seed[..., None], 0.0, direction)
+            occ_seed, direction = seed(origin, direction, t_min, t_max)
         t, prim, _, _ = trav(bvh, origin, direction, t_min, t_max, any_hit=True,
                              **options)
         hit = prim >= 0

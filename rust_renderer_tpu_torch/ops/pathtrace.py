@@ -143,9 +143,11 @@ def path_trace(scene, view, cfg, accumulation: torch.Tensor,
             hit = closest_hit(scene, origin, direction)
             missed = ~hit.is_hit
 
-            # Miss shader (reference.rmiss): the atmosphere sky, clamped,
-            # or the captured environment.
-            if sky_fn is not None:
+            # Miss shader (reference.rmiss): the furnace test's constant
+            # white, the atmosphere sky, clamped, or the captured environment.
+            if cfg.furnace_test:
+                sky = torch.ones((height, width, 3), dtype=torch.float32, device=dev)
+            elif sky_fn is not None:
                 sky = sky_fn(origin, rayops.normalize(direction), view)
             else:
                 sky = atmosphere.sky_radiance(origin, rayops.normalize(direction),

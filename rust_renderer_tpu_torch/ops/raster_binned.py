@@ -22,10 +22,13 @@ and the plain PyTorch version of each (the port of
 `rasterize_depth_binned` / `rasterize_binned` launch K4 / K5 on CUDA
 tensors and take the plain versions on CPU tensors; any other device
 raises. `K4_LAUNCHES` and `K5_LAUNCHES` count kernel launches; nothing else
-changes them. K5 runs one block per tile. K4 tests each row only on its
-pixel box (`row_boxes`) and takes its work in items of at most
-`K4_ITEM_ROWS` rows of one tile (`depth_plan`, `depth_plan_items`), so that
-a crowded tile is spread over the card.
+changes them. K4 and K5 test each row only on its pixel box (`row_boxes`)
+and take their work in items of at most `K4_ITEM_ROWS` rows of one tile
+(`depth_plan`, `depth_plan_items`), so that a crowded tile is spread over
+the card; K5 then decodes each pixel's least key, the key its plain
+version reduces. On CUDA tensors `depth_plan` launches the plan kernel of
+``csrc/raster_binned.cu``, which K4's and K5's wrappers call; it counts as
+part of their launch.
 
 The plain versions compute the same function over the same table without
 tiles' pixel blocks: every table row is tested only on the pixels of its
@@ -38,6 +41,7 @@ is exact in any order, and K5's in-order last-wins walk is the least
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 from typing import NamedTuple
 
@@ -55,9 +59,8 @@ SPAN_X = 2  # tiles a triangle may span horizontally before going global
 SPAN_Y = 4
 DEPTH_STRIDE = 16  # f32 per depth row
 VIS_STRIDE = 24  # f32 per visibility row
-# Launch limit of K5 (raster_binned.cu): grid.y is at most 65535 tiles.
-MAX_TILES_Y = 65535
-# K4's work item: at most this many rows of one tile (raster_binned.cu).
+# K4's and K5's work item: at most this many rows of one tile
+# (raster_binned.cu).
 K4_ITEM_ROWS = 1024
 _PAIR_BUDGET = 1 << 24
 
@@ -79,8 +82,7 @@ class TriRows(NamedTuple):
 
 
 class Bins(NamedTuple):
-    """What K5 reads, plus the row boxes that K4 and the plain versions
-    test rows on (`row_boxes`)."""
+    """What K4 and K5 read, and where each row lies."""
 
     table: torch.Tensor  # (R, stride) f32: [segments | globals]
     starts: torch.Tensor  # (ny*nx,) i32 first segment row of each tile
@@ -200,20 +202,27 @@ def bin_triangles(tr: TriRows, width: int, height: int) -> Bins:
 # -- the kernels ---------------------------------------------------------------
 
 
+@functools.cache
 def library() -> ctypes.CDLL:
-    """Build (at first use) and bind K4 and K5."""
+    """Build (at first use) and bind K4, K5 and their plan kernel. Cached,
+    as `traversal.library` is: every launch asks for its library, and
+    building the nvcc command resolves nvcc on PATH."""
     lib = native.load_library("k45_raster_binned", [SOURCE], nvcc_command())
-    # pointers in, then ints, then the outputs and the stream
-    for fn, n_in, n_out in ((lib.k4_depth_binned, 5, 1), (lib.k5_vis_binned, 3, 4)):
-        if fn.argtypes is None:
-            fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * n_in + [ctypes.c_int] * 6
-                           + [ctypes.c_void_p] * (n_out + 1))
+    # pointers in (the plan: counts; K4 and K5: table, the four box columns,
+    # starts, counts, plan), then ints, then the outputs (the plan: itself;
+    # K5: the key plane first) and the stream
+    for fn, n_in, n_ints, n_out in ((lib.raster_plan, 1, 2, 1),
+                                    (lib.k4_depth_binned, 8, 6, 1),
+                                    (lib.k5_vis_binned, 8, 7, 5)):
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * n_in + [ctypes.c_int] * n_ints
+                       + [ctypes.c_void_p] * (n_out + 1))
     return lib
 
 
 def _check_bins(bins: Bins, width: int, height: int, kernel: str) -> None:
     """Raises on bins a K4 / K5 launch does not take (nothing is truncated)."""
+    plan_items(bins)
     if bins.nx != -(-width // TILE_W) or bins.ny != -(-height // TILE_H):
         raise ValueError("bins were made for another image size")
     if width * height >= 2 ** 31 or bins.table.shape[0] >= 2 ** 31:
@@ -225,13 +234,14 @@ def _check_bins(bins: Bins, width: int, height: int, kernel: str) -> None:
     _check("table", bins.table, torch.float32, (bins.table.shape[0], bins.table.shape[1]), dev)
     _check("starts", bins.starts, torch.int32, (n_tiles,), dev)
     _check("counts", bins.counts, torch.int32, (n_tiles,), dev)
+    for name, box in zip(("x0", "x1", "y0", "y1"), bins.row_box):
+        _check(f"row_box {name}", box, torch.int64, (bins.table.shape[0],), dev)
 
 
 class DepthPlan(NamedTuple):
-    """K4's work: items of at most K4_ITEM_ROWS rows of one tile, the global
-    list's first, then the tile's segment."""
+    """The work of K4 and K5: items of at most K4_ITEM_ROWS rows of one
+    tile, the global list's first, then the tile's segment."""
 
-    boxes: torch.Tensor  # (R, 4) i32 per row x0, x1, y0, y1 (`row_boxes`)
     ends: torch.Tensor  # (ny*nx + 1,) i32: cumulative items per tile, then 0
     g_items: int  # items of the global list per tile
 
@@ -250,21 +260,47 @@ def row_boxes(bins: Bins):
     return x0, x1, y0, y1
 
 
-def depth_plan(bins: Bins) -> DepthPlan:
-    """K4's work items, made on the bins' device with no host sync. Tile t
-    has ceil(g_count / K4_ITEM_ROWS) global items and ceil(counts[t] /
-    K4_ITEM_ROWS) segment items; `ends[t]` is the number of items of tiles
-    0..t. The kernel takes items from a counter in `ends[-1]`."""
+def plan_items(bins: Bins) -> int:
+    """The global list's items per tile, ceil(g_count / K4_ITEM_ROWS);
+    raises where the plan's item numbering would overflow int32."""
     g_items = -(-bins.g_count // K4_ITEM_ROWS)
+    if bins.nx * bins.ny * (g_items + 1) + bins.table.shape[0] // K4_ITEM_ROWS >= 2 ** 31:
+        raise ValueError("K4's and K5's work items exceed int32 offsets")
+    return g_items
+
+
+def depth_plan_plain(bins: Bins) -> DepthPlan:
+    """The plan in tensor ops: tile t has ceil(g_count / K4_ITEM_ROWS)
+    global items and ceil(counts[t] / K4_ITEM_ROWS) segment items, and
+    `ends[t]` is the number of items of tiles 0..t; `ends[-1]` is 0, the
+    counter the kernels take items from."""
+    g_items = plan_items(bins)
     n_tiles = bins.nx * bins.ny
-    if n_tiles * (g_items + 1) + bins.table.shape[0] // K4_ITEM_ROWS >= 2 ** 31:
-        raise ValueError("K4's work items exceed int32 offsets")
     per_tile = torch.div(bins.counts + (K4_ITEM_ROWS - 1), K4_ITEM_ROWS,
                          rounding_mode="floor") + g_items
-    ends = torch.zeros(n_tiles + 1, dtype=torch.int32, device=bins.table.device)
+    ends = torch.zeros(n_tiles + 1, dtype=torch.int32, device=bins.counts.device)
     torch.cumsum(per_tile, 0, dtype=torch.int32, out=ends[:n_tiles])
-    boxes = torch.stack(row_boxes(bins), dim=1).to(torch.int32)
-    return DepthPlan(boxes, ends, g_items)
+    return DepthPlan(ends, g_items)
+
+
+def depth_plan(bins: Bins) -> DepthPlan:
+    """The plan of K4 and K5 (`depth_plan_plain`'s function): on CUDA bins
+    the plan kernel makes it on the device, with no host sync; CPU bins
+    take the plain version."""
+    dev = bins.counts.device
+    if dev.type == "cpu":
+        return depth_plan_plain(bins)
+    if dev.type != "cuda":
+        raise ValueError(f"no plan for device {dev}")
+    g_items = plan_items(bins)
+    n_tiles = bins.nx * bins.ny
+    _check("counts", bins.counts, torch.int32, (n_tiles,), dev)
+    ends = torch.empty(n_tiles + 1, dtype=torch.int32, device=dev)
+    err = library().raster_plan(bins.counts.data_ptr(), n_tiles, g_items, ends.data_ptr(),
+                                torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"the raster plan's launch failed: cudaError {err}")
+    return DepthPlan(ends, g_items)
 
 
 def depth_plan_items(bins: Bins, plan: DepthPlan):
@@ -284,17 +320,18 @@ def depth_plan_items(bins: Bins, plan: DepthPlan):
 
 
 def depth_binned_cuda(bins: Bins, width: int, height: int) -> torch.Tensor:
-    """Launch K4; returns the (height, width) depth."""
+    """Launch K4 (after the plan kernel); returns the (height, width)
+    depth."""
     global K4_LAUNCHES
     if bins.table.shape[1] != DEPTH_STRIDE:
         raise ValueError(f"K4 reads rows of {DEPTH_STRIDE} floats")
-    plan = depth_plan(bins)
     _check_bins(bins, width, height, "K4")
     dev = bins.table.device
+    plan = depth_plan(bins)
     out = torch.ones((height, width), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = library().k4_depth_binned(
-        bins.table.data_ptr(), plan.boxes.data_ptr(), bins.starts.data_ptr(),
+        bins.table.data_ptr(), *(b.data_ptr() for b in bins.row_box), bins.starts.data_ptr(),
         bins.counts.data_ptr(), plan.ends.data_ptr(), bins.nx * bins.ny, bins.nx,
         bins.g_base, bins.g_count, plan.g_items, width, out.data_ptr(), stream)
     if err != 0:
@@ -304,23 +341,26 @@ def depth_binned_cuda(bins: Bins, width: int, height: int) -> torch.Tensor:
 
 
 def vis_binned_cuda(bins: Bins, width: int, height: int) -> VisibilityBuffer:
-    """Launch K5; returns the visibility buffer before any `init` merge."""
+    """Launch K5 (after the plan kernel): its launcher clears the key
+    plane, runs the key pass and decodes. Returns the visibility buffer
+    before any `init` merge, its four planes views of one (4, height,
+    width) tensor."""
     global K5_LAUNCHES
     if bins.table.shape[1] != VIS_STRIDE:
         raise ValueError(f"K5 reads rows of {VIS_STRIDE} floats")
-    if bins.ny > MAX_TILES_Y:
-        raise ValueError(f"{bins.ny} tile rows exceed the grid limit {MAX_TILES_Y}")
     _check_bins(bins, width, height, "K5")
     dev = bins.table.device
-    out = VisibilityBuffer(
-        depth=torch.empty((height, width), dtype=torch.float32, device=dev),
-        tri=torch.empty((height, width), dtype=torch.int32, device=dev),
-        bary_u=torch.empty((height, width), dtype=torch.float32, device=dev),
-        bary_v=torch.empty((height, width), dtype=torch.float32, device=dev))
+    plan = depth_plan(bins)
+    keys = torch.empty(height * width, dtype=torch.int64, device=dev)
+    planes = torch.empty((4, height, width), dtype=torch.float32, device=dev)
+    out = VisibilityBuffer(depth=planes[0], tri=planes[1].view(torch.int32),
+                           bary_u=planes[2], bary_v=planes[3])
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = library().k5_vis_binned(
-        bins.table.data_ptr(), bins.starts.data_ptr(), bins.counts.data_ptr(), bins.g_base,
-        bins.g_count, bins.nx, bins.ny, width, height, *(x.data_ptr() for x in out), stream)
+        bins.table.data_ptr(), *(b.data_ptr() for b in bins.row_box), bins.starts.data_ptr(),
+        bins.counts.data_ptr(), plan.ends.data_ptr(), bins.nx * bins.ny, bins.nx,
+        bins.g_base, bins.g_count, plan.g_items, width, height, keys.data_ptr(),
+        *(x.data_ptr() for x in out), stream)
     if err != 0:
         raise RuntimeError(f"K5 launch failed: cudaError {err}")
     K5_LAUNCHES += 1
@@ -365,10 +405,12 @@ def _vis_terms(q, px, py):
     return l0, l1, l2, z, inside
 
 
-def vis_binned_plain(bins: Bins, width: int, height: int) -> VisibilityBuffer:
-    """K5's function in tensor ops: per pixel the triangle of least z <= 1,
-    the latest of the walk on a tie, with its perspective-correct
-    original-triangle barycentrics."""
+def vis_keys_plain(bins: Bins, width: int, height: int) -> torch.Tensor:
+    """K5's key plane in tensor ops: per pixel the least key
+    (float_order_key(z) << 32) | (0x7FFFFFFF - pos) over the rows inside it
+    with z <= 1, pos the row's place in its tile's walk (the global list,
+    then the segment): the least z, the latest row on a tie. (H*W,) int64,
+    INT64_MAX where no row is."""
     dev = bins.table.device
     g = bins.g_count
     key = torch.full((height * width,), INT64_MAX, dtype=torch.int64, device=dev)
@@ -381,7 +423,17 @@ def vis_binned_plain(bins: Bins, width: int, height: int) -> VisibilityBuffer:
         k = (float_order_key(z) << 32) | (0x7FFFFFFF - pos)
         key.scatter_reduce_(0, py * width + px,
                             torch.where(inside & (z <= 1.0), k, INT64_MAX), "amin")
+    return key
 
+
+def vis_decode_plain(bins: Bins, key: torch.Tensor, width: int,
+                     height: int) -> VisibilityBuffer:
+    """The visibility buffer of a key plane (`vis_keys_plain`): each covered
+    pixel's row, its depth and its perspective-correct original-triangle
+    barycentrics; (1, -1, 0, 0) elsewhere."""
+    dev = bins.table.device
+    g = bins.g_count
+    starts = bins.starts.to(torch.int64)
     pix = torch.nonzero(key != INT64_MAX).squeeze(1)
     pos = 0x7FFFFFFF - (key[pix] & 0xFFFFFFFF)
     py, px = pix // width, pix % width
@@ -399,6 +451,13 @@ def vis_binned_plain(bins: Bins, width: int, height: int) -> VisibilityBuffer:
     for plane, values in zip(out, (z, q[:, 22].to(torch.int32), u, v)):
         plane.view(-1)[pix] = values
     return out
+
+
+def vis_binned_plain(bins: Bins, width: int, height: int) -> VisibilityBuffer:
+    """K5's function in tensor ops: per pixel the triangle of least z <= 1,
+    the latest of the walk on a tie, with its perspective-correct
+    original-triangle barycentrics."""
+    return vis_decode_plain(bins, vis_keys_plain(bins, width, height), width, height)
 
 
 # -- drop-ins for ops/raster.py -----------------------------------------------

@@ -37,6 +37,10 @@ first use and bound with ctypes:
   another layout of the same tree, so their agreement is an independent
   check.
 
+K1's stats form (`traverse(..., phase_stats=True)`) counts its own walk per
+ray; it stands for the JAX row kernel's `phase_stats`, and
+`overflow_stats` is always None, since K1 never clamps.
+
 `K1_LAUNCHES` and `K1Q_LAUNCHES` count launches by query kind,
 `K2_LAUNCHES` and `K3_LAUNCHES` by variant (K3-lq "wide_lq", K3-multi
 "wide_multi"); nothing else changes them.
@@ -120,7 +124,7 @@ def nvcc_command() -> list[str]:
 _ARGTYPES = {
     # rays (4), tables, then ints, outputs, stream
     "k1_traverse_wide": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
-    + [ctypes.c_void_p] * 5,
+    + [ctypes.c_void_p] * 6,
     "k3_traverse_wide": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
     + [ctypes.c_void_p] * 6,
     "k1q_traverse_q32": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
@@ -133,9 +137,10 @@ _ARGTYPES = {
     + [ctypes.c_void_p] * 6,
     "k3_traverse_multi": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
     + [ctypes.c_void_p] * 5,
-    # rays (4), the seed rows, then ints, the verdicts, stream
+    # rays (4), the host triangle table, then ints, the verdicts, the walk's
+    # directions, stream
     "seed_occlusion": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-    + [ctypes.c_void_p] * 2,
+    + [ctypes.c_void_p] * 3,
 }
 
 
@@ -215,9 +220,15 @@ def _raise_on(err: int, kernel: str) -> None:
 
 
 def traverse_wide_cuda(wnode_packed, leaf_packed, wide_depth: int, o, d,
-                       t_min, t_max, any_hit: bool):
+                       t_min, t_max, any_hit: bool, stats: bool = False):
     """Launch K1 on (R,3) rays and (R,) limits, all contiguous float32 CUDA
-    tensors on one device. Returns (t, prim, u, v) of shape (R,)."""
+    tensors on one device. Returns (t, prim, u, v) of shape (R,); with
+    `stats`, K1's stats form, whose hits are the same, and a fifth (6, R)
+    int32 tensor: per ray the loop iterations (entries popped, row 0), the
+    entries expanded (row 1), the leaf rows tested (row 2), the pops
+    dropped because their entry lies beyond the best hit (row 3), the
+    child-box slab tests (row 4: non-empty slots of the expanded nodes) and
+    the triangle tests (row 5: live leaf slots reached)."""
     r, dev = _check_rays("K1", o, d, t_min, t_max)
     _check_wide_tables(wnode_packed, leaf_packed, dev)
     need = k1_stack_need(wide_depth)
@@ -229,16 +240,16 @@ def traverse_wide_cuda(wnode_packed, leaf_packed, wide_depth: int, o, d,
         if table.data_ptr() % 16:
             raise ValueError(f"K1 reads {name} with 16-byte loads: it must be 16-byte aligned")
     out = _hits(r, dev)
-    if r == 0:
-        return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = library("k1_traverse_wide").k1_traverse_wide(
-        o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
-        wnode_packed.data_ptr(), leaf_packed.data_ptr(), r, int(any_hit),
-        *(x.data_ptr() for x in out), stream)
-    _raise_on(err, "K1")
-    K1_LAUNCHES["any_hit" if any_hit else "closest"] += 1
-    return out
+    st = torch.empty((6, r), dtype=torch.int32, device=dev) if stats else None
+    if r:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = library("k1_traverse_wide").k1_traverse_wide(
+            o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
+            wnode_packed.data_ptr(), leaf_packed.data_ptr(), r, int(any_hit),
+            *(x.data_ptr() for x in out), st.data_ptr() if stats else None, stream)
+        _raise_on(err, "K1")
+        K1_LAUNCHES["any_hit" if any_hit else "closest"] += 1
+    return (*out, st) if stats else out
 
 
 def traverse_wide_k3_cuda(wnode_packed, leaf_packed, wide_depth: int, o, d,
@@ -600,13 +611,14 @@ def select_kernel(bvh, any_hit: bool = False, *, wide: bool = True,
 
 
 def _launch(kernel: str, bvh, o, d, tmin, tmax, any_hit: bool, steady_drain: int,
-            drain_first: bool, stats: bool, leaf_queue: int, m: int):
+            drain_first: bool, stats: bool, leaf_queue: int, m: int,
+            phase_stats: bool = False):
     """Launch `kernel` (a select_kernel name) on CUDA tensors; `m` is
-    K3-multi's rays per thread."""
+    K3-multi's rays per thread; `phase_stats` takes K1's stats form."""
     wide_args = (bvh.wnode_packed, bvh.leaf_packed, bvh.wide_depth, o, d, tmin, tmax,
                  any_hit)
     if kernel == "k1":
-        return traverse_wide_cuda(*wide_args)
+        return traverse_wide_cuda(*wide_args, stats=phase_stats)
     if kernel == "k1q":
         return traverse_q32_cuda(bvh.wnode_q32, bvh.wnode_meta32, bvh.q32_leaf_perm,
                                  bvh.leaf_packed, bvh.q32_depth, o, d, tmin, tmax,
@@ -630,7 +642,8 @@ def _launch(kernel: str, bvh, o, d, tmin, tmax, any_hit: bool, steady_drain: int
 def traverse(bvh, origin, direction, t_min=1e-3, t_max=1e4, any_hit: bool = False,
              *, wide: bool = True, ordered: bool = False, dual: bool = False,
              steady_drain: int = 3, drain_first: bool = False, row_cursors: int = 8,
-             q32: bool = False, stats: bool = False, leaf_queue: int = 0, multi: int = 1):
+             q32: bool = False, stats: bool = False, leaf_queue: int = 0, multi: int = 1,
+             overflow_stats: bool = False, phase_stats: bool = False):
     """Closest-hit (or any-hit) traversal of rays (..., 3) over `bvh`.
 
     t_min / t_max: floats or tensors broadcastable to the ray shape. The
@@ -645,7 +658,28 @@ def traverse(bvh, origin, direction, t_min=1e-3, t_max=1e4, any_hit: bool = Fals
     `traverse_lq_cuda`, `traverse_drain_cuda`). CPU tensors take the plain
     walk, whatever the options, and have no stats; CUDA tensors launch the
     selected kernel.
+
+    K1's two diagnostic outputs (the JAX row kernel's, which return a fifth
+    value that is None where another kernel ran) take no part in the
+    choice of kernel:
+    - `overflow_stats` is accepted for the JAX signature and otherwise
+      ignored: the fifth value is None (unless `stats` gives one). The JAX
+      kernel counts the pushes its fixed per-cursor stacks and queues
+      clamped; K1 never clamps, because `select_kernel` sends a tree its
+      stack cannot hold to K2.
+    - `phase_stats`: where K1 runs, the fifth value is K1's per-ray counts
+      of its own walk, (6, ...) int32 (`traverse_wide_cuda`): iterations,
+      entries expanded, leaf rows tested, pops culled by the best hit,
+      child-box slab tests and triangle tests. The JAX rows count TPU phases
+      per 1024-ray block (iterations, live drain and expand pops,
+      all-stacks-empty and all-queues-empty iterations), which have no
+      meaning on Hopper; its iterations are row 0 here. Elsewhere None.
+      The plain walk on CPU tensors has none, and raises as `stats` does.
+      It is not asked together with `stats`.
     """
+    if stats and phase_stats:
+        raise ValueError("traverse returns one diagnostic output at a time: ask for stats "
+                         "or phase_stats")
     shape = origin.shape[:-1]
     kernel = select_kernel(bvh, any_hit, wide=wide, ordered=ordered, dual=dual,
                            steady_drain=steady_drain, row_cursors=row_cursors,
@@ -656,17 +690,20 @@ def traverse(bvh, origin, direction, t_min=1e-3, t_max=1e4, any_hit: bool = Fals
     d = direction.reshape(-1, 3).to(torch.float32).contiguous()
     tmin, tmax = flat_limit(t_min, shape, dev), flat_limit(t_max, shape, dev)
     if dev.type == "cpu":
-        if stats:
+        if stats or phase_stats:
             raise ValueError("stats count a kernel's schedule; the plain walk on "
                              "CPU tensors has none")
         out = traverse_plain(bvh.node_packed, bvh.leaf_packed, o, d, tmin, tmax,
                              any_hit)
     elif dev.type == "cuda":
         out = _launch(kernel, bvh, o, d, tmin, tmax, any_hit, steady_drain,
-                      drain_first, stats, leaf_queue, multi_rays(shape, multi))
+                      drain_first, stats, leaf_queue, multi_rays(shape, multi),
+                      phase_stats=phase_stats and kernel == "k1")
     else:
         raise ValueError(f"no traversal for device {dev}")
     hits = tuple(x.reshape(shape) for x in out[:4])
-    if stats:
+    if stats or (phase_stats and len(out) > 4):
         return (*hits, out[4].reshape(-1, *shape))
+    if overflow_stats or phase_stats:
+        return (*hits, None)
     return hits

@@ -60,6 +60,11 @@ class StaticConfig:
     # "exact" integrates the atmosphere per miss ray (reference.rmiss);
     # "cubemap" samples the captured environment cubemap.
     sky_mode: str = "exact"
+    # FURNACE_TEST (reference.rmiss:13-28): every miss of the path tracer
+    # sees a constant white sky, whatever sky_enabled says: the
+    # energy-conservation diagnostic (a furnace-lit lambertian scene
+    # converges to its albedo). Static, like the reference's #ifdef.
+    furnace_test: bool = False
     # Rasterizer of CPU tensors (ops/raster.py): "auto" takes the brute
     # path as the JAX package does on its CPU, "binned" the plain versions
     # of K4 / K5. CUDA tensors always launch K4 / K5.

@@ -13,7 +13,8 @@ any-hit flags equal; so must every kernel `traverse` selects under the
 traversal options (K1q, K2, K3), each moving its own launch counter by one,
 and K3's binary skip walk must return the plain walk's t bit for bit;
 K3-multi must return K3 wide's hits bit for bit (each ray walks K3 wide's
-walk), and the seed kernel its plain version's verdicts. K1's near-first
+walk), and the seed kernel its plain version's verdicts and walk
+directions, bit for bit; K1's stats form its default form's hits. K1's near-first
 walk is also held to the plain walk on a soup of tied triangles and on
 the default scene's primary, bounce and NEE fronts. The
 PT frame must match the CPU's under the tolerance of
@@ -108,7 +109,9 @@ def _tie_soup(device, n=2000, seed=31):
 
 def _default_fronts(device, size=256, seed=5):
     """The default scene's primary front at size^2 and, from its hits, a
-    bounce front (random directions) and an NEE front (to the lights)."""
+    bounce front (random directions), an NEE front (to the lights) and a
+    sun front (one direction, which the seed test's rows block for most
+    rays)."""
     tree, o, d, t_min, t_max = _default_scene_primary(device, size)
     t, prim = traversal.traverse_plain(tree.node_packed, tree.leaf_packed, o, d, t_min, t_max,
                                        False)[:2]
@@ -122,8 +125,11 @@ def _default_fronts(device, size=256, seed=5):
     to_light = light - origin
     dist = to_light.norm(dim=1)
     nee = torch.where(hit, to_light / dist[:, None], 0.0).contiguous()
+    sun = torch.tensor([0.3, 0.5, -0.8], device=device)
+    sun = torch.where(hit, sun / sun.norm(), 0.0).contiguous()
     return tree, {"primary": (o, d, t_min, t_max), "bounce": (origin, bounce, t_min, t_max),
-                  "nee": (origin, nee, t_min, (dist * (1.0 - 1e-4)).contiguous())}
+                  "nee": (origin, nee, t_min, (dist * (1.0 - 1e-4)).contiguous()),
+                  "sun": (origin, sun, t_min, t_max)}
 
 
 @pytest.mark.cuda
@@ -391,13 +397,13 @@ def test_lq_multi_and_seed_wrappers_refuse_cpu_tensors_and_bad_options():
     tree = _soup_tree("cpu", n=50)
     o, d, t_min, t_max = _rays("cpu", 8)
     rays = (o, d, t_min, t_max, False)
-    rows = tree.leaf_packed[:4].contiguous()
+    tris = torch_bvh.seed_table(tree, 4)
     for call in (
             lambda: traversal.traverse_lq_cuda(tree.wnode_packed, tree.leaf_packed,
                                                tree.wide_depth, *rays, flush_k=4),
             lambda: traversal.traverse_multi_cuda(tree.wnode_packed, tree.leaf_packed,
                                                   tree.wide_depth, *rays, m=4),
-            lambda: torch_bvh.seed_occlusion_cuda(rows, o, d, t_min, t_max)):
+            lambda: torch_bvh.seed_occlusion_cuda(tris, o, d, t_min, t_max)):
         with pytest.raises(ValueError, match="CUDA"):
             call()
     assert traversal.lq_queue_need(49) == traversal.LQ_QUEUE_CAP
@@ -469,24 +475,114 @@ def test_multi_walks_k3_wide_bit_for_bit(cuda_device, any_hit):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("front", ["soup", "default_primary"])
+@pytest.mark.parametrize("front", ["soup", "default_primary", "default_nee", "default_sun"])
 def test_seed_kernel_matches_plain_on_card(cuda_device, front):
+    """The seed kernel's verdicts and walk directions equal its plain
+    version's (bit for bit), and every verdict is a true occlusion; on the
+    NEE front toward the lights the rows block no ray."""
     if front == "soup":
         tree = _soup_tree(cuda_device)
         o, d, t_min, t_max = _rays(cuda_device, 50000)
-    else:
+    elif front == "default_primary":
         tree, o, d, t_min, t_max = _default_scene_primary(cuda_device)
-    rows = tree.leaf_packed[torch.as_tensor(torch_bvh.seed_leaf_rows(tree, 4),
-                                            device=cuda_device)].contiguous()
+    else:
+        tree, fronts = _default_fronts(cuda_device)
+        o, d, t_min, t_max = fronts[front[len("default_"):]]
+    tris = torch_bvh.seed_table(tree, 4)
     before = torch_bvh.SEED_LAUNCHES
-    got = torch_bvh.seed_occlusion_cuda(rows, o, d, t_min, t_max)
+    got, walk_d = torch_bvh.seed_occlusion_cuda(tris, o, d, t_min, t_max)
     assert torch_bvh.SEED_LAUNCHES == before + 1
-    want = torch_bvh.seed_occlusion_plain(rows, o, d, t_min, t_max)
+    want, want_d = torch_bvh.seed_occlusion_plain(tris, o, d, t_min, t_max)
     assert torch.equal(got, want)
+    assert torch.equal(walk_d.view(torch.int32), want_d.view(torch.int32))
     occluded = traversal.traverse_plain(tree.node_packed, tree.leaf_packed, o, d, t_min,
                                         t_max, True)[1] >= 0
     assert not bool((got & ~occluded).any())
-    assert int(got.sum()) > 0
+    assert (int(got.sum()) == 0) == (front == "default_nee")
+
+
+@pytest.mark.cuda
+def test_seed_kernel_takes_every_table_size(cuda_device):
+    """Tables of 1 to 250 triangles (the leaf table's first live
+    triangles), within one launch's SEED_LAUNCH_TRIS and across several,
+    rays finishing at every step: verdicts and walk directions equal the
+    plain version's; a table on the card or with no triangle is
+    refused."""
+    tree = _soup_tree(cuda_device)
+    o, d, t_min, t_max = _rays(cuda_device, 20000)
+    lp = tree.leaf_packed.cpu().numpy()
+    slots = np.nonzero(lp[:, 108:].view(np.int32) >= 0)
+    geo = lp[:, :108].reshape(-1, 12, 9)[slots][:250]
+    full = torch.from_numpy(np.ascontiguousarray(geo.T))
+    assert full.shape == (9, 250)
+    per = torch_bvh.SEED_LAUNCH_TRIS
+    for n in (1, 2, 31, 33, 48, per - 1, per, per + 1, 2 * per, 2 * per + 1, 250):
+        tris = full[:, :n].contiguous()
+        got = torch_bvh.seed_occlusion_cuda(tris, o, d, t_min, t_max)
+        want = torch_bvh.seed_occlusion_plain(tris, o, d, t_min, t_max)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1].view(torch.int32), want[1].view(torch.int32))
+    assert int(want[0].sum()) > int(torch_bvh.seed_occlusion_plain(
+        full[:, :per].contiguous(), o, d, t_min, t_max)[0].sum())
+    with pytest.raises(ValueError, match="at least one"):
+        torch_bvh.seed_occlusion_cuda(full[:, :0].contiguous(), o, d, t_min, t_max)
+    with pytest.raises(ValueError, match="seed table"):
+        torch_bvh.seed_occlusion_cuda(full.to(cuda_device), o, d, t_min, t_max)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [12, 40])
+@pytest.mark.parametrize("front", ["primary", "nee"])
+def test_seed_test_reaches_any_k_on_card(cuda_device, front, k):
+    """`make_seed_test` at 12 and 40 rows on the default scene's fronts (96
+    and several launches' worth of triangles): the card's verdicts and
+    walk directions are the plain version's, in one launch count."""
+    tree, fronts = _default_fronts(cuda_device)
+    o, d, t_min, t_max = fronts[front]
+    tris = torch_bvh.seed_table(tree, k)
+    assert tris.shape[1] >= torch_bvh.SEED_LAUNCH_TRIS
+    before = torch_bvh.SEED_LAUNCHES
+    got, walk_d = torch_bvh.make_seed_test(tree, k)(o, d, t_min, t_max)
+    assert torch_bvh.SEED_LAUNCHES == before + 1
+    want, want_d = torch_bvh.seed_occlusion_plain(tris, o, d, t_min, t_max)
+    assert torch.equal(got, want)
+    assert torch.equal(walk_d.view(torch.int32), want_d.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+@pytest.mark.parametrize("front", ["primary", "bounce", "nee"])
+def test_k1_phase_stats_count_its_walk(cuda_device, front, any_hit):
+    """K1's stats form returns the default form's hits bit for bit and
+    counts its own walk: per ray, iterations = entries expanded + pops
+    culled, slab tests between one and 16 per entry expanded, triangle
+    tests at most 12 per leaf row tested; for closest hits, no more
+    triangle tests than K3 wide's walk of the same front, which tests
+    every leaf it pops, without K1's near-first order and re-check."""
+    tree, fronts = _default_fronts(cuda_device)
+    o, d, t_min, t_max = fronts[front]
+    want = traversal.traverse(tree, o, d, t_min, t_max, any_hit=any_hit)
+    before = traversal.K1_LAUNCHES["any_hit" if any_hit else "closest"]
+    got = traversal.traverse(tree, o, d, t_min, t_max, any_hit=any_hit, phase_stats=True)
+    assert traversal.K1_LAUNCHES["any_hit" if any_hit else "closest"] == before + 1
+    for a, b in zip(got[:4], want):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert tuple(got[4].shape) == (6, o.shape[0])
+    iters, expanded, leaves, culled, boxes, tris = got[4].long()
+    assert torch.equal(iters, expanded + culled)
+    assert bool((boxes >= expanded).all()) and bool((boxes <= 16 * expanded).all())
+    assert bool((tris <= 12 * leaves).all()) and bool((tris >= leaves).all())
+    if any_hit:
+        assert int(culled.sum()) == 0
+    live = (d * d).sum(dim=1) > 0
+    assert bool((iters[live] >= 1).all()) and int(iters[~live].sum()) == 0
+    if not any_hit:
+        k3 = traversal.traverse(tree, o, d, t_min, t_max, row_cursors=0, steady_drain=0,
+                                stats=True)[4].long()
+        assert int(tris.sum()) <= int(k3[3].sum())
+    assert traversal.traverse(tree, o, d, t_min, t_max, overflow_stats=True)[4] is None
+    assert traversal.traverse(tree, o, d, t_min, t_max, row_cursors=0, phase_stats=True)[4] \
+        is None
 
 
 def _raster_bins(device, vis, n=20000, width=1920, height=1080, seed=21):
@@ -510,13 +606,15 @@ def test_k45_wrappers_refuse_cpu_tensors_and_oversized_grids():
         raster_binned.depth_binned_cuda(bins, w, h)
     with pytest.raises(ValueError, match="another image size"):
         raster_binned.depth_binned_cuda(bins, w + 256, h)
-    tall = raster_binned.MAX_TILES_Y + 1
-    # K4's grid is persistent: its limit is the int32 numbering of its items.
+    tall = 65536
+    # K4's and K5's grids are persistent: their limit is the int32 numbering
+    # of their items.
     with pytest.raises(ValueError, match="work items"):
         raster_binned.depth_binned_cuda(bins._replace(ny=tall, g_count=1 << 24), w, tall * 32)
     vis_bins, _, _ = _raster_bins("cpu", vis=True, n=50, width=300, height=70)
-    with pytest.raises(ValueError, match="grid limit"):
-        raster_binned.vis_binned_cuda(vis_bins._replace(ny=tall), w, tall * 32)
+    with pytest.raises(ValueError, match="work items"):
+        raster_binned.vis_binned_cuda(vis_bins._replace(ny=tall, g_count=1 << 24), w,
+                                      tall * 32)
     with pytest.raises(ValueError, match="rows of 24"):
         raster_binned.vis_binned_cuda(bins, w, h)
     with pytest.raises(ValueError, match="CUDA"):
@@ -565,14 +663,67 @@ def test_k4_spreads_a_crowded_tile_over_items_bit_for_bit(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("vis", [False, True])
+def test_plan_kernel_matches_plain_on_card(cuda_device, vis):
+    """The plan K4 and K5 launch with (`depth_plan` on CUDA bins: the plan
+    kernel) is its plain version's, item counter included, on the soup
+    and on a crowd whose tiles need several items each; more tiles than
+    the kernel's block takes in one pass."""
+    bins, _, _ = _raster_bins(cuda_device, vis=vis)
+    crowd, _, _ = _raster_bins(cuda_device, vis=vis, width=256, height=64)
+    wide, _, _ = _raster_bins(cuda_device, vis=vis, n=200000, width=8192, height=8192)
+    assert int(crowd.counts.min()) > 2 * raster_binned.K4_ITEM_ROWS
+    assert wide.nx * wide.ny > 1024
+    for b in (bins, crowd, wide):
+        got, want = raster_binned.depth_plan(b), raster_binned.depth_plan_plain(b)
+        assert got.g_items == want.g_items
+        assert torch.equal(got.ends, want.ends)
+
+
+def _assert_vis_equal(got, want):
+    """K5 against its plain version: triangle ids bit-equal, depth and
+    barycentrics within 1e-5 (chip_smoke.py's VIS_ATOL; both compute them
+    in one operation order from the same winning row)."""
+    assert torch.equal(got.tri, want.tri)
+    for a, b in zip((got.depth, got.bary_u, got.bary_v), (want.depth, want.bary_u, want.bary_v)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
 def test_k5_matches_plain_on_card(cuda_device):
     bins, w, h = _raster_bins(cuda_device, vis=True)
     got = raster_binned.vis_binned_cuda(bins, w, h)
     want = raster_binned.vis_binned_plain(bins, w, h)
-    assert torch.equal(got.tri, want.tri)
     assert (want.tri >= 0).float().mean() > 0.5
-    for a, b in zip((got.depth, got.bary_u, got.bary_v), (want.depth, want.bary_u, want.bary_v)):
-        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    _assert_vis_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_k5_spreads_a_crowded_tile_and_keeps_the_last_of_ties(cuda_device):
+    """K5 on a crowded tile cut into several items, under a global list of
+    large triangles, with every triangle drawn twice (the later copy wins
+    its tie): its plain version's buffer, ids bit for bit, whatever order
+    the items run in."""
+    width, height, n = 1024, 256, 6000
+    rng = np.random.default_rng(29)
+    centers = np.stack([rng.normal(0.0, 0.08, n), rng.normal(0.0, 0.12, n),
+                        rng.uniform(-0.5, 0.5, n)], 1)
+    tris = centers[:, None] + rng.normal(0, 0.01, (n, 3, 3))
+    big = rng.uniform(-6, 6, (6, 3, 3)) * [1, 1, 0.05]
+    tris = np.concatenate([tris, big])
+    v = np.concatenate([tris, tris]).reshape(-1, 3).astype(np.float32)
+    clip = np.stack([v[:, 0], v[:, 1], 0.5 + 0.4 * v[:, 2], np.ones(len(v))], -1)
+    clip = torch.tensor(clip, dtype=torch.float32, device=cuda_device)
+    idx = torch.arange(len(v), dtype=torch.int32, device=cuda_device).reshape(-1, 3)
+    bins = raster_binned.bin_triangles(
+        raster_binned.tri_rows(clip, idx, width, height, vis=True), width, height)
+    assert bins.g_count >= 2
+    assert int(bins.counts.max()) > 2 * raster_binned.K4_ITEM_ROWS
+    want = raster_binned.vis_binned_plain(bins, width, height)
+    assert (want.tri >= 0).float().mean() > 0.3
+    assert int((want.tri >= len(v) // 6).sum()) > 0  # later copies won ties
+    for _ in range(3):
+        _assert_vis_equal(raster_binned.vis_binned_cuda(bins, width, height), want)
 
 
 @pytest.mark.cuda

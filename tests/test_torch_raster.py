@@ -14,9 +14,9 @@ meets them):
   sort does not promise stability) with barycentrics within 2e-3;
 - the brute path names the same triangle on every pixel, with depth and
   barycentrics within 1e-5;
-- K4's work plan covers every (tile, row) pair once, its row boxes are the
-  plain version's, and folding its items gives the plain version's depth
-  bit for bit.
+- K4's work plan covers every (tile, row) pair once, the boxes its items
+  test rows on are the plain version's, and folding its items gives the
+  plain version's depth bit for bit; K5's the same over visibility bins.
 """
 
 import functools
@@ -146,28 +146,38 @@ def test_k4_plan_covers_every_tile_row_pair_once(case, item_rows, monkeypatch):
         assert int((rows == item_rows).sum()) > 0  # some tile needs several items
 
 
+def _item_boxes(bins, tile, rows):
+    """The boxes the kernels test rows `rows` of an item of `tile` on:
+    Bins.row_box clipped to the tile (raster_binned.cu::tile_box)."""
+    tx0, ty0 = (tile % bins.nx) * raster_binned.TILE_W, (tile // bins.nx) * raster_binned.TILE_H
+    x0, x1, y0, y1 = (b[rows] for b in bins.row_box)
+    return (x0.clamp_min(tx0), x1.clamp_max(tx0 + raster_binned.TILE_W - 1),
+            y0.clamp_min(ty0), y1.clamp_max(ty0 + raster_binned.TILE_H - 1))
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_k4_boxes_are_the_plain_versions_pixel_boxes(case):
-    """K4's int32 row boxes are the boxes whose pixels the plain version
-    enumerates (`_row_pixel_pairs`: the triangle's box widened by one pixel,
-    a segment row's clipped to its tile)."""
+    """The (row, pixel) pairs K4's items test, each row on Bins.row_box
+    clipped to the item's tile, are the pairs the plain version enumerates
+    (`_row_pixel_pairs`: the triangle's box widened by one pixel, a segment
+    row's clipped to its tile), each once."""
     bins = _bins(case)
-    boxes = raster_binned.depth_plan(bins).boxes
-    assert boxes.dtype == torch.int32 and boxes.shape == (bins.table.shape[0], 4)
-    row, px, py = (torch.cat(x) for x in zip(*raster_binned._row_pixel_pairs(bins, W, H)))
-    n = bins.table.shape[0]
-    got = torch.stack([
-        torch.full((n,), 1 << 30).scatter_reduce(0, row, px, "amin"),
-        torch.full((n,), -1).scatter_reduce(0, row, px, "amax"),
-        torch.full((n,), 1 << 30).scatter_reduce(0, row, py, "amin"),
-        torch.full((n,), -1).scatter_reduce(0, row, py, "amax")], 1)
-    live = (boxes[:, 1] >= boxes[:, 0]) & (boxes[:, 3] >= boxes[:, 2])
-    assert torch.equal(torch.unique(row), torch.nonzero(live).squeeze(1))
-    assert torch.equal(got[live], boxes[live].long())
-    tx, ty = bins.row_tile % bins.nx, bins.row_tile // bins.nx
-    seg = live & (bins.row_tile >= 0)
-    assert bool((boxes[seg, 0] >= tx[seg] * raster_binned.TILE_W).all())
-    assert bool((boxes[seg, 3] < (ty[seg] + 1) * raster_binned.TILE_H).all())
+    n_pix = W * H
+
+    def pairs(chunks):
+        return torch.cat([r * n_pix + py * W + px for r, px, py in chunks])
+
+    want = pairs(raster_binned._row_pixel_pairs(bins, W, H))
+    got = []
+    items = raster_binned.depth_plan_items(bins, raster_binned.depth_plan(bins))
+    for t, f, n in zip(*(x.tolist() for x in items)):
+        rows = torch.arange(f, f + n)
+        got += [(rows[j], px, py)
+                for j, px, py in raster.pixel_pairs(*_item_boxes(bins, t, rows), 1 << 20)]
+    got = pairs(got)
+    assert want.numel() > 0
+    assert torch.equal(torch.sort(got).values, torch.sort(want).values)
+    assert torch.unique(got).numel() == got.numel()
 
 
 def _fold_plan(bins, plan, width, height):
@@ -176,12 +186,8 @@ def _fold_plan(bins, plan, width, height):
     arithmetic, folded by a minimum onto a clear of 1.0."""
     out = torch.ones(height * width)
     for t, f, n in zip(*(x.tolist() for x in raster_binned.depth_plan_items(bins, plan))):
-        tx0, ty0 = (t % bins.nx) * raster_binned.TILE_W, (t // bins.nx) * raster_binned.TILE_H
         rows = torch.arange(f, f + n)
-        b = plan.boxes[rows].long()
-        box = (b[:, 0].clamp_min(tx0), b[:, 1].clamp_max(tx0 + raster_binned.TILE_W - 1),
-               b[:, 2].clamp_min(ty0), b[:, 3].clamp_max(ty0 + raster_binned.TILE_H - 1))
-        for j, px, py in raster.pixel_pairs(*box, 1 << 20):
+        for j, px, py in raster.pixel_pairs(*_item_boxes(bins, t, rows), 1 << 20):
             q = bins.table[rows[j]]
             e0, e1, e2, inside = raster_binned._edges(q, px, py)
             z = (e1 * q[:, 9] + e2 * q[:, 10] + e0 * q[:, 11]) * q[:, 12]
@@ -206,6 +212,81 @@ def test_k4_plan_fold_matches_plain_and_jax(case, item_rows, monkeypatch):
     got = _fold_plan(bins, raster_binned.depth_plan(bins), W, H)
     assert torch.equal(got, raster_binned.depth_binned_plain(bins, W, H))
     _assert_depth_close(got.numpy(), _jax_depth(case))
+
+
+def _vis_bins(case, copies=1):
+    """Visibility bins of CASES[case]; with copies=2 every triangle is drawn
+    twice, so each covered pixel has an exact depth tie."""
+    verts, idx, persp = CASES[case]()
+    verts = np.concatenate([verts] * copies)
+    idx = np.concatenate([idx + k * len(idx) * 3 for k in range(copies)]).astype(np.int32)
+    tc, ti = torch.tensor(_clip(verts, persp)), torch.tensor(idx)
+    return raster_binned.bin_triangles(raster_binned.tri_rows(tc, ti, W, H, vis=True), W, H)
+
+
+@pytest.mark.parametrize("item_rows", ITEM_ROWS)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_k5_plan_covers_every_tile_row_pair_once(case, item_rows, monkeypatch):
+    """K5 takes K4's plan over the visibility bins: each tile's global rows
+    and segment rows lie in exactly one item of that tile, and no item holds
+    more than K4_ITEM_ROWS rows."""
+    monkeypatch.setattr(raster_binned, "K4_ITEM_ROWS", item_rows)
+    bins = _vis_bins(case)
+    assert bins.table.shape[1] == raster_binned.VIS_STRIDE
+    tile, first, rows = raster_binned.depth_plan_items(bins, raster_binned.depth_plan(bins))
+    assert int(rows.min()) >= 1 and int(rows.max()) <= item_rows
+    got = [(t, r) for t, f, n in zip(tile.tolist(), first.tolist(), rows.tolist())
+           for r in range(f, f + n)]
+    want = []
+    for t in range(bins.nx * bins.ny):
+        s, c = int(bins.starts[t]), int(bins.counts[t])
+        want += [(t, r) for r in [*range(bins.g_base, bins.g_base + bins.g_count),
+                                  *range(s, s + c)]]
+    assert sorted(got) == sorted(want)
+    assert len(set(got)) == len(got)
+
+
+def _fold_vis_plan(bins, plan, width, height):
+    """K5's key pass computed item by item as the kernel walks it: each row
+    of an item on its box clipped to the item's tile, its walk position
+    from the item's place (global items first, then the segment's), the
+    key's minimum taken per item and then over the items."""
+    out = torch.full((height * width,), raster.INT64_MAX, dtype=torch.int64)
+    for t, f, n in zip(*(x.tolist() for x in raster_binned.depth_plan_items(bins, plan))):
+        rows = torch.arange(f, f + n)
+        pos = torch.where(rows >= bins.g_base, rows - bins.g_base,
+                          bins.g_count + rows - int(bins.starts[t]))
+        item = torch.full_like(out, raster.INT64_MAX)
+        for j, px, py in raster.pixel_pairs(*_item_boxes(bins, t, rows), 1 << 20):
+            _, _, _, z, inside = raster_binned._vis_terms(bins.table[rows[j]], px, py)
+            k = (raster.float_order_key(z) << 32) | (0x7FFFFFFF - pos[j])
+            item.scatter_reduce_(0, py * width + px,
+                                 torch.where(inside & (z <= 1.0), k, raster.INT64_MAX), "amin")
+        out = torch.minimum(out, item)
+    return out
+
+
+@pytest.mark.parametrize("copies", [1, 2])
+@pytest.mark.parametrize("item_rows", ITEM_ROWS)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_k5_plan_fold_matches_plain(case, item_rows, copies, monkeypatch):
+    """Folding the plan's items gives the plain version's key plane bit for
+    bit, also where every pixel has a depth tie (the later copy's key wins),
+    and its decode is the plain version's buffer."""
+    monkeypatch.setattr(raster_binned, "K4_ITEM_ROWS", item_rows)
+    bins = _vis_bins(case, copies)
+    got = _fold_vis_plan(bins, raster_binned.depth_plan(bins), W, H)
+    want = raster_binned.vis_keys_plain(bins, W, H)
+    assert torch.equal(got, want)
+    assert int((want != raster.INT64_MAX).sum()) > 0.2 * W * H
+    vis = raster_binned.vis_decode_plain(bins, got, W, H)
+    plain = raster_binned.vis_binned_plain(bins, W, H)
+    for a, b in zip(vis, plain):
+        assert torch.equal(a, b)
+    if copies == 2:  # the later copy of each triangle wins its tie
+        n = bins.table[:, 22].max().item() + 1
+        covered = plain.tri >= 0
+        assert bool((plain.tri[covered] >= n // 2).all())
 
 
 def _assert_vis_close(got, want, same_share=0.98):

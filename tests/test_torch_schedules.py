@@ -336,7 +336,7 @@ def test_seed_test_matches_jax(case, seed_cases):
     jax_tree, tree, o, d = seed_cases[case]
     jax_seed = jax_bvh.make_seed_test(jax_tree, 4)
     want_tris = _jax_seed_tris(jax_seed)
-    rows = torch_bvh.seed_leaf_rows(tree, 4)
+    rows = tree.leaf_area_order[:4]
     lp = tree.leaf_packed.numpy()
     ids = lp[:, 9 * 12:].view(np.int32)
     got_tris = [(lp[r, 9 * s:9 * s + 9], int(ids[r, s])) for r in rows for s in range(12)
@@ -347,13 +347,65 @@ def test_seed_test_matches_jax(case, seed_cases):
         np.testing.assert_array_equal(geo, np.asarray(v0 + e1 + e2, np.float32))
     t_max = np.random.default_rng(7).uniform(1, 30, o.shape[0]).astype(np.float32)
     want = np.asarray(jax_seed(jnp.asarray(o), jnp.asarray(d), 1e-3, jnp.asarray(t_max)))
+    np.testing.assert_array_equal(
+        torch_bvh.seed_table(tree, 4).numpy().T,
+        np.asarray([v0 + e1 + e2 for v0, e1, e2, _ in want_tris], np.float32))
     got = torch_bvh.make_seed_test(tree, 4)(torch.tensor(o), torch.tensor(d), 1e-3,
-                                            torch.tensor(t_max)).numpy()
+                                            torch.tensor(t_max))[0].numpy()
     np.testing.assert_array_equal(got, want)
     occluded = traversal.traverse(tree, torch.tensor(o), torch.tensor(d), 1e-3,
                                   torch.tensor(t_max), any_hit=True)[1].numpy() >= 0
     assert got.any()
     assert not (got & ~occluded).any()
+
+
+@pytest.mark.parametrize("case", ["soup", "default"])
+def test_seed_walk_direction_is_the_jax_rewrite(case, seed_cases):
+    """The seed test's fused output: the direction the walk takes is the
+    JAX package's `make_any_hit` rewrite (zero where seeded, the ray's own
+    direction elsewhere, bit for bit), beside verdicts equal to JAX's; rays
+    with a zero direction among them."""
+    jax_tree, tree, o, d = seed_cases[case]
+    d = d.copy()
+    d[::37] = 0.0
+    t_max = np.random.default_rng(9).uniform(1, 30, o.shape[0]).astype(np.float32)
+    want = jax_bvh.make_seed_test(jax_tree, 4)(jnp.asarray(o), jnp.asarray(d), 1e-3,
+                                              jnp.asarray(t_max))
+    want_d = np.asarray(jnp.where(want[..., None], 0.0, jnp.asarray(d)))
+    occ, walk_d = torch_bvh.seed_occlusion_plain(
+        torch_bvh.seed_table(tree, 4), torch.tensor(o), torch.tensor(d),
+        torch.full((o.shape[0],), 1e-3), torch.tensor(t_max))
+    np.testing.assert_array_equal(occ.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(walk_d.numpy().view(np.int32), want_d.view(np.int32))
+    assert occ.any() and not occ.all()
+    assert not occ.numpy()[::37].any()
+
+
+@pytest.mark.parametrize("k", [12, 40])
+def test_seed_test_reaches_any_k(k, seed_cases):
+    """The seed test takes any number of rows, as the JAX package's does:
+    at and past the 96 triangles one launch of the seed kernel holds (12
+    rows here give 96, 40 rows several launches' worth), its table
+    is the JAX seed test's triangles and its verdicts are the JAX
+    verdicts. A tree whose seed rows hold no triangle has no seed test."""
+    jax_tree, tree, o, d = seed_cases["default"]
+    jax_seed = jax_bvh.make_seed_test(jax_tree, k)
+    want_tris = _jax_seed_tris(jax_seed)
+    tris = torch_bvh.seed_table(tree, k)
+    assert tris.shape[1] == len(want_tris) >= torch_bvh.SEED_LAUNCH_TRIS
+    np.testing.assert_array_equal(
+        tris.numpy().T, np.asarray([v0 + e1 + e2 for v0, e1, e2, _ in want_tris], np.float32))
+    t_max = np.random.default_rng(11).uniform(1, 30, o.shape[0]).astype(np.float32)
+    want = np.asarray(jax_seed(jnp.asarray(o), jnp.asarray(d), 1e-3, jnp.asarray(t_max)))
+    got = torch_bvh.make_seed_test(tree, k)(torch.tensor(o), torch.tensor(d), 1e-3,
+                                            torch.tensor(t_max))[0].numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got.any()
+    empty = tree._replace(seed_rows=np.concatenate(
+        [tree.seed_rows[:, :108], np.full((tree.seed_rows.shape[0], 12), -1,
+                                          np.int32).view(np.float32)], 1))
+    assert torch_bvh.seed_table(empty, k) is None
+    assert torch_bvh.make_seed_test(empty, k) is None
 
 
 @pytest.mark.parametrize("compact_window", [0, 2])
@@ -368,8 +420,31 @@ def test_seeded_any_hit_is_the_plain_any_hit(compact_window, seed_cases):
     got = torch_bvh.make_any_hit(tree, seed_rows=4, compact_window=compact_window)(
         scene, o, d)
     assert torch.equal(got, want)
-    assert bool(torch_bvh.make_seed_test(tree, 4)(o, d, 1e-3, 1e4).any())
+    assert bool(torch_bvh.make_seed_test(tree, 4)(o, d, 1e-3, 1e4)[0].any())
     assert torch_bvh.make_seed_test(tree, 0) is None
+
+
+# -- K1's diagnostic outputs -------------------------------------------------------
+
+
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_k1_diagnostic_outputs_on_cpu_tensors(any_hit):
+    """traverse's K1 diagnostics (the JAX row kernel's `overflow_stats` and
+    `phase_stats`) on CPU tensors: phase_stats raises, as stats does (the
+    plain walk has no schedule to count); overflow_stats returns the plain
+    walk's hits and a fifth value None (K1 never clamps); stats and
+    phase_stats at once raise."""
+    pos, idx = _soup(200, 3)
+    tree = torch_bvh.build_bvh(pos, idx, "cpu")
+    o, d = (torch.tensor(x) for x in _rays(256, 4))
+    with pytest.raises(ValueError, match="stats"):
+        traversal.traverse(tree, o, d, any_hit=any_hit, phase_stats=True)
+    got = traversal.traverse(tree, o, d, any_hit=any_hit, overflow_stats=True)
+    assert len(got) == 5 and got[4] is None
+    for a, b in zip(got[:4], traversal.traverse(tree, o, d, any_hit=any_hit)):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="one diagnostic"):
+        traversal.traverse(tree, o, d, any_hit=any_hit, stats=True, phase_stats=True)
 
 
 # -- the PT frame -----------------------------------------------------------------

@@ -119,3 +119,75 @@ def test_path_trace_matches_jax_on_shared_inputs():
     assert diff.mean() <= 1e-3
     np.testing.assert_allclose(got.accumulation.numpy().mean(),
                                np.asarray(want.accumulation).mean(), rtol=1e-3)
+
+
+def _sphere_scene(package):
+    """The four spheres of the JAX package's RTIOW scene (diffuse ground and
+    centre, glass, metal), built through `package`'s own Renderer.add_sphere
+    (the port has no `create_rtiow_scene` yet), with its camera."""
+    renderer = package.Renderer()
+    camera = package.Camera([0, 1, 4], [0, 0.5, -1], fov_degrees=60.0, aspect_ratio=1.0)
+    material, kind = package.scene.Material, package.scene.MaterialType
+    for center, radius, m in (
+            ([0.0, -100.5, -1.0], 100.0,
+             material(base_color_factor=np.array([0.5, 0.5, 0.5, 1.0], np.float32),
+                      material_type=kind.LAMBERTIAN)),
+            ([0.0, 0.5, -1.0], 0.5,
+             material(base_color_factor=np.array([0.1, 0.2, 0.5, 1.0], np.float32),
+                      material_type=kind.LAMBERTIAN)),
+            ([-1.1, 0.5, -1.0], 0.5,
+             material(material_type=kind.DIELECTRIC, material_property=1.5)),
+            ([1.1, 0.5, -1.0], 0.5, material(material_type=kind.METAL, material_property=0.0))):
+        renderer.add_sphere(center, radius, material=m)
+    return renderer, camera
+
+
+def test_furnace_test_matches_jax():
+    """StaticConfig(furnace_test=True): every miss sees a white sky, even
+    with sky_enabled=0, in both packages (tests/test_debug_tools.py's case:
+    32x32, two bounces, no sun or lights). The port's frame against the JAX
+    package's, furnace on and off, under this file's tolerance; with it on,
+    the top row (the sky) is 1.0 to 1e-5 in both, and off it is black."""
+    import rust_renderer_tpu as jax_rt
+    from rust_renderer_tpu.ops import pathtrace as jax_pathtrace
+    from rust_renderer_tpu.settings import RenderSettings as JaxRenderSettings
+
+    import rust_renderer_tpu_torch as torch_rt
+    import rust_renderer_tpu_torch.scene  # noqa: F401  (package.scene above)
+    from rust_renderer_tpu_torch.convert import view_from_numpy
+    from rust_renderer_tpu_torch.ops import bvh as torch_bvh
+    from rust_renderer_tpu_torch.ops import pathtrace
+
+    size = 32
+    jax_renderer, jax_camera = _sphere_scene(jax_rt)
+    jax_scene = jax_renderer.pack()
+    jax_tree = jax_bvh.build_bvh(np.asarray(jax_scene.positions),
+                                 np.asarray(jax_scene.indices), leaf_size=12)
+    renderer, _ = _sphere_scene(torch_rt)
+    scene = renderer.pack("cpu")
+    tree = torch_bvh.build_bvh(scene.positions.numpy(), scene.indices.numpy(), "cpu")
+    np.testing.assert_array_equal(scene.sphere_center.numpy(),
+                                  np.asarray(jax_scene.sphere_center))
+    view = JaxRenderSettings.default(num_lights=0).with_camera(jax_camera, size, size).replace(
+        total_samples=np.uint32(1), time=np.float32(TIME), sky_enabled=np.int32(0),
+        sun_shadow_enabled=np.int32(0), lights_enabled=np.int32(0))
+    accumulation = np.zeros((size, size, 3), np.float32)
+    for furnace in (True, False):
+        want = jax_pathtrace.path_trace(
+            jax_scene, view,
+            JaxStaticConfig(width=size, height=size, num_bounces=2, furnace_test=furnace),
+            accumulation, closest_hit=jax_bvh.make_closest_hit(jax_tree),
+            any_hit=jax_bvh.make_any_hit(jax_tree))
+        got = pathtrace.path_trace(
+            scene, view_from_numpy(vars(view), "cpu"),
+            StaticConfig(width=size, height=size, num_bounces=2, furnace_test=furnace),
+            torch.tensor(accumulation), None, torch_bvh.make_closest_hit(tree),
+            torch_bvh.make_any_hit(tree))
+        img, ref = got.output.numpy(), np.asarray(want.output)
+        assert float(got.rays_traced) == float(want.rays_traced)
+        diff = np.abs(img - ref)
+        assert (diff.max(axis=-1) <= 1e-3).mean() >= 0.99
+        assert diff.mean() <= 1e-3
+        sky = 1.0 if furnace else 0.0
+        np.testing.assert_allclose(ref[0], sky, atol=1e-5)
+        np.testing.assert_allclose(img[0], sky, atol=1e-5)
