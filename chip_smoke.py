@@ -19,56 +19,74 @@ one nvcc per source, started together; then:
    frame times;
 3. K1 against its plain PyTorch version on the card, on the fronts the PT
    path gives it at 1920x1080, with times;
-4. PT parity: one 128x128 scene at the defaults on the CPU (plain versions)
+4. PT device loop (`Application.run_on_device`, `Graph.render_loop`): two
+   apps of the default scene from one starting state, 4 host frames
+   against run_on_device(4) (frame 1 eagerly, the capture into a CUDA
+   graph, 3 replays), then 4 more of each (pure replay): the form
+   "captured" with one capture, accumulation, reservoirs, pt_rays and the
+   image bit-equal (or within 1e-6, printed), the launch counters (the
+   first call moves two frames' worth: frame 1 and the capture's
+   recording; a replay none), ms per frame of each loop and the device's
+   busy share of one torch.profiler window of each;
+5. PT parity: one 128x128 scene at the defaults on the CPU (plain versions)
    and on the card;
-5. Sponza-scale PT main path: the 260k-triangle scene with the bench's
+6. Sponza-scale PT main path: the 260k-triangle scene with the bench's
    settings (cubemap sky, 5 bounces, 1 spp), 4 frames at 1920x1080 at the
    defaults, then the turns of phase 2; scene and BVH build times (the
-   q32 collapse included), launch counts;
-6. traversal variants: on the primary, bounce and any-hit fronts of both
+   q32 collapse included), launch counts; then its device loop as phase 4;
+7. traversal variants: on the primary, bounce and any-hit fronts of both
    scenes at 1920x1080, `traverse(...)` under every kernel option set (K3-lq
    at flush_k 4 and 8, K3-multi at m 2, 4 and 8 among them): each launch
    moves the counter of the kernel that `select_kernel` names, each result
    is held against the plain walk (K3-multi also against K3 wide, bit for
    bit), each option set is timed beside K1 on the same front; a table of
    K1 beside K3 wide and K3 wide ordered on the six fronts;
-7. K1's bounds: K1's stats form (`traverse(..., phase_stats=True)`) counts
+8. K1's bounds: K1's stats form (`traverse(..., phase_stats=True)`) counts
    the child-box slab tests and triangle tests of K1's own walk on each
    front, K3's stats those of K3 wide's walk (the yardstick of the other
    kernels); a bound is the larger of operations over 33.5e12 unfused f32
    operations/s and bytes over 3.35 TB/s. K2's leaf-queue depth per ray on
    each front, with the queue uncapped and at K2_QUEUE_CAP, and its scratch
    bytes per launch;
-8. compaction: on the same fronts, `traverse_compacted` around K1 at the
+9. compaction: on the same fronts, `traverse_compacted` around K1 at the
    frame's two window requests (45 / 81 blocks on a 1080p front, 54 / 90 on
    the doubled any-hit front), "live" and "morton" orders, and around
    K3-multi (m = 4) on the any-hit fronts: hits bit-equal to K1's; device
    times of the permutation alone and of the walk of the permuted front,
    event times of the permutation and of the whole call, beside K1 alone;
    the live-lane share;
-9. seed test: on the any-hit front of each scene, the seed kernel against
+10. seed test: on the any-hit front of each scene, the seed kernel against
    its plain version (verdicts and walk directions), seeded any-hit against
    the walk, the share of rays it kills, its device time against its
    bound, seed + K1 against K1 alone by events;
-10. a tree deeper than K1's stack takes (nested shells, wide depth > 14):
+11. a tree deeper than K1's stack takes (nested shells, wide depth > 14):
    the hit queries send it to K2, which matches the plain walk;
-11. RASTERIZED main path: Application(1920, 1080, RASTERIZED), default
+12. RASTERIZED main path: Application(1920, 1080, RASTERIZED), default
    StaticConfig (4 shadow cascades of 4096^2, 512^2 cubemap; RT shadows
    seeded), marching cubes on, 4 frames; launch counts, frame times (frame
    1, which captures the environment, apart), per-pass times of one more
-   frame;
-12. MINIMAL main path: the same at 1920x1080;
-13. K4 against its plain version on the 4 cascades of the default scene at
+   frame; run_on_device(2), eager (the shadow pass bins on the host) with
+   its reason, against a host frame;
+13. MINIMAL main path: the same at 1920x1080;
+14. K4 against its plain version on the 4 cascades of the default scene at
    4096^2 (bit for bit), with its work plan (items, the longest item's
    rows), the (row, pixel) box pairs it tests and the share of (tile,
    global row) pairs the boxes cull; and K5 on the marching-cubes front at
    1920x1080 over the gbuffer depth, with its plan and box pairs; times on
    the device alone and by events, global-list lengths, longest segments
    and bounds;
-14. raster parity: one small RASTERIZED frame with marching cubes on the CPU
+15. raster parity: one small RASTERIZED frame with marching cubes on the CPU
    (brute rasterizer, plain walk) and on the card (K4, K5, K1, the seed
    kernel);
-15. furnace test: a small PT frame of four spheres with
+16. the bench's other scenes at its sizes and settings: RTIOW PT at
+   256x256, the cube scene RASTERIZED at 512x512, the 128-light scene PT at
+   1920x1080 (per-pass ms): ms per frame of the host loop and of
+   run_on_device, launches a frame, pt_rays;
+17. golden gates (tests/test_pathtrace_golden.py's, on the card): RTIOW at
+   256x256 and the Cornell stand-in at 128x128, 96 frames of 1 spp through
+   one captured run_on_device call, against tests/golden/*.npy (8x8-block
+   RMSE < 0.01, a 1.5% bias caught, region energies, wall colours);
+18. furnace test: a small PT frame of the RTIOW scene's four spheres with
    StaticConfig(furnace_test=True) and the sky, sun and lights off, on the
    card and on the CPU: the frames agree and the top row (the sky) is 1.0.
 
@@ -184,6 +202,14 @@ SCHEDULE_PAIRS = 3
 # calls per kernel and front, in turns.
 SPIN_CYCLES_PER_CALL = 1_000_000
 TIMING_ROUNDS, TIMING_REPS = 3, 5
+# The device loop: frames a call, and the largest |diff| from the host loop
+# that passes (0 is expected: no float atomic is on the PT path). The golden
+# gates' frames and bounces (tests/test_pathtrace_golden.py).
+LOOP_FRAMES, LOOP_ATOL = 4, 1e-6
+PROFILED_FRAMES = 2  # frames in the window whose device busy share is read
+GOLD_FRAMES, GOLD_BOUNCES = 96, 3
+# The bench's sizes of the RTIOW (PT) and cube (RASTERIZED) scenes.
+RTIOW_SIZE, CUBE_SIZE = 256, 512
 
 
 START = time.perf_counter()
@@ -1194,31 +1220,16 @@ def raster_parity_phase(Application, StaticConfig, RenderGraphMode) -> None:
             raise AssertionError(f"raster parity: card and {label} frames disagree")
 
 
-def four_spheres(renderer, camera) -> None:
-    """The JAX package's RTIOW scene (its `create_rtiow_scene`, not ported
-    yet): diffuse ground and centre spheres, glass, metal; no lights."""
-    from rust_renderer_tpu_torch.scene import Material, MaterialType
-
-    camera.set_position_target([0.0, 1.0, 4.0], [0.0, 0.5, -1.0])
-    for center, radius, material in (
-            ([0.0, -100.5, -1.0], 100.0,
-             Material(base_color_factor=np.array([0.5, 0.5, 0.5, 1.0], np.float32))),
-            ([0.0, 0.5, -1.0], 0.5,
-             Material(base_color_factor=np.array([0.1, 0.2, 0.5, 1.0], np.float32))),
-            ([-1.1, 0.5, -1.0], 0.5,
-             Material(material_type=MaterialType.DIELECTRIC, material_property=1.5)),
-            ([1.1, 0.5, -1.0], 0.5,
-             Material(material_type=MaterialType.METAL, material_property=0.0))):
-        renderer.add_sphere(center, radius, material=material)
-
-
 def furnace_phase(Application, StaticConfig, launches) -> dict:
     """The furnace test (StaticConfig(furnace_test=True), the
-    energy-conservation diagnostic): one PT frame of `four_spheres` with the
+    energy-conservation diagnostic): one PT frame of the RTIOW scene's four
+    spheres (`models.create_rtiow_scene`) with the
     sky, sun and lights off, on the card and on the CPU. Every miss sees a
     white sky, so the top row (the sky) is 1.0 on both; the frames agree
     under the PT parity tolerance; the card's frame launches K1 (on the
     empty triangle tree) only."""
+    from rust_renderer_tpu_torch.models import create_rtiow_scene
+
     size, bounces = FURNACE_SIZE, 2
     frames = {}
     for device in ("cpu", "cuda"):
@@ -1227,7 +1238,7 @@ def furnace_phase(Application, StaticConfig, launches) -> dict:
         app.fps_timer.elapsed_seconds = lambda: PARITY_TIME
         app.view = app.view.replace(sky_enabled=np.int32(0), sun_shadow_enabled=np.int32(0),
                                     lights_enabled=np.int32(0))
-        app.create_scene(four_spheres)
+        app.create_scene(create_rtiow_scene)
         launches.reset()
         frames[device] = app.render_frame()["present_output"].cpu()
         got = launches.read()
@@ -1249,6 +1260,250 @@ def furnace_phase(Application, StaticConfig, launches) -> dict:
     return got
 
 
+# -- the device loop, the bench's other scenes, the golden gates -----------------
+
+
+def host_frames(app, n: int) -> tuple:
+    """n frames through render_frame: the last present_output and the ms per
+    frame, by CUDA events around all n."""
+    out, ms = timed(lambda: [app.render_frame() for _ in range(n)][-1])
+    return out["present_output"], ms / n
+
+
+def twin_apps(Application, cfg, builder, mode, size=None) -> list:
+    """Two Applications of one configuration and scene (at `size`, else
+    WIDTH x HEIGHT), the clock pinned (view.time seeds every random
+    stream): one for the host loop, one for run_on_device."""
+    apps = []
+    for _ in range(2):
+        app = Application(*(size or (WIDTH, HEIGHT)), mode, cfg=cfg, device="cuda")
+        app.fps_timer.elapsed_seconds = lambda: PARITY_TIME
+        app.create_scene(builder)
+        apps.append(app)
+    return apps
+
+
+def compare_loop(label: str, host, loop, host_img, loop_img) -> None:
+    """The loop's state (accumulation, reservoirs, pt_rays) and last image
+    against the host loop's: bit-equal, or within LOOP_ATOL (no float
+    atomic is on the path, so any difference is a fault to name)."""
+    if set(host.graph.state) != set(loop.graph.state):
+        raise AssertionError(f"{label}: the loop's state holds other resources")
+    pairs = {name: (host.graph.state[name], loop.graph.state[name]) for name in host.graph.state}
+    pairs["present_output"] = (host_img, loop_img)
+    diff = {name: float((a.double() - b.double()).abs().max()) for name, (a, b) in pairs.items()}
+    exact = all(torch.equal(a, b) for a, b in pairs.values())
+    worst = max(diff, key=diff.get)
+    log(f"{label}: state and image {'bit-equal' if exact else 'not bit-equal'} to the host "
+        f"loop's ({len(pairs)} tensors; max |diff| {diff[worst]:.3e} in {worst})")
+    if diff[worst] > LOOP_ATOL:
+        raise AssertionError(f"{label}: the loop's {worst} differs from the host loop's")
+
+
+def busy_share(fn) -> float | None:
+    """The device's busy share of one torch.profiler window around fn(): the
+    union of its kernel, copy and set intervals over the window's host time
+    (fn() and a synchronize); None if the trace holds no device event. Only
+    device activity is traced, so the host runs at its own pace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if str(e.device_type).endswith("CUDA"))
+    if not spans:
+        return None
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / wall_us
+
+
+def share(x: float | None) -> str:
+    return "not measured (no device event in the trace)" if x is None else f"{x:.3f}"
+
+
+def loop_phase(label, Application, mode, cfg, builder, launches, counted, want: dict) -> None:
+    """PT at 1920x1080 through `run_on_device`, held to the host loop from one
+    starting state: LOOP_FRAMES host frames against run_on_device(LOOP_FRAMES)
+    (frame 1 eagerly, the capture, replays), then LOOP_FRAMES more of each
+    (pure replay); the body must be captured once, the state equal. Launch
+    counters: the first call moves two frames' worth (frame 1 and the
+    capture's recording), a replay none, so a captured frame's launches are
+    the eager frame's. Then ms per frame of each and the device's busy share
+    of one profiled window of each."""
+    host, loop = twin_apps(Application, cfg, builder, mode)
+    ms = {}
+    for call in ("first call", "replay"):
+        launches.reset()
+        host_img, ms[f"host {call}"] = host_frames(host, LOOP_FRAMES)
+        got = launches.read()
+        if got != {k: v * LOOP_FRAMES for k, v in want.items()}:
+            raise AssertionError(f"{label} host frames: launches {got}, expected {want} a frame")
+        counted.update(got)
+        launches.reset()
+        loop_img, loop_ms = timed(lambda: loop.run_on_device(LOOP_FRAMES, tstep=0.0))
+        ms[f"loop {call}"] = loop_ms / LOOP_FRAMES
+        got = launches.read()
+        moved = {k: v * (2 if call == "first call" else 0) for k, v in want.items()}
+        if got != moved or loop.graph.last_loop_form != "captured" or loop.graph.captures != 1:
+            raise AssertionError(
+                f"{label} run_on_device ({call}): form {loop.graph.last_loop_form!r}, "
+                f"{loop.graph.captures} captures, counters moved {got}, expected {moved}")
+        counted.update(got)
+        if host.total_samples != loop.total_samples:
+            raise AssertionError(f"{label}: total_samples {loop.total_samples} after the "
+                                 f"loop, {host.total_samples} after the host frames")
+        compare_loop(f"{label} {call} ({LOOP_FRAMES} frames)", host, loop, host_img, loop_img)
+    busy = {"host": busy_share(lambda: host_frames(host, PROFILED_FRAMES)),
+            "loop": busy_share(lambda: loop.run_on_device(PROFILED_FRAMES, tstep=0.0))}
+    log(f"{label}: form {loop.graph.last_loop_form}; ms per frame (CUDA events around "
+        f"each call / {LOOP_FRAMES}): " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
+        + f"; replay / host {ms['loop replay'] / ms['host replay']:.3f}; device busy share "
+        f"(one torch.profiler window of {PROFILED_FRAMES} frames, host clock): host loop "
+        f"{share(busy['host'])}, captured loop {share(busy['loop'])}; launches a frame "
+        f"{ {k: v for k, v in want.items() if v} } (a captured frame's are the eager "
+        f"frame's: replays move no counter)")
+
+
+def raster_loop(label: str, app, launches, counted) -> None:
+    """RASTERIZED / MINIMAL through run_on_device: the shadow pass bins on the
+    host, so the loop runs eagerly and says why; its last frame equals a
+    host frame (no state is carried; the clock pinned)."""
+    app.fps_timer.elapsed_seconds = lambda: PARITY_TIME
+    launches.reset()
+    want = app.render_frame()["present_output"]
+    img, ms = timed(lambda: app.run_on_device(2, tstep=0.0))
+    counted.update(launches.read())
+    diff = float((img - want).abs().max())
+    form = app.graph.last_loop_form
+    log(f"{label} run_on_device(2): form {form!r}; last frame vs a host frame max |diff| "
+        f"{diff:.3e}; {ms / 2:.1f} ms per frame")
+    if not form.startswith("eager: pass 'shadow'") or diff > LOOP_ATOL:
+        raise AssertionError(f"{label}: the eager device loop is wrong")
+
+
+def scene_phase(Application, StaticConfig, RenderGraphMode, models, launches, counted) -> None:
+    """The bench's other scenes at its sizes and settings (bench.py:101-105,
+    :154-158): RTIOW PT at 256x256 (config 1), the cube scene RASTERIZED at
+    512x512 (config 2) and the 128-light scene PT at 1920x1080 (config 4).
+    Each: LOOP_FRAMES host frames (median ms of frames 2-N, launches a
+    frame, pt_rays) and two run_on_device(LOOP_FRAMES) calls, the second
+    timed (a captured PT loop replays and moves no counter; the raster loop
+    runs eagerly); the 128-light scene's per-pass ms of one more frame."""
+    raster_cfg = {k: v for k, v in SPONZA_CFG.items() if k not in ("num_bounces",
+                                                                   "samples_per_frame")}
+    pt = RenderGraphMode.PATH_TRACED
+    cases = (
+        ("RTIOW PT", models.create_rtiow_scene, pt, (RTIOW_SIZE,) * 2, StaticConfig(**SPONZA_CFG),
+         Launches.frame_want(BOUNCES, BOUNCES, 0, 0)),
+        ("cube RASTERIZED", models.create_cube_scene, RenderGraphMode.RASTERIZED, (CUBE_SIZE,) * 2,
+         StaticConfig(**raster_cfg), Launches.frame_want(2, 1, 4, 0, seed=1)),
+        ("128-light PT", models.create_restir_many_lights_scene, pt, (WIDTH, HEIGHT),
+         StaticConfig(**SPONZA_CFG), Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0,
+                                                         seed=BOUNCES)),
+    )
+    for label, builder, mode, size, cfg, want in cases:
+        label = f"{label} {size[0]}x{size[1]}"
+        host, loop = twin_apps(Application, cfg, builder, mode, size)
+        frame_ms = []
+        launches.reset()
+        for _ in range(LOOP_FRAMES):
+            res, t = timed(host.render_frame)
+            frame_ms.append(t)
+        got = launches.read()
+        if got != {k: v * LOOP_FRAMES for k, v in want.items()}:
+            raise AssertionError(f"{label}: launches {got}, expected {want} a frame")
+        counted.update(got)
+        check = res["present_output"].float()
+        if not bool(torch.isfinite(check).all()) or float(check.std()) <= 1e-3:
+            raise AssertionError(f"{label}: the frame is not finite or is constant")
+        rays = f", pt_rays {int(res['pt_rays'])}" if "pt_rays" in res else ""
+        loop.run_on_device(LOOP_FRAMES, tstep=0.0)
+        launches.reset()
+        _, loop_ms = timed(lambda: loop.run_on_device(LOOP_FRAMES, tstep=0.0))
+        moved = launches.read()
+        counted.update(moved)
+        captured = loop.graph.last_loop_form == "captured"
+        if moved != {k: (0 if captured else v * LOOP_FRAMES) for k, v in want.items()} \
+                or captured != (mode == pt):
+            raise AssertionError(f"{label}: run_on_device {loop.graph.last_loop_form!r} "
+                                 f"moved the counters by {moved}")
+        steady = sorted(frame_ms[1:])[len(frame_ms[1:]) // 2]
+        log(f"{label}: host frames {[round(x, 2) for x in frame_ms]} ms (median of frames "
+            f"2-{LOOP_FRAMES} {steady:.2f}), run_on_device {loop_ms / LOOP_FRAMES:.2f} ms a "
+            f"frame ({loop.graph.last_loop_form}); launches a frame "
+            f"{ {k: v for k, v in want.items() if v} }{rays}")
+        if builder is models.create_restir_many_lights_scene:
+            pass_times(label, host)
+        del host, loop, res
+
+
+def golden_phase(Application, StaticConfig, models, launches, counted) -> None:
+    """The hermetic golden gates of tests/test_pathtrace_golden.py on the
+    card: GOLD_FRAMES frames of 1 spp, GOLD_BOUNCES bounces, lights and RIS
+    off, clock 0, through one run_on_device call (a captured loop: frame 1,
+    the capture, replays), the accumulation over GOLD_FRAMES against the
+    CPU tracer's image. RTIOW at 256x256 (:155-185): 8x8-block RMSE < 0.01,
+    a 1.5% brightness bias caught (>= 0.008), sky / ground / centre mean
+    energy within 1%. Cornell stand-in at 128x128 (:227-258): block RMSE <
+    0.01, the bias caught (>= 0.006), red left and green right walls in
+    both images, left / right / centre energy within 1.5%."""
+    import os
+
+    golden = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "golden")
+
+    def block(img):
+        h, w, c = img.shape
+        return img.reshape(h // 8, 8, w // 8, 8, c).mean(axis=(1, 3))
+
+    for label, builder, size, file, floor in (
+            ("RTIOW", models.create_rtiow_scene, 256, "rtiow_256_cpu_512spp.npy", 0.008),
+            ("Cornell stand-in", models.create_cornell_standin_scene, 128,
+             "cornell_128_cpu_384spp.npy", 0.006)):
+        app = Application(size, size, cfg=StaticConfig(num_bounces=GOLD_BOUNCES),
+                          device="cuda")
+        app.fps_timer.elapsed_seconds = lambda: 0.0
+        app.view = app.view.replace(lights_enabled=np.int32(0),
+                                    use_ris_light_sampling=np.int32(0))
+        app.create_scene(builder)
+        launches.reset()
+        _, ms = timed(lambda: app.run_on_device(GOLD_FRAMES, tstep=0.0))
+        counted.update(launches.read())
+        ours = (app.graph.state["accumulation_image"] / GOLD_FRAMES).cpu().numpy()
+        ref = np.load(os.path.join(golden, file))
+        a, b = block(ours), block(ref)
+        rmse = float(np.sqrt(np.mean((a - b) ** 2)))
+        biased = float(np.sqrt(np.mean((a * 1.015 - b) ** 2)))
+        mid = slice(size // 3, 2 * size // 3)
+        if builder is models.create_rtiow_scene:
+            regions = {"sky": (slice(0, size // 6), slice(0, size)),
+                       "ground": (slice(5 * size // 6, size), slice(0, size)),
+                       "center": (mid, mid)}
+            limit, walls = 0.01, True
+        else:
+            left, right = (mid, slice(0, size // 8)), (mid, slice(7 * size // 8, size))
+            regions, limit = {"left": left, "right": right, "center": (mid, mid)}, 0.015
+            walls = all(img[left][..., 0].mean() > img[left][..., 1].mean()
+                        and img[right][..., 1].mean() > img[right][..., 0].mean()
+                        for img in (ours, ref))
+        energy = {name: abs(float(ours[sl].mean()) - float(ref[sl].mean()))
+                  / max(float(ref[sl].mean()), 1e-6) for name, sl in regions.items()}
+        log(f"golden {label} {size}x{size}, {GOLD_FRAMES} spp ({app.graph.last_loop_form}, "
+            f"{ms / GOLD_FRAMES:.2f} ms a frame): 8x8-block RMSE {rmse:.5f} (< 0.01), with a "
+            f"1.5% bias {biased:.5f} (>= {floor}), relative region energy "
+            + ", ".join(f"{k} {v:.4f}" for k, v in energy.items()) + f" (< {limit})"
+            + ("" if builder is models.create_rtiow_scene else f", wall colours {walls}"))
+        if not (rmse < 0.01 and biased > rmse and biased >= floor and walls
+                and max(energy.values()) < limit and app.graph.last_loop_form == "captured"):
+            raise AssertionError(f"golden {label}: the gate fails")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no GPU", file=sys.stderr)
@@ -1260,7 +1515,8 @@ def main() -> int:
         return 2
     from rust_renderer_tpu_torch import native
     from rust_renderer_tpu_torch.app.main import Application
-    from rust_renderer_tpu_torch.models import create_sponza_scale_scene
+    from rust_renderer_tpu_torch import models
+    from rust_renderer_tpu_torch.models import create_scene, create_sponza_scale_scene
     from rust_renderer_tpu_torch.ops import (
         bvh as bvh_ops, compaction, marching_cubes, pathtrace, raster, raster_binned, rays,
         shadow, traversal)
@@ -1296,6 +1552,9 @@ def main() -> int:
     bvhs["default"] = app.scene_bvh
     k1 = k1_phase(app, traversal, fronts["default"])
     del app
+    pt_want = Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0, seed=BOUNCES)
+    loop_phase("PT device loop", Application, RenderGraphMode.PATH_TRACED,
+               StaticConfig(num_bounces=BOUNCES), create_scene, launches, counted, pt_want)
     pt_parity_phase(Application, StaticConfig)
 
     # PATH_TRACED on the Sponza-scale scene, with the bench's settings.
@@ -1328,6 +1587,9 @@ def main() -> int:
     bvhs["sponza_scale"] = bvh
     log(f"Sponza-scale PT peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del app, bvh
+    loop_phase("Sponza-scale PT device loop", Application, RenderGraphMode.PATH_TRACED,
+               StaticConfig(**SPONZA_CFG), create_sponza_scale_scene, launches, counted,
+               pt_want)
 
     # The traversal entry points under every kernel option, on both scenes;
     # then compaction and the seed test on the same fronts.
@@ -1356,6 +1618,7 @@ def main() -> int:
     k4 = k4_phase(app, raster, raster_binned, shadow)
     k5 = k5_phase(app, raster, raster_binned, marching_cubes, gbuffer_depth)
     log(f"RASTERIZED peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    raster_loop("RASTERIZED", app, launches, counted)
     del app, gbuffer_depth
 
     # MINIMAL.
@@ -1363,8 +1626,11 @@ def main() -> int:
     app.create_scene()
     counted.update(run_frames("MINIMAL", app, launches, Launches.frame_want(1, 0, 4, 0))[0])
     pass_times("MINIMAL", app)
+    raster_loop("MINIMAL", app, launches, counted)
     del app
     raster_parity_phase(Application, StaticConfig, RenderGraphMode)
+    scene_phase(Application, StaticConfig, RenderGraphMode, models, launches, counted)
+    golden_phase(Application, StaticConfig, models, launches, counted)
     counted.update(furnace_phase(Application, StaticConfig, launches))
 
     # Launches: the frames', the variant, compaction and seed runs' (every

@@ -5,6 +5,10 @@ render graph of the active mode every frame (main.rs:487-517) and keeps the
 progressive-accumulation protocol: total_samples grows by samples_per_frame
 each frame and `reset_accumulation` starts it over (main.rs:400-469).
 Frames render offscreen; `run` returns the last presented image as numpy.
+`run_on_device(n)` renders n frames through `Graph.render_loop` (on CUDA,
+replays of one captured CUDA graph of the frame; `graph.last_loop_form`
+says how it ran) and returns the last presented image as a tensor on the
+device.
 
 It renders on the card unless the caller passes device="cpu" (there every
 kernel wrapper takes its plain PyTorch version); with no GPU, "cuda" raises.
@@ -16,6 +20,8 @@ Usage:
 """
 
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
@@ -34,6 +40,24 @@ from rust_renderer_tpu_torch.renderers import (
 )
 from rust_renderer_tpu_torch.settings import RenderGraphMode, RenderSettings, StaticConfig
 from rust_renderer_tpu_torch.utils import FpsTimer
+
+log = logging.getLogger(__name__)
+
+
+def _loop_view_update(view, k, aux):
+    """Frame k's view in `Graph.render_loop` (JAX `app/main.py:42-57`):
+    the accumulation counter advanced by k * spf, the clock by k * tstep,
+    and, for k > 0, the previous frame's matrices set to the current P·V
+    (the camera holds still inside a loop, so this is the host loop's
+    one-frame-late handoff). aux["pv"] is that P·V as the host loop
+    computes it (`Application._refresh_view`), so the frames carry the
+    host loop's bits."""
+    return view.replace(
+        total_samples=view.total_samples + k.to(torch.int64) * aux["spf"],
+        time=view.time + k.to(torch.float32) * aux["tstep"],
+        prev_frame_projection_view=torch.where(
+            k == 0, view.prev_frame_projection_view, aux["pv"]),
+    )
 
 
 def init_device(device) -> torch.device:
@@ -156,6 +180,44 @@ class Application:
         self.view = self.view.replace(prev_frame_projection_view=self._pending_prev_pv)
         self.fps_timer.calculate()
         return resources
+
+    def run_on_device(self, num_frames: int = 1, tstep: float = 1.0 / 60.0):
+        """Render `num_frames` frames through `Graph.render_loop` (JAX
+        `app/main.py:238-295`): the view, environment and graph refreshed
+        once, then frame k's view derived on the device (`_loop_view_update`,
+        the clock advancing `tstep` a frame). The host counters are advanced
+        to match, so `run` and `run_on_device` interleave. Returns the last
+        frame's present_output as a tensor on the device (None where the
+        graph has none).
+
+        Where `Graph.device_loop_unsupported_reason` gives a reason, the
+        frames run through the host loop (`render_frame`), as in the JAX
+        package, and the reason is logged."""
+        if num_frames < 1:
+            raise ValueError(f"run_on_device: num_frames must be at least 1, got {num_frames}")
+        self._refresh_view()
+        self._ensure_environment()
+        self._build_graph()
+        reason = self.graph.device_loop_unsupported_reason()
+        if reason is not None:
+            log.info("run_on_device: %s; rendering through the host frame loop", reason)
+            # render_frame counts each frame itself: undo _refresh_view's.
+            self.total_samples -= self.cfg.samples_per_frame
+            img = None
+            for _ in range(num_frames):
+                img = self.render_frame().get("present_output")
+            return img
+        aux = {"spf": np.uint32(self.cfg.samples_per_frame), "tstep": np.float32(tstep),
+               "pv": self._pending_prev_pv}
+        img = self.graph.render_loop(self.scene, self.view, num_frames,
+                                     view_update=_loop_view_update, aux=aux)
+        # Frames 2..N advanced the counter on the device; frame 1 was counted
+        # by _refresh_view.
+        self.total_samples += self.cfg.samples_per_frame * (num_frames - 1)
+        self.view = self.view.replace(total_samples=np.uint32(self.total_samples),
+                                      prev_frame_projection_view=self._pending_prev_pv)
+        self.fps_timer.calculate()
+        return img
 
     def run(self, num_frames: int = 1) -> np.ndarray | None:
         """Render `num_frames` frames; returns the last presented image

@@ -3,7 +3,9 @@
 The port of the subset of ``rust_renderer_tpu/graph.py`` that the port's
 graphs need (the reference's utopian/src/graph.rs + pass.rs). The graph is
 recorded every frame (`new_frame`, `clear`, `add_pass(...)...build()`) over
-resources cached by name; `render` runs the passes in order.
+resources cached by name; `render` runs the passes in order, and
+`render_loop` runs N frames of them with the view advanced on the device
+(on CUDA, replays of one captured CUDA graph of the frame).
 
 - A pass declares what it reads and writes. Its body sees only its declared
   reads: reading anything else raises a ValueError that names the resource,
@@ -16,12 +18,16 @@ resources cached by name; `render` runs the passes in order.
 from __future__ import annotations
 
 import dataclasses
+import enum
+import functools
+import inspect
 from collections.abc import Mapping
 from typing import Callable
 
+import numpy as np
 import torch
 
-from rust_renderer_tpu_torch.settings import RenderSettings
+from rust_renderer_tpu_torch.settings import RenderSettings, to_tensor
 
 
 @dataclasses.dataclass
@@ -46,6 +52,8 @@ class RenderPass:
     reads: list[str]
     writes: list[str]
     fn: Callable  # fn(resources, scene, view) -> dict of writes
+    isolated: bool = False  # see PassBuilder.isolate
+    host_sync: str | None = None  # see PassBuilder.host_sync
 
 
 class PassBuilder:
@@ -57,6 +65,24 @@ class PassBuilder:
         self._reads: list[str] = []
         self._writes: list[str] = []
         self._fn: Callable | None = None
+        self._isolated = False
+        self._host_sync: str | None = None
+
+    def isolate(self) -> "PassBuilder":
+        """Mark the pass isolated, as the JAX package's builders do (there:
+        its own XLA program). `render` runs it like any other pass;
+        `render_loop` runs a leading run of isolated passes for all N frames
+        first and stacks what they write (`Graph.render_loop`)."""
+        self._isolated = True
+        return self
+
+    def host_sync(self, why: str) -> "PassBuilder":
+        """Mark the pass as one whose body waits on the host (a readback, a
+        host branch on a tensor's value), `why` saying where: such a pass
+        cannot be captured into a CUDA graph, so `render_loop` runs the
+        graph eagerly (`Graph.capture_unsupported_reason`)."""
+        self._host_sync = why
+        return self
 
     def read(self, resource: str) -> "PassBuilder":
         self._reads.append(resource)
@@ -76,7 +102,8 @@ class PassBuilder:
         if self._fn is None:
             raise ValueError(f"pass '{self._name}' has no render fn")
         self._graph.passes.append(
-            RenderPass(self._name, list(self._reads), list(self._writes), self._fn))
+            RenderPass(self._name, list(self._reads), list(self._writes), self._fn,
+                       self._isolated, self._host_sync))
 
 
 class _PassResources(Mapping):
@@ -119,6 +146,11 @@ class Graph:
         self.persist: set[str] = set()
         self.state: dict[str, torch.Tensor] = {}
         self.current_frame = 0
+        # How the last render_loop ran its main body: "captured" (replays of
+        # a CUDA graph) or "eager: <reason>".
+        self.last_loop_form: str | None = None
+        self.captures = 0  # CUDA graphs captured by render_loop
+        self._loop: _Loop | None = None  # the captured loop render_loop replays
 
     # -- per-frame recording (graph.rs:459-484) -----------------------------
 
@@ -160,14 +192,9 @@ class Graph:
 
     # -- execution ------------------------------------------------------------
 
-    def render(self, scene, view) -> dict[str, torch.Tensor]:
-        """Run the recorded passes in order. `view` (a host RenderSettings) is
-        uploaded once. Returns every resource of the frame; persistent ones
-        are kept in `state` for the next frame."""
-        if isinstance(view, RenderSettings):
-            view = view.to(self.device)
-        resources: dict[str, torch.Tensor] = dict(self.state)
-        for p in self.passes:
+    def _run_passes(self, passes, resources: dict, scene, view) -> dict:
+        """Run `passes` in order over `resources` (updated in place)."""
+        for p in passes:
             outs = p.fn(_PassResources(self, resources, p), scene, view)
             for wname, arr in (outs or {}).items():
                 if wname not in p.writes:
@@ -175,5 +202,267 @@ class Graph:
                         f"pass '{p.name}' writes resource '{wname}' without "
                         "declaring it with .write()")
                 resources[wname] = arr
+        return resources
+
+    def render(self, scene, view) -> dict[str, torch.Tensor]:
+        """Run the recorded passes in order. `view` (a host RenderSettings) is
+        uploaded once. Returns every resource of the frame; persistent ones
+        are kept in `state` for the next frame."""
+        if isinstance(view, RenderSettings):
+            view = view.to(self.device)
+        resources = self._run_passes(self.passes, dict(self.state), scene, view)
         self.state.update({n: resources[n] for n in self.persist if n in resources})
         return resources
+
+    # -- the device loop (the JAX package's graph.py:341-372, 484-690) -------
+
+    def _split_prefix(self) -> tuple[list[RenderPass], list[RenderPass]]:
+        """(the leading run of isolated passes, the passes after it)."""
+        n = 0
+        while n < len(self.passes) and self.passes[n].isolated:
+            n += 1
+        return self.passes[:n], self.passes[n:]
+
+    def device_loop_unsupported_reason(self) -> str | None:
+        """Why `render_loop` cannot run the current pass list as the host
+        loop would (None: it can). The one rule behind render_loop's
+        ValueError and Application.run_on_device's host loop."""
+        prefix, main = self._split_prefix()
+        if any(p.isolated for p in main):
+            return ("isolated pass after a non-isolated pass: only a leading "
+                    "isolated prefix is supported")
+        if prefix and not main:
+            return "every pass is isolated: the loop body would render nothing"
+        frame_written = {w for p in self.passes for w in p.writes}
+        for p in prefix:
+            # The prefix runs for all N frames before the body: a prefix
+            # pass reading persistent state that the frames update would see
+            # its value from before the loop in every frame.
+            bad = set(p.reads) & self.persist & frame_written
+            if bad:
+                return (f"isolated prefix pass '{p.name}' reads per-frame persistent "
+                        f"state {sorted(bad)}: the prefix cannot chain it across frames")
+        return None
+
+    def capture_unsupported_reason(self) -> str | None:
+        """Why `render_loop` cannot capture its body (the passes after the
+        isolated prefix) into a CUDA graph, naming the first pass marked
+        with `PassBuilder.host_sync`; None where it can."""
+        for p in self._split_prefix()[1]:
+            if p.host_sync is not None:
+                return f"pass '{p.name}' {p.host_sync}"
+        return None
+
+    def render_loop(self, scene, view, n_frames: int, view_update=None, aux=None):
+        """Render `n_frames` frames, the view of frame k derived on the
+        device by `view_update(view, k, aux)` (k a () int32 tensor, `aux` a
+        dict of host values uploaded once), with no readback between frames.
+        Returns the last frame's `present_output` (None where the graph
+        declares none).
+
+        - A leading run of isolated passes runs first, for all N frames;
+          what it writes that the other passes read (or that is persistent)
+          is stacked on a leading frame axis, and frame k reads slice k.
+        - Persistent resources that the other passes write are the carry:
+          each frame reads the last one's. Other state (the environment
+          maps) is read as it is. Afterwards `state` holds the last frame's
+          values, and a persistent resource only the prefix writes holds its
+          last frame's; `current_frame` grows by N.
+        - On CUDA the body is captured once into a `torch.cuda.CUDAGraph`:
+          the first call runs frame 1 eagerly on a side stream (loading and
+          building every kernel), captures the body, and replays it for
+          frames 2..N; a later call with the same key replays all N. The
+          key is the passes, what their bodies close over (tensors by
+          identity, since the capture holds their pointers, and kept alive
+          with it; host values by value), the resource declarations, the
+          state read as it is, the scene's tensors and `view_update`; not
+          N. A changed key captures anew. A failed capture raises.
+        - Eagerly, the same body N times: on CPU tensors, and on CUDA where
+          `capture_unsupported_reason` gives a reason. `last_loop_form`
+          says which.
+
+        Raises ValueError where `device_loop_unsupported_reason` gives a
+        reason. The JAX loop's frame checksum has no counterpart (eager
+        torch elides no frame), and its sanitizer none yet."""
+        reason = self.device_loop_unsupported_reason()
+        if reason is not None:
+            raise ValueError(f"render_loop: {reason}")
+        if n_frames < 1:
+            raise ValueError(f"render_loop: n_frames must be at least 1, got {n_frames}")
+        prefix, main = self._split_prefix()
+        written = {w for p in main for w in p.writes}
+        main_reads = {r for p in main for r in p.reads}
+        prefix_writes = dict.fromkeys(w for p in prefix for w in p.writes)
+        stacked_names = [n for n in prefix_writes if n in main_reads or n in self.persist]
+        carry_names = sorted(n for n in self.persist if n in self.state and n in written)
+        inv = {n: t for n, t in self.state.items() if n not in carry_names}
+        fresh_view = view.to(self.device)
+        aux = {k: to_tensor(v, self.device) for k, v in (aux or {}).items()}
+        stacked = {}
+        if prefix:
+            stacked = self._run_prefix(prefix, inv, scene, fresh_view, n_frames,
+                                       view_update, aux, stacked_names)
+        present = self.descs.get("present_output")
+
+        def new_loop(key) -> _Loop:
+            return _Loop(
+                view=RenderSettings(**{f: t.clone() for f, t in vars(fresh_view).items()}),
+                aux=aux, k=torch.zeros((), dtype=torch.int32, device=self.device),
+                carry={n: self.state[n].clone() for n in carry_names}, inv=inv,
+                stacked=stacked,
+                present=None if present is None else present.allocate(self.device),
+                passes=main, scene=scene, view_update=view_update, key=key)
+
+        why = (f"no CUDA graphs on {self.device.type}" if self.device.type != "cuda"
+               else self.capture_unsupported_reason())
+        if why is not None:
+            loop = new_loop(None)
+            for _ in range(n_frames):
+                self._loop_body(loop)
+            self.last_loop_form = f"eager: {why}"
+        else:
+            layout = lambda d: [(n, str(t.dtype), tuple(t.shape)) for n, t in d.items()]
+            key = _value_key((
+                [(p.name, p.fn, p.reads, p.writes) for p in main],
+                sorted((d.name, d.shape, str(d.dtype), d.clear) for d in self.descs.values()),
+                carry_names, inv, scene, view_update, layout(vars(fresh_view)), layout(aux),
+                layout(stacked)))
+            loop = self._loop
+            if loop is None or loop.key != key:
+                loop = self._loop = None  # frees the last capture's memory first
+                loop = new_loop(key)
+                self._capture(loop)
+                replays = n_frames - 1
+                self._loop = loop
+            else:
+                loop.reload(fresh_view, aux, self.state, stacked)
+                replays = n_frames
+            for _ in range(replays):
+                loop.graph.replay()
+            self.last_loop_form = "captured"
+        self.state.update({n: t.clone() for n, t in loop.carry.items()})
+        for n in stacked_names:
+            if n in self.persist and n not in written:
+                self.state[n] = stacked[n][-1]
+        self.current_frame += n_frames
+        return None if loop.present is None else loop.present.clone()
+
+    def _run_prefix(self, prefix, inv, scene, view, n_frames, view_update, aux,
+                    names) -> dict[str, torch.Tensor]:
+        """The isolated prefix for frames 0..N-1 (the JAX package's
+        `lax.map`): each written resource in `names`, stacked over frames."""
+        frames = []
+        for i in range(n_frames):
+            k = torch.full((), i, dtype=torch.int32, device=self.device)
+            view_k = view if view_update is None else view_update(view, k, aux)
+            resources = self._run_passes(prefix, dict(inv), scene, view_k)
+            frames.append({n: resources[n] if n in resources
+                           else self.descs[n].allocate(self.device) for n in names})
+        return {n: torch.stack([f[n] for f in frames]) for n in names}
+
+    def _loop_body(self, loop: "_Loop") -> None:
+        """One frame of `loop`, entirely in its tensors: frame k's view from
+        the base view, the passes over the carry, the invariant state and
+        slice k of the stacks; the carry and present_output written back in
+        place; k + 1."""
+        view = (loop.view if loop.view_update is None
+                else loop.view_update(loop.view, loop.k, loop.aux))
+        resources = dict(loop.inv)
+        resources.update(loop.carry)
+        index = loop.k.reshape(1)
+        for name, arr in loop.stacked.items():
+            resources[name] = arr.index_select(0, index)[0]
+        self._run_passes(loop.passes, resources, loop.scene, view)
+        for name, t in loop.carry.items():
+            t.copy_(resources[name])
+        if loop.present is not None and "present_output" in resources:
+            loop.present.copy_(resources["present_output"])
+        loop.k.add_(1)
+
+    def _capture(self, loop: "_Loop") -> None:
+        """Frame 1 of `loop` eagerly on a side stream (every kernel library
+        is loaded and every lazily made constant exists before capture, as
+        torch's capture rules ask), then the body captured into
+        `loop.graph`; capture runs nothing, so the loop stands after frame
+        1."""
+        current = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            self._loop_body(loop)
+        current.wait_stream(side)
+        loop.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(loop.graph, stream=side):
+            self._loop_body(loop)
+        self.captures += 1
+
+
+@dataclasses.dataclass
+class _Loop:
+    """The tensors one render_loop body reads and writes in place: on CUDA,
+    the static inputs and outputs of its captured graph, which holds their
+    pointers (and, through the passes' closures, the tables the kernels
+    read)."""
+
+    view: RenderSettings  # the base view; frame k's is view_update(view, k, aux)
+    aux: dict
+    k: torch.Tensor  # () int32, the frame index
+    carry: dict
+    inv: dict
+    stacked: dict
+    present: torch.Tensor | None
+    passes: list
+    scene: object
+    view_update: Callable | None
+    key: object
+    graph: object = None
+
+    def reload(self, view: RenderSettings, aux: dict, state: dict, stacked: dict) -> None:
+        """A new call's inputs copied into the captured tensors; k = 0."""
+        for name, t in vars(self.view).items():
+            t.copy_(getattr(view, name))
+        for name, t in self.aux.items():
+            t.copy_(aux[name])
+        for name, t in self.carry.items():
+            t.copy_(state[name])
+        for name, t in self.stacked.items():
+            t.copy_(stacked[name])
+        self.k.zero_()
+
+
+def _value_key(x, _path=()):
+    """A comparable key of what `x` computes with: numbers, strings, enums,
+    configs and host tensors by value; device tensors and numpy arrays by
+    identity (a capture holds their pointers, and keeps them alive); a
+    function by its code and what it closes over, in turn."""
+    if x is None or isinstance(x, (bool, int, float, str, bytes, enum.Enum, torch.dtype,
+                                   torch.device)):
+        return x
+    if isinstance(x, np.generic):
+        return ("np", x.dtype.str, x.item())
+    if id(x) in _path:
+        return ("cycle", id(x))
+    path = _path + (id(x),)
+    if isinstance(x, torch.Tensor):
+        if x.device.type == "cpu":
+            # Host tables travel in the launches' parameters (the seed table).
+            return ("host", str(x.dtype), tuple(x.shape), x.numpy().tobytes())
+        return ("tensor", id(x), x.data_ptr(), str(x.dtype), tuple(x.shape))
+    if isinstance(x, (tuple, list)):
+        return (type(x).__name__, tuple(_value_key(v, path) for v in x))
+    if isinstance(x, dict):
+        return ("dict", tuple((k, _value_key(v, path)) for k, v in x.items()))
+    if isinstance(x, functools.partial):
+        return ("partial", _value_key((x.func, x.args, x.keywords), path))
+    if inspect.isfunction(x):
+        cells = []
+        for cell in x.__closure__ or ():
+            try:
+                cells.append(_value_key(cell.cell_contents, path))
+            except ValueError:  # an empty cell
+                cells.append(("empty",))
+        return ("fn", x.__code__, _value_key(x.__defaults__, path), tuple(cells))
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return (type(x).__qualname__,
+                tuple(_value_key(getattr(x, f.name), path) for f in dataclasses.fields(x)))
+    return ("object", type(x).__qualname__, id(x))

@@ -1,6 +1,6 @@
 """Scene definitions (rebuild of prototype/src/scenes.rs), procedural branch.
 
-The port of the default scene of ``rust_renderer_tpu/models/scenes.py``: the
+The port of the builders of ``rust_renderer_tpu/models/scenes.py``: the
 glTF loader is not ported yet, so every builder here takes the procedural
 branch that the JAX package takes when the upstream assets are absent, with
 the same random draws. A builder raises if the asset directory named by
@@ -71,6 +71,112 @@ def create_sponza_scene(renderer: Renderer, camera: Camera) -> None:
     renderer.add_model(
         dielectric_sphere, math3d.translation([-3.0, 0.65, 0.7]) @ math3d.scale(size)
     )
+
+
+def create_cornell_box_scene(renderer: Renderer, camera: Camera) -> None:
+    """scenes.rs:58-100: the Cornell box glTF, a DIFFUSE_LIGHT cube and the
+    FlightHelmet glTF. Without the assets (the only case ported) the light
+    cube alone, as the JAX package builds it then."""
+    camera.set_position_target([0.0, 0.9, 2.0], [0.0, 0.5, 0.0])
+    _refuse_asset("prototype/data/models/CornellBox-Original.gltf")
+    light = ModelLoader.load_cube()
+    light.meshes[0].material.material_type = MaterialType.DIFFUSE_LIGHT
+    renderer.add_model(
+        light, math3d.translation([0.0, 1.95, 0.0]) @ math3d.scale([0.50, 0.05, 0.35])
+    )
+    _refuse_asset("prototype/data/models/FlightHelmet/glTF/FlightHelmet.gltf")
+
+
+def create_cornell_standin_scene(renderer: Renderer, camera: Camera) -> None:
+    """Self-contained Cornell box for the diffuse-light golden gate: the
+    asset-dependent halves of create_cornell_box_scene replaced by
+    procedural wall slabs and two boxes, with the same camera and the same
+    DIFFUSE_LIGHT cube. Open toward the camera."""
+    camera.set_position_target([0.0, 0.9, 2.0], [0.0, 0.5, 0.0])
+
+    def slab(color, t, s):
+        m = ModelLoader.load_cube()
+        m.meshes[0].material.base_color_factor = np.array(
+            [color[0], color[1], color[2], 1.0], np.float32)
+        renderer.add_model(m, math3d.translation(t) @ math3d.scale(s))
+
+    white, red, green = (0.73, 0.73, 0.73), (0.65, 0.05, 0.05), (0.12, 0.45, 0.15)
+    slab(white, [0.0, -0.05, 0.0], [2.2, 0.1, 2.2])    # floor
+    slab(white, [0.0, 2.05, 0.0], [2.2, 0.1, 2.2])     # ceiling
+    slab(white, [0.0, 1.0, -1.05], [2.2, 2.2, 0.1])    # back
+    slab(red, [-1.05, 1.0, 0.0], [0.1, 2.2, 2.2])      # left
+    slab(green, [1.05, 1.0, 0.0], [0.1, 2.2, 2.2])     # right
+
+    light = ModelLoader.load_cube()
+    light.meshes[0].material.material_type = MaterialType.DIFFUSE_LIGHT
+    renderer.add_model(
+        light, math3d.translation([0.0, 1.95, 0.0]) @ math3d.scale([0.50, 0.05, 0.35])
+    )
+
+    slab(white, [-0.38, 0.55, -0.35], [0.55, 1.1, 0.55])  # tall box
+    slab(white, [0.42, 0.28, 0.25], [0.56, 0.56, 0.56])   # short box
+
+
+def create_metal_rough_spheres(renderer: Renderer, camera: Camera) -> None:
+    """scenes.rs:32-56: the MetalRoughSpheres glTF. Without the asset (the
+    only case ported) nothing, as the JAX package builds it then."""
+    camera.set_position_target([0.0, 0.9, 2.0], [0.0, 0.5, 0.0])
+    _refuse_asset("prototype/data/models/MetalRoughSpheresNoTextures/glTF/"
+                  "MetalRoughSpheresNoTextures.gltf")
+
+
+def create_cube_scene(renderer: Renderer, camera: Camera) -> None:
+    """scenes.rs:152-189: a giant floor and a 30x10 grid of cubes."""
+    camera.set_position_target([-2.5, 3.0, -2.5], [10.0, 1.0, 10.0])
+    floor = ModelLoader.load_cube()
+    renderer.add_model(floor, math3d.scale([10000.0, 0.1, 10000.0]))
+    for x in range(30):
+        for z in range(10):
+            cube = ModelLoader.load_cube()
+            renderer.add_model(
+                cube,
+                math3d.translation([x * 2.0, 0.0, z * 2.0]) @ math3d.scale([1.0, 2.0, 1.0]),
+            )
+
+
+def create_restir_many_lights_scene(renderer: Renderer, camera: Camera,
+                                    num_lights: int = 128) -> None:
+    """The bench's 128-light scene (its config 4): `num_lights` point lights
+    at two heights through the atrium, placed with `default_rng(4)`, then
+    the Sponza scene."""
+    camera.set_position_target([-10.28, 2.10, -0.18], [0.0, 0.5, 0.0])
+    rng = np.random.default_rng(4)
+    for i in range(num_lights):
+        renderer.add_light(
+            position=[-11.0 + (i % 16) * 1.5,
+                      1.0 + (i // 64) * 2.5 + rng.uniform(0.0, 0.5),
+                      -5.0 + ((i // 16) % 4) * 3.0],
+            color=list(0.5 + 0.5 * rng.uniform(size=3)),
+            range_=1.0,
+        )
+    create_sponza_scene(renderer, camera)
+
+
+def create_rtiow_scene(renderer: Renderer, camera: Camera) -> None:
+    """The bench's config 1: the Ray Tracing in One Weekend scene of four
+    analytic spheres (diffuse ground and centre, glass, metal)."""
+    camera.set_position_target([0.0, 1.0, 4.0], [0.0, 0.5, -1.0])
+
+    ground = Material(
+        base_color_factor=np.array([0.5, 0.5, 0.5, 1.0], np.float32),
+        material_type=MaterialType.LAMBERTIAN,
+    )
+    center = Material(
+        base_color_factor=np.array([0.1, 0.2, 0.5, 1.0], np.float32),
+        material_type=MaterialType.LAMBERTIAN,
+    )
+    glass = Material(material_type=MaterialType.DIELECTRIC, material_property=1.5)
+    metal = Material(material_type=MaterialType.METAL, material_property=0.0)
+
+    renderer.add_sphere([0.0, -100.5, -1.0], 100.0, material=ground)
+    renderer.add_sphere([0.0, 0.5, -1.0], 0.5, material=center)
+    renderer.add_sphere([-1.1, 0.5, -1.0], 0.5, material=glass)
+    renderer.add_sphere([1.1, 0.5, -1.0], 0.5, material=metal)
 
 
 def create_sponza_scale_scene(renderer: Renderer, camera: Camera) -> None:

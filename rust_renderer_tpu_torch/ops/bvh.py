@@ -646,9 +646,7 @@ def make_any_hit(bvh: BVH, wide: bool = True, ordered: bool = False,
         if scene.sphere_center.shape[0] > 0:
             shape = t.shape
             best = Hit(
-                t=torch.broadcast_to(
-                    torch.as_tensor(t_max, dtype=torch.float32, device=t.device),
-                    shape),
+                t=traversal.flat_limit(t_max, shape, t.device).reshape(shape),
                 kind=torch.zeros(shape, dtype=torch.int32, device=t.device),
                 prim=torch.zeros(shape, dtype=torch.int32, device=t.device),
                 u=torch.zeros(shape, dtype=torch.float32, device=t.device),

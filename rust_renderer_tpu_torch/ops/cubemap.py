@@ -60,12 +60,16 @@ def _bilinear(texels: torch.Tensor, offset, size, face, u, v) -> torch.Tensor:
     texels a side stored from row `offset` of `texels` (N, C); `offset` and
     `size` may vary per sample. The sample point is clamped to [0, S-1] in
     texel space before floor / frac."""
-    fsize = torch.as_tensor(size, dtype=torch.float32, device=u.device)
+    # A size given as an int is made on the device (a host copy would stall
+    # the stream and cannot be captured into a CUDA graph).
+    as_device = lambda dtype: (size.to(dtype) if torch.is_tensor(size)
+                               else torch.full((), size, dtype=dtype, device=u.device))
+    fsize = as_device(torch.float32)
     fx = torch.minimum(torch.clamp_min(u * fsize - 0.5, 0.0), fsize - 1.0)
     fy = torch.minimum(torch.clamp_min(v * fsize - 0.5, 0.0), fsize - 1.0)
     x0, y0 = torch.floor(fx), torch.floor(fy)
     wx, wy = (fx - x0)[..., None], (fy - y0)[..., None]
-    size = torch.as_tensor(size, dtype=torch.int64, device=u.device)
+    size = as_device(torch.int64)
     x0, y0 = x0.to(torch.int64), y0.to(torch.int64)
     x1, y1 = torch.minimum(x0 + 1, size - 1), torch.minimum(y0 + 1, size - 1)
     base = offset + face * size * size

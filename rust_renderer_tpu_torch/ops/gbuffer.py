@@ -52,7 +52,9 @@ def _shade(scene, tri, u, v, covered):
     """Attribute fetch + normal mapping (gbuffer.frag:26-51). tri: (H,W)
     triangle ids; u, v barycentrics of v1, v2. Returns the four planes."""
     dev = tri.device
-    clear = torch.tensor([1.0, 1.0, 1.0, 0.0], dtype=torch.float32, device=dev)
+    # Made on the device: a host copy cannot be captured into a CUDA graph.
+    clear = torch.ones(4, dtype=torch.float32, device=dev)
+    clear[3:].zero_()
     if scene.indices.shape[0] == 0:
         c = torch.broadcast_to(clear, tri.shape + (4,))
         return c, c, c, c

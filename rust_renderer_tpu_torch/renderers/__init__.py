@@ -267,6 +267,11 @@ def build_path_tracing_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_di
         for name in _reservoir_names("spatial_reuse_reservoirs"):
             pb.read(name)
     pb.write("pt_output").write("accumulation_image").write("pt_rays")
+    if cfg.split_pt_program:
+        # Isolated as in the JAX package (its own XLA program there); after
+        # the ReSTIR passes, or reading the carried accumulation, it keeps
+        # the graph off the device loop (Graph.device_loop_unsupported_reason).
+        pb.isolate()
     pb.render(reference_pt).build()
 
     # 7. present blit (mod.rs:360-374; the PT output is already sRGB).

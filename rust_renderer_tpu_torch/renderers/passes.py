@@ -28,6 +28,9 @@ from rust_renderer_tpu_torch.ops.raster import VisibilityBuffer
 
 GBUFFER_PLANES = ("gbuffer_position", "gbuffer_normal", "gbuffer_albedo",
                   "gbuffer_pbr", "gbuffer_depth")
+# The host sync of the passes that rasterize on the card (PassBuilder.host_sync).
+BINS_SYNC = ("reads its triangle bins back to the host "
+             "(ops/raster_binned.py::bin_triangles)")
 
 
 def _camera_rays(view, width: int, height: int):
@@ -126,7 +129,10 @@ def setup_shadow_pass(graph: Graph, camera, sun_dir, enabled: bool, size: int = 
             method=method) for i in range(cascade_count)]
         return {"shadow_map": torch.stack(layers)}
 
-    graph.add_pass("shadow").write("shadow_map").render(render).build()
+    builder = graph.add_pass("shadow").write("shadow_map").render(render)
+    if enabled:
+        builder.host_sync(BINS_SYNC)
+    builder.build()
     return matrices, split_depths
 
 
@@ -352,7 +358,7 @@ def setup_marching_cubes_pass(graph: Graph, cfg, width: int, height: int,
 
     (graph.add_pass("marching_cubes").read("gbuffer_depth").read(target)
      .write(target).write("gbuffer_depth").write("marching_cubes_draw_count")
-     .render(render).build())
+     .render(render).host_sync(BINS_SYNC).build())
 
 
 # -- present (renderers/present.rs) --------------------------------------------

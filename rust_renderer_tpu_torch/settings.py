@@ -38,8 +38,9 @@ class StaticConfig:
     lane order (``ops/compaction.py``), and `seed_rows` the leaf rows of the
     any-hit queries' seed test (``ops/bvh.py::make_seed_test``; PT and RT
     shadows): they schedule the walk and leave the hits exact. 0 turns each
-    off. `split_pt_program` is kept so that configurations carry over, and
-    does nothing here: it split a TPU program.
+    off. `split_pt_program` is kept so that configurations carry over: it
+    split a TPU program, and here only isolates the path-tracing pass as
+    the JAX package does, which keeps `run_on_device` on the host loop.
     """
 
     width: int = 2000

@@ -752,3 +752,33 @@ def test_raster_frames_on_card_match_cpu(cuda_device, mode):
     diff = np.abs(got - render("cpu"))
     assert (diff.max(axis=-1) <= 1e-3).mean() >= 0.99
     assert diff.mean() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sky_mode", ["exact", "cubemap"])
+def test_pt_loop_captured_matches_host_loop_on_card(cuda_device, sky_mode):
+    """`run_on_device` on the card: a 64² PT loop, captured into a CUDA
+    graph, against the host loop (`run`), 3 frames and then 2 more (pure
+    replay): the carried state bit for bit, one capture, and the counters
+    mirrored on the host."""
+    size = 64
+    cfg = StaticConfig(num_bounces=3, sky_mode=sky_mode, cubemap_size=16, cubemap_mips=2,
+                       irradiance_size=8, brdf_lut_size=16)
+
+    def make():
+        app = Application(size, size, cfg=cfg, device=cuda_device)
+        app.fps_timer.elapsed_seconds = lambda: 0.25
+        app.create_scene()
+        return app
+
+    host, loop = make(), make()
+    for n in (3, 2):
+        want = host.run(n)
+        img = loop.run_on_device(n, tstep=0.0)
+        assert loop.graph.last_loop_form == "captured"
+        assert loop.graph.captures == 1
+        assert host.total_samples == loop.total_samples
+        for name, state in host.graph.state.items():
+            assert torch.equal(loop.graph.state[name], state), name
+        assert img.device.type == "cuda"
+        np.testing.assert_array_equal(img.cpu().numpy(), want)

@@ -122,23 +122,11 @@ def test_path_trace_matches_jax_on_shared_inputs():
 
 
 def _sphere_scene(package):
-    """The four spheres of the JAX package's RTIOW scene (diffuse ground and
-    centre, glass, metal), built through `package`'s own Renderer.add_sphere
-    (the port has no `create_rtiow_scene` yet), with its camera."""
+    """The RTIOW scene (diffuse ground and centre, glass, metal), built by
+    `package`'s own `models.create_rtiow_scene`, with its camera."""
     renderer = package.Renderer()
     camera = package.Camera([0, 1, 4], [0, 0.5, -1], fov_degrees=60.0, aspect_ratio=1.0)
-    material, kind = package.scene.Material, package.scene.MaterialType
-    for center, radius, m in (
-            ([0.0, -100.5, -1.0], 100.0,
-             material(base_color_factor=np.array([0.5, 0.5, 0.5, 1.0], np.float32),
-                      material_type=kind.LAMBERTIAN)),
-            ([0.0, 0.5, -1.0], 0.5,
-             material(base_color_factor=np.array([0.1, 0.2, 0.5, 1.0], np.float32),
-                      material_type=kind.LAMBERTIAN)),
-            ([-1.1, 0.5, -1.0], 0.5,
-             material(material_type=kind.DIELECTRIC, material_property=1.5)),
-            ([1.1, 0.5, -1.0], 0.5, material(material_type=kind.METAL, material_property=0.0))):
-        renderer.add_sphere(center, radius, material=m)
+    package.models.create_rtiow_scene(renderer, camera)
     return renderer, camera
 
 
@@ -149,11 +137,12 @@ def test_furnace_test_matches_jax():
     package's, furnace on and off, under this file's tolerance; with it on,
     the top row (the sky) is 1.0 to 1e-5 in both, and off it is black."""
     import rust_renderer_tpu as jax_rt
+    import rust_renderer_tpu.models  # noqa: F401  (package.models above)
     from rust_renderer_tpu.ops import pathtrace as jax_pathtrace
     from rust_renderer_tpu.settings import RenderSettings as JaxRenderSettings
 
     import rust_renderer_tpu_torch as torch_rt
-    import rust_renderer_tpu_torch.scene  # noqa: F401  (package.scene above)
+    import rust_renderer_tpu_torch.models  # noqa: F401  (package.models above)
     from rust_renderer_tpu_torch.convert import view_from_numpy
     from rust_renderer_tpu_torch.ops import bvh as torch_bvh
     from rust_renderer_tpu_torch.ops import pathtrace
