@@ -30,68 +30,89 @@ one nvcc per source, started together; then:
    busy share of one torch.profiler window of each;
 5. PT parity: one 128x128 scene at the defaults on the CPU (plain versions)
    and on the card;
-6. Sponza-scale PT main path: the 260k-triangle scene with the bench's
+6. config 5 (bench.py:251-253): Application(1920, 1080, PATH_TRACED) on the
+   default scene at the bench's PT settings with
+   view.marching_cubes_enabled = 1 (mc_grid 32): 4 frames (launches a
+   frame: K1 12 closest + 10 any-hit, the seed kernel 5, nothing else),
+   per-pass ms (mc_extract and mc_refit apart), the MC material's pixels in
+   the bench's view, the refit tables' size, the frame with MC off and on
+   in turns; K1 on the dynamic tree against the plain walk on config 5's
+   primary, bounce and NEE fronts, timed beside K1 on the scene's tree,
+   with its own walk's bound; then its device loop as phase 4 (with the
+   peak device memory of the first call, the stacked prefix tables
+   included);
+7. MC PT parity: one 128x128 config-5 frame with the camera on the MC
+   region, on the CPU and on the card;
+8. Sponza-scale PT main path: the 260k-triangle scene with the bench's
    settings (cubemap sky, 5 bounces, 1 spp), 4 frames at 1920x1080 at the
    defaults, then the turns of phase 2; scene and BVH build times (the
    q32 collapse included), launch counts; then its device loop as phase 4;
-7. traversal variants: on the primary, bounce and any-hit fronts of both
+9. traversal variants: on the primary, bounce and any-hit fronts of both
    scenes at 1920x1080, `traverse(...)` under every kernel option set (K3-lq
    at flush_k 4 and 8, K3-multi at m 2, 4 and 8 among them): each launch
    moves the counter of the kernel that `select_kernel` names, each result
    is held against the plain walk (K3-multi also against K3 wide, bit for
    bit), each option set is timed beside K1 on the same front; a table of
    K1 beside K3 wide and K3 wide ordered on the six fronts;
-8. K1's bounds: K1's stats form (`traverse(..., phase_stats=True)`) counts
+10. K1's bounds: K1's stats form (`traverse(..., phase_stats=True)`) counts
    the child-box slab tests and triangle tests of K1's own walk on each
    front, K3's stats those of K3 wide's walk (the yardstick of the other
    kernels); a bound is the larger of operations over 33.5e12 unfused f32
    operations/s and bytes over 3.35 TB/s. K2's leaf-queue depth per ray on
    each front, with the queue uncapped and at K2_QUEUE_CAP, and its scratch
    bytes per launch;
-9. compaction: on the same fronts, `traverse_compacted` around K1 at the
+11. compaction: on the same fronts, `traverse_compacted` around K1 at the
    frame's two window requests (45 / 81 blocks on a 1080p front, 54 / 90 on
    the doubled any-hit front), "live" and "morton" orders, and around
    K3-multi (m = 4) on the any-hit fronts: hits bit-equal to K1's; device
    times of the permutation alone and of the walk of the permuted front,
    event times of the permutation and of the whole call, beside K1 alone;
    the live-lane share;
-10. seed test: on the any-hit front of each scene, the seed kernel against
+12. seed test: on the any-hit front of each scene, the seed kernel against
    its plain version (verdicts and walk directions), seeded any-hit against
    the walk, the share of rays it kills, its device time against its
    bound, seed + K1 against K1 alone by events;
-11. a tree deeper than K1's stack takes (nested shells, wide depth > 14):
+13. a tree deeper than K1's stack takes (nested shells, wide depth > 14):
    the hit queries send it to K2, which matches the plain walk;
-12. RASTERIZED main path: Application(1920, 1080, RASTERIZED), default
+14. RASTERIZED main path: Application(1920, 1080, RASTERIZED), default
    StaticConfig (4 shadow cascades of 4096^2, 512^2 cubemap; RT shadows
    seeded), marching cubes on, 4 frames; launch counts, frame times (frame
    1, which captures the environment, apart), per-pass times of one more
    frame; run_on_device(2), eager (the shadow pass bins on the host) with
    its reason, against a host frame;
-13. MINIMAL main path: the same at 1920x1080;
-14. K4 against its plain version on the 4 cascades of the default scene at
+15. MINIMAL main path: the same at 1920x1080;
+16. K4 against its plain version on the 4 cascades of the default scene at
    4096^2 (bit for bit), with its work plan (items, the longest item's
    rows), the (row, pixel) box pairs it tests and the share of (tile,
    global row) pairs the boxes cull; and K5 on the marching-cubes front at
    1920x1080 over the gbuffer depth, with its plan and box pairs; times on
    the device alone and by events, global-list lengths, longest segments
    and bounds;
-15. raster parity: one small RASTERIZED frame with marching cubes on the CPU
+17. raster parity: one small RASTERIZED frame with marching cubes on the CPU
    (brute rasterizer, plain walk) and on the card (K4, K5, K1, the seed
    kernel);
-16. the bench's other scenes at its sizes and settings: RTIOW PT at
+18. raster visibility: the gbuffer pass's raster branch
+   (`setup_gbuffer_pass(use_raycast=False)`: K5 over the default scene,
+   `gbuffer.from_visibility`) at 1920x1080, 3 frames (K5 once a frame,
+   nothing else), ms beside the ray-cast gbuffer; at 96x96 its planes
+   against the CPU's pieces with K5's plain version, and beside the CPU's
+   pass (brute rasterizer) with the pixels where the two rasterizers pick
+   another triangle and the depth gap there;
+19. the bench's other scenes at its sizes and settings: RTIOW PT at
    256x256, the cube scene RASTERIZED at 512x512, the 128-light scene PT at
    1920x1080 (per-pass ms): ms per frame of the host loop and of
    run_on_device, launches a frame, pt_rays;
-17. golden gates (tests/test_pathtrace_golden.py's, on the card): RTIOW at
+20. golden gates (tests/test_pathtrace_golden.py's, on the card): RTIOW at
    256x256 and the Cornell stand-in at 128x128, 96 frames of 1 spp through
    one captured run_on_device call, against tests/golden/*.npy (8x8-block
    RMSE < 0.01, a 1.5% bias caught, region energies, wall colours);
-18. furnace test: a small PT frame of the RTIOW scene's four spheres with
+21. furnace test: a small PT frame of the RTIOW scene's four spheres with
    StaticConfig(furnace_test=True) and the sky, sun and lights off, on the
    card and on the CPU: the frames agree and the top row (the sky) is 1.0.
 
 Each main path is driven with every launch count set to 0 just before it
-and read just after. Every failed check raises. Exits non-zero, printing no
+and read just after. Every failed check raises. The last log line gives
+the script's total seconds. Exits non-zero, printing no
 result, when torch sees no GPU. The last line is {"ok": true, ...}.
 """
 
@@ -206,10 +227,21 @@ TIMING_ROUNDS, TIMING_REPS = 3, 5
 # that passes (0 is expected: no float atomic is on the PT path). The golden
 # gates' frames and bounces (tests/test_pathtrace_golden.py).
 LOOP_FRAMES, LOOP_ATOL = 4, 1e-6
-PROFILED_FRAMES = 2  # frames in the window whose device busy share is read
+# Frames in the window whose device busy share is read: LOOP_FRAMES, since a
+# graph with an isolated prefix (config 5) stacks its tables over the N
+# frames of a call, so another N captures anew.
+PROFILED_FRAMES = LOOP_FRAMES
 GOLD_FRAMES, GOLD_BOUNCES = 96, 3
 # The bench's sizes of the RTIOW (PT) and cube (RASTERIZED) scenes.
 RTIOW_SIZE, CUBE_SIZE = 256, 512
+# The bench's config 5 (bench.py:251-253, :101-111): the default scene with
+# the traced marching-cubes isosurface at the bench's PT settings, mc_grid
+# 32; frames with MC on and off in turns; the parity frame's size, clock
+# and camera (on the MC region, tests/test_mc_pt.py:173).
+MC_CFG = dict(SPONZA_CFG, mc_grid=32)
+MC_TURNS = 3
+MC_PARITY_SIZE, MC_TIME = 128, 1.7
+MC_EYE, MC_TARGET = [58.0, 38.0, 58.0], [10.0, 18.0, 10.0]
 
 
 START = time.perf_counter()
@@ -307,6 +339,11 @@ class Launches:
             ("k1q", "k2_sd", "k2_sdd", *(f"k3_{v}" for v in Launches.K3_VARIANTS)), 0)
         want.update(k1_closest=k1_closest, k1_any_hit=k1_any_hit, k4=k4, k5=k5, seed=seed)
         return want
+
+
+# Config 5's launches a frame: K1 on the scene's tree and on the dynamic tree
+# for every query, the seed test on the scene's tree only.
+MC_WANT = Launches.frame_want(2 * (1 + BOUNCES), 2 * BOUNCES, 0, 0, seed=BOUNCES)
 
 
 def check_image(label: str, img: torch.Tensor) -> None:
@@ -480,9 +517,11 @@ def compare_hits(label, got, plain, any_hit, bvh=None, ray=None) -> tuple[float,
     return (float(err.max()) if err.numel() else 0.0), len(explained)
 
 
-def make_fronts(app, traversal, rays, pathtrace) -> dict:
+def make_fronts(app, traversal, rays, pathtrace, dyn=None) -> dict:
     """The 1080p primary, bounce and NEE any-hit fronts of app's scene:
-    name -> (o, d, t_min, t_max, any_hit)."""
+    name -> (o, d, t_min, t_max, any_hit). With `dyn` (an ops/mc_bvh.py
+    DynamicScene), the primary hit is the nearer of the scene's and the
+    dynamic tree's, as config 5's frame finds it."""
     dev = app.device
     bvh = app.scene_bvh
     view = app.view.with_camera(app.camera, WIDTH, HEIGHT).to(dev)
@@ -493,9 +532,12 @@ def make_fronts(app, traversal, rays, pathtrace) -> dict:
     o, d = o.reshape(n, 3).contiguous(), d.reshape(n, 3).contiguous()
     t_min = torch.full((n,), 1e-3, device=dev)
     t_max = torch.full((n,), 1e4, device=dev)
-    t_hit, prim = traversal.traverse_plain(bvh.node_packed, bvh.leaf_packed, o, d, t_min,
-                                           t_max, False)[:2]
-    hit = prim >= 0
+    t_hit = traversal.traverse_plain(bvh.node_packed, bvh.leaf_packed, o, d, t_min,
+                                     t_max, False)[0]
+    if dyn is not None:
+        t_hit = torch.minimum(t_hit, traversal.traverse_plain(
+            dyn.bvh.node_packed, dyn.bvh.leaf_packed, o, d, t_min, t_max, False)[0])
+    hit = t_hit < rays.INF
     pos = o + t_hit[:, None] * d
     gen = torch.Generator(device=dev).manual_seed(7)
     bounce_d = torch.randn((n, 3), device=dev, generator=gen)
@@ -1260,6 +1302,240 @@ def furnace_phase(Application, StaticConfig, launches) -> dict:
     return got
 
 
+# -- config 5: the traced marching-cubes isosurface; the raster visibility -------
+
+
+def mc_frames_in_turns(app, launches, counted, want_on: dict, want_off: dict) -> None:
+    """Config 5's frame with the isosurface on and off (the graph rebuilt
+    without the MC passes), MC_TURNS of each in turns: launch counts per
+    frame, the medians and their difference."""
+    times = {"on": [], "off": []}
+    for i in range(2 * MC_TURNS):
+        key = ("on", "off")[i % 2]
+        app.view = app.view.replace(marching_cubes_enabled=np.int32(key == "on"))
+        launches.reset()
+        _, t = timed(app.render_frame)
+        times[key].append(t)
+        got = launches.read()
+        want = want_on if key == "on" else want_off
+        if got != want:
+            raise AssertionError(f"config 5 (MC {key}): launches {got}, expected {want}")
+        counted.update(got)
+    app.view = app.view.replace(marching_cubes_enabled=np.int32(1))
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    log(f"config 5 frames in turns, MC on / off: {[round(x, 2) for x in times['on']]} / "
+        f"{[round(x, 2) for x in times['off']]} ms; medians {med['on']:.2f} / {med['off']:.2f} "
+        f"ms: the isosurface costs {med['on'] - med['off']:.2f} ms a frame "
+        f"(ratio {med['on'] / med['off']:.3f})")
+
+
+def dyn_k1_phase(app, dyn, traversal, rays, pathtrace) -> dict:
+    """K1 on the dynamic tree against the plain walk on the same refit
+    tables, on config 5's 1080p primary, bounce and NEE fronts: hits, K1's
+    time (events, and on the device alone) beside K1 on the scene's tree
+    on the same front, its own walk's counts and bound (its stats form)."""
+    fronts = make_fronts(app, traversal, rays, pathtrace, dyn=dyn)
+    bvh = dyn.bvh
+    out = {"max_abs_err": 0.0}
+    for name, front in fronts.items():
+        fo, fd, fmin, fmax, any_hit = front
+        k1 = lambda: traversal.traverse_wide_cuda(bvh.wnode_packed, bvh.leaf_packed,
+                                                  bvh.wide_depth, fo, fd, fmin, fmax, any_hit)
+        static = app.scene_bvh
+        k1_static = lambda: traversal.traverse_wide_cuda(
+            static.wnode_packed, static.leaf_packed, static.wide_depth, fo, fd, fmin, fmax,
+            any_hit)
+        want, plain_ms = timed(lambda: traversal.traverse_plain(
+            bvh.node_packed, bvh.leaf_packed, fo, fd, fmin, fmax, any_hit))
+        got = k1()
+        torch.cuda.synchronize()
+        err = compare_hits(f"K1 dynamic {name}", got, want, any_hit)[0]
+        k1()  # warm-up
+        ms = cuda_ms(k1, 20)
+        dev = [device_ms(k1, TIMING_REPS) for _ in range(TIMING_ROUNDS)]
+        dev_static = [device_ms(k1_static, TIMING_REPS) for _ in range(TIMING_ROUNDS)]
+        counts = k1_walk_counts(traversal, bvh, front)
+        bound = walk_bound(counts, bvh, "k1")
+        dev_ms, static_ms = sorted(dev)[1], sorted(dev_static)[1]
+        log(f"K1 dynamic tree front={name} rays={fd.shape[0]} hits={int((got[1] >= 0).sum())} "
+            f"(plain {int((want[1] >= 0).sum())}) max_abs_err_t={err:.3e} k1_ms={ms:.4f} "
+            f"(device alone {dev_ms:.4f}; the scene's tree on this front {static_ms:.4f}) "
+            f"plain_ms={plain_ms:.3f}; its walk: {counts['iterations']} iterations, "
+            f"{counts['box_tests']} slab and {counts['tri_tests']} triangle tests, lanes busy "
+            f"{counts['lanes_busy']:.3f}; bound {bound['bound_ms']:.4f} ms "
+            f"({bound['bound_by']}; {dev_ms / bound['bound_ms']:.1f}x)")
+        out["max_abs_err"] = max(out["max_abs_err"], err)
+        out[name] = dict(ms=dev_ms, bound_ms=bound["bound_ms"], static_ms=static_ms)
+    return out
+
+
+def mc_phase(Application, StaticConfig, create_scene, launches, counted, traversal, rays,
+             pathtrace, mc_bvh) -> dict:
+    """Config 5 (bench.py:251-253) at 1920x1080: the default scene, the
+    bench's PT settings, mc_grid 32, the isosurface on. FRAMES host frames
+    (launches: K1 12 closest + 10 any-hit, 5 seed, nothing else), the
+    per-pass ms of one more frame, the MC material's pixels in the bench's
+    view, the same frame with MC off in turns, and K1 on the dynamic tree's
+    own fronts (`dyn_k1_phase`)."""
+    torch.cuda.reset_peak_memory_stats()
+    app = Application(WIDTH, HEIGHT, cfg=StaticConfig(**MC_CFG), device="cuda")
+    app.view = app.view.replace(marching_cubes_enabled=np.int32(1))
+    app.create_scene(create_scene)
+    counted.update(run_frames("config 5 (MC PT)", app, launches, MC_WANT)[0])
+    outputs = pass_times("config 5 (MC PT)", app)
+    material = app.renderer.ensure_mc_material()
+    pixels = int((outputs["gbuffer"]["gbuffer_pbr"][..., 3] == material).sum())
+    tables = outputs["mc_refit"]
+    leaf_ids = tables["mc_leaf"][:, 9 * traversal.K1_LEAF_SLOTS:].contiguous().view(torch.int32)
+    table_bytes = sum(t.numel() * t.element_size() for t in tables.values())
+    log(f"config 5: {pixels} pixels of the MC material (id {material}) in the bench's view "
+        f"(default camera); MC vertices {int(outputs['mc_extract']['marching_cubes_draw_count'][0])}"
+        f", live triangle slots {int((leaf_ids >= 0).sum())} in {tables['mc_leaf'].shape[0]} "
+        f"leaf rows, {tables['mc_wnode'].shape[0]} wide nodes; refit tables "
+        f"{table_bytes / 2**20:.2f} MiB a frame ({LOOP_FRAMES * table_bytes / 2**20:.2f} MiB "
+        f"stacked for a {LOOP_FRAMES}-frame device loop)")
+    mc_frames_in_turns(app, launches, counted, MC_WANT,
+                       Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0, seed=BOUNCES))
+    dyn = mc_bvh.dynamic_scene_from_tables(tables, MC_CFG["mc_grid"], material)
+    result = dyn_k1_phase(app, dyn, traversal, rays, pathtrace)
+    log(f"config 5 peak device memory of this phase {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB (frames, per-pass frame, turns, the fronts and their walks)")
+    return result
+
+
+def mc_parity_phase(Application, StaticConfig) -> None:
+    """One MC PT frame at MC_PARITY_SIZE (default scene, mc_grid 32, the
+    camera on the MC region) on the CPU (plain versions) and on the card
+    (K1 on both trees): the PT parity tolerance, equal pt_rays, and MC
+    pixels in both."""
+    frames = {}
+    for device in ("cpu", "cuda"):
+        app = Application(MC_PARITY_SIZE, MC_PARITY_SIZE,
+                          cfg=StaticConfig(num_bounces=BOUNCES, mc_grid=MC_CFG["mc_grid"]),
+                          device=device)
+        app.fps_timer.elapsed_seconds = lambda: MC_TIME
+        app.view = app.view.replace(marching_cubes_enabled=np.int32(1))
+        app.create_scene()
+        app.camera.set_position_target(MC_EYE, MC_TARGET)
+        res = app.render_frame()
+        mc_px = int((res["gbuffer_pbr"][..., 3] == app.renderer.ensure_mc_material()).sum())
+        frames[device] = (res["present_output"].cpu(), float(res["pt_rays"].cpu()), mc_px)
+    (a, ra, pa), (b, rb, pb) = frames["cpu"], frames["cuda"]
+    diff = (a - b).abs()
+    within = float((diff.amax(dim=-1) <= 1e-3).float().mean())
+    mean = float(diff.mean())
+    log(f"MC PT parity {MC_PARITY_SIZE}x{MC_PARITY_SIZE}: MC pixels cpu={pa} cuda={pb}, rays "
+        f"cpu={ra:.0f} cuda={rb:.0f} within_1e-3={within:.5f} mean_abs={mean:.3e} "
+        f"max_abs={float(diff.max()):.3e}")
+    if ra != rb or pa == 0 or pb == 0 or within < 0.99 or mean > 1e-3 \
+            or not bool(torch.isfinite(b).all()):
+        raise AssertionError("MC PT parity: card and CPU frames disagree")
+
+
+def raster_gbuffer_planes(app, Graph, setup_gbuffer_pass, size: int, method=None) -> tuple:
+    """(the raster gbuffer pass's planes, the visibility buffer they come
+    from) at size x size. method None runs the pass itself
+    (`setup_gbuffer_pass(use_raycast=False)`: K5 on the card, the brute
+    path on the CPU); "binned" on the CPU gives its pieces with K5's plain
+    version, `gbuffer.from_visibility` of `raster.rasterize(...,
+    method="binned")`. Both read the visibility as the pass does."""
+    from rust_renderer_tpu_torch.ops import gbuffer, raster
+    from rust_renderer_tpu_torch.renderers.passes import GBUFFER_PLANES
+
+    view = app.view.to(app.device)
+    clip = raster.transform_vertices(app.scene.positions, view.projection @ view.view)
+    vis = raster.rasterize(clip, app.scene.indices, size, size, method=method or "auto")
+    if method is None:
+        g = Graph(app.device)
+        setup_gbuffer_pass(g, None, size, size, use_raycast=False)
+        planes = g.render(app.scene, app.view)
+    else:
+        planes = dict(zip(GBUFFER_PLANES, gbuffer.from_visibility(app.scene, vis)))
+    return {k: v.cpu() for k, v in planes.items()}, [x.cpu() for x in vis]
+
+
+def raster_gbuffer_phase(Application, StaticConfig, Graph, setup_gbuffer_pass, launches,
+                         counted) -> None:
+    """The gbuffer pass's raster branch (`setup_gbuffer_pass(use_raycast=
+    False)`: K5 over the scene, then `gbuffer.from_visibility`) on the
+    default scene at 1920x1080: 3 frames, launches (K5 once a frame, nothing
+    else), ms beside the ray-cast gbuffer (K1). Then at RASTER_PARITY_SIZE:
+
+    - the card's pass against its CPU pieces with K5's plain version
+      (`raster_gbuffer_planes(method="binned")`): triangle ids and material
+      ids equal, every value within 1e-4 + 1e-4 relative (K5's
+      barycentrics are within 1e-5 of its plain version's);
+    - the card's pass against the CPU's pass, which rasterizes by the brute
+      path (held to the JAX package's by tests/test_torch_raster_passes.py):
+      printed, not gated. The two rasterizers pick another triangle on some
+      pixels; the witness is that the CPU's own two rasterizers differ on
+      exactly those pixels, and the depth gap between the two picks there."""
+    app = Application(WIDTH, HEIGHT, cfg=StaticConfig(), device="cuda")
+    app.create_scene()
+    app._refresh_view()
+    ms = {}
+    for raycast in (False, True):
+        g = Graph(app.device)
+        setup_gbuffer_pass(g, app.scene_bvh, WIDTH, HEIGHT, use_raycast=raycast)
+        g.render(app.scene, app.view)  # warm-up
+        launches.reset()
+        out = [timed(lambda: g.render(app.scene, app.view)) for _ in range(3)]
+        got = launches.read()
+        if not raycast:
+            want = {k: 3 * v for k, v in Launches.frame_want(0, 0, 0, 1).items()}
+            if got != want:
+                raise AssertionError(f"raster gbuffer: launches {got}, expected {want}")
+            counted.update(got)
+            covered = float((out[-1][0]["gbuffer_depth"] < 1.0).float().mean())
+        ms["raster (K5)" if not raycast else "ray cast (K1)"] = sorted(t for _, t in out)[1]
+    log(f"raster gbuffer {WIDTH}x{HEIGHT}: covered share {covered:.4f}; pass ms (median of 3) "
+        + ", ".join(f"{k} {v:.2f}" for k, v in ms.items()) + "; launches a frame {'k5': 1}")
+    del app
+    size = RASTER_PARITY_SIZE
+    apps = {}
+    for device in ("cpu", "cuda"):
+        apps[device] = Application(size, size, cfg=StaticConfig(), device=device)
+        apps[device].create_scene()
+        apps[device]._refresh_view()
+    card, card_vis = raster_gbuffer_planes(apps["cuda"], Graph, setup_gbuffer_pass, size)
+    plain, plain_vis = raster_gbuffer_planes(apps["cpu"], Graph, setup_gbuffer_pass, size,
+                                             "binned")
+    brute, brute_vis = raster_gbuffer_planes(apps["cpu"], Graph, setup_gbuffer_pass, size)
+
+    def shares(ref) -> tuple:
+        parts, worst = [], 1.0
+        for name, want in ref.items():
+            got = card[name]
+            within = float(torch.isclose(got, want, rtol=1e-4, atol=1e-4).float().mean())
+            worst = min(worst, within)
+            parts.append(f"{name} {within:.5f} (max |diff| "
+                         f"{float((got - want).abs().max()):.3e})")
+        return ", ".join(parts), worst
+
+    text, worst = shares(plain)
+    same_tri = torch.equal(card_vis[1], plain_vis[1])
+    same_ids = torch.equal(card["gbuffer_pbr"][..., 3], plain["gbuffer_pbr"][..., 3])
+    log(f"raster gbuffer parity {size}x{size} card vs CPU pieces (K5's plain version): "
+        f"triangle ids {'equal' if same_tri else 'differ'}, material ids "
+        f"{'equal' if same_ids else 'differ'}; share of values within 1e-4 + 1e-4 "
+        f"relative: {text}")
+    text, _ = shares(brute)
+    picked = card_vis[1] != brute_vis[1]
+    cpu_picked = plain_vis[1] != brute_vis[1]
+    gap = (card_vis[0] - brute_vis[0]).abs()[picked]
+    buckets = ", ".join(f"<= {t:g}: {int((gap <= t).sum())}" for t in (1e-6, 1e-5, 1e-4, 1e-3))
+    log(f"raster gbuffer {size}x{size} card vs the CPU's pass (brute rasterizer): share of "
+        f"values within 1e-4 + 1e-4 relative: {text}")
+    log(f"raster gbuffer {size}x{size} tie witness: covered pixels "
+        f"{int((brute_vis[1] >= 0).sum())}; card's triangle != brute's on {int(picked.sum())}, "
+        f"the CPU's binned (K5's plain) != brute's on {int(cpu_picked.sum())}, the same pixels: "
+        f"{torch.equal(picked, cpu_picked)}; one side uncovered there "
+        f"{int((picked & ((card_vis[1] < 0) | (brute_vis[1] < 0))).sum())}; depth gap between "
+        f"the two picks {buckets}, max {float(gap.max()) if gap.numel() else 0.0:.3e}")
+    if worst < 1.0 or not same_ids or not same_tri or not torch.equal(picked, cpu_picked):
+        raise AssertionError("raster gbuffer parity: card and CPU planes disagree")
+
+
 # -- the device loop, the bench's other scenes, the golden gates -----------------
 
 
@@ -1270,14 +1546,16 @@ def host_frames(app, n: int) -> tuple:
     return out["present_output"], ms / n
 
 
-def twin_apps(Application, cfg, builder, mode, size=None) -> list:
+def twin_apps(Application, cfg, builder, mode, size=None, view=None) -> list:
     """Two Applications of one configuration and scene (at `size`, else
     WIDTH x HEIGHT), the clock pinned (view.time seeds every random
-    stream): one for the host loop, one for run_on_device."""
+    stream), the view's fields `view` set: one for the host loop, one for
+    run_on_device."""
     apps = []
     for _ in range(2):
         app = Application(*(size or (WIDTH, HEIGHT)), mode, cfg=cfg, device="cuda")
         app.fps_timer.elapsed_seconds = lambda: PARITY_TIME
+        app.view = app.view.replace(**(view or {}))
         app.create_scene(builder)
         apps.append(app)
     return apps
@@ -1328,7 +1606,8 @@ def share(x: float | None) -> str:
     return "not measured (no device event in the trace)" if x is None else f"{x:.3f}"
 
 
-def loop_phase(label, Application, mode, cfg, builder, launches, counted, want: dict) -> None:
+def loop_phase(label, Application, mode, cfg, builder, launches, counted, want: dict,
+               view=None) -> None:
     """PT at 1920x1080 through `run_on_device`, held to the host loop from one
     starting state: LOOP_FRAMES host frames against run_on_device(LOOP_FRAMES)
     (frame 1 eagerly, the capture, replays), then LOOP_FRAMES more of each
@@ -1336,8 +1615,10 @@ def loop_phase(label, Application, mode, cfg, builder, launches, counted, want: 
     counters: the first call moves two frames' worth (frame 1 and the
     capture's recording), a replay none, so a captured frame's launches are
     the eager frame's. Then ms per frame of each and the device's busy share
-    of one profiled window of each."""
-    host, loop = twin_apps(Application, cfg, builder, mode)
+    of one profiled window of each. `view`: view fields set on both apps.
+    The peak device memory of the first call is read with both apps'
+    tensors resident."""
+    host, loop = twin_apps(Application, cfg, builder, mode, view=view)
     ms = {}
     for call in ("first call", "replay"):
         launches.reset()
@@ -1347,8 +1628,11 @@ def loop_phase(label, Application, mode, cfg, builder, launches, counted, want: 
             raise AssertionError(f"{label} host frames: launches {got}, expected {want} a frame")
         counted.update(got)
         launches.reset()
+        torch.cuda.reset_peak_memory_stats()
         loop_img, loop_ms = timed(lambda: loop.run_on_device(LOOP_FRAMES, tstep=0.0))
         ms[f"loop {call}"] = loop_ms / LOOP_FRAMES
+        if call == "first call":
+            peak = torch.cuda.max_memory_allocated() / 2**30
         got = launches.read()
         moved = {k: v * (2 if call == "first call" else 0) for k, v in want.items()}
         if got != moved or loop.graph.last_loop_form != "captured" or loop.graph.captures != 1:
@@ -1362,9 +1646,12 @@ def loop_phase(label, Application, mode, cfg, builder, launches, counted, want: 
         compare_loop(f"{label} {call} ({LOOP_FRAMES} frames)", host, loop, host_img, loop_img)
     busy = {"host": busy_share(lambda: host_frames(host, PROFILED_FRAMES)),
             "loop": busy_share(lambda: loop.run_on_device(PROFILED_FRAMES, tstep=0.0))}
+    if loop.graph.captures != 1:
+        raise AssertionError(f"{label}: the profiled window captured anew")
     log(f"{label}: form {loop.graph.last_loop_form}; ms per frame (CUDA events around "
         f"each call / {LOOP_FRAMES}): " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
-        + f"; replay / host {ms['loop replay'] / ms['host replay']:.3f}; device busy share "
+        + f"; replay / host {ms['loop replay'] / ms['host replay']:.3f}; peak device memory "
+        f"of the first call {peak:.2f} GiB (both apps resident); device busy share "
         f"(one torch.profiler window of {PROFILED_FRAMES} frames, host clock): host loop "
         f"{share(busy['host'])}, captured loop {share(busy['loop'])}; launches a frame "
         f"{ {k: v for k, v in want.items() if v} } (a captured frame's are the eager "
@@ -1517,9 +1804,11 @@ def main() -> int:
     from rust_renderer_tpu_torch.app.main import Application
     from rust_renderer_tpu_torch import models
     from rust_renderer_tpu_torch.models import create_scene, create_sponza_scale_scene
+    from rust_renderer_tpu_torch.graph import Graph
     from rust_renderer_tpu_torch.ops import (
-        bvh as bvh_ops, compaction, marching_cubes, pathtrace, raster, raster_binned, rays,
-        shadow, traversal)
+        bvh as bvh_ops, compaction, marching_cubes, mc_bvh, pathtrace, raster, raster_binned,
+        rays, shadow, traversal)
+    from rust_renderer_tpu_torch.renderers.passes import setup_gbuffer_pass
     from rust_renderer_tpu_torch.settings import RenderGraphMode, StaticConfig
 
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
@@ -1556,6 +1845,14 @@ def main() -> int:
     loop_phase("PT device loop", Application, RenderGraphMode.PATH_TRACED,
                StaticConfig(num_bounces=BOUNCES), create_scene, launches, counted, pt_want)
     pt_parity_phase(Application, StaticConfig)
+
+    # Config 5: PATH_TRACED with the traced marching-cubes isosurface.
+    dyn_k1 = mc_phase(Application, StaticConfig, create_scene, launches, counted, traversal,
+                      rays, pathtrace, mc_bvh)
+    loop_phase("config 5 device loop", Application, RenderGraphMode.PATH_TRACED,
+               StaticConfig(**MC_CFG), create_scene, launches, counted, MC_WANT,
+               view=dict(marching_cubes_enabled=np.int32(1)))
+    mc_parity_phase(Application, StaticConfig)
 
     # PATH_TRACED on the Sponza-scale scene, with the bench's settings.
     t0 = time.perf_counter()
@@ -1629,6 +1926,7 @@ def main() -> int:
     raster_loop("MINIMAL", app, launches, counted)
     del app
     raster_parity_phase(Application, StaticConfig, RenderGraphMode)
+    raster_gbuffer_phase(Application, StaticConfig, Graph, setup_gbuffer_pass, launches, counted)
     scene_phase(Application, StaticConfig, RenderGraphMode, models, launches, counted)
     golden_phase(Application, StaticConfig, models, launches, counted)
     counted.update(furnace_phase(Application, StaticConfig, launches))
@@ -1645,7 +1943,7 @@ def main() -> int:
         err = max(r["max_abs_err"] for r in runs)
         if key == "k1":
             launched += counted["k1_closest"] + counted["k1_any_hit"]
-            err = max(err, k1["max_abs_err"])
+            err = max(err, k1["max_abs_err"], dyn_k1["max_abs_err"])
         if key == "k2_sdd":
             launched += deep["launches"]
             err = max(err, deep["max_abs_err"])
@@ -1668,9 +1966,14 @@ def main() -> int:
                      "plain_ms": stats["plain_ms"], "bound_ms": stats["bound_ms"],
                      "bound_by": stats["bound_by"], "library_ms": None,
                      **({"outside_own_box": stats["outside_own_box"]}
-                        if "outside_own_box" in stats else {})})
+                        if "outside_own_box" in stats else {}),
+                     # K1 on config 5's dynamic tree, its primary front.
+                     **({"dynamic_ms": dyn_k1["primary"]["ms"],
+                         "dynamic_bound_ms": dyn_k1["primary"]["bound_ms"]}
+                        if key == "k1" else {})})
         if launched == 0:
             raise AssertionError(f"{key} was never launched on a main path")
+    log(f"chip_smoke total {time.perf_counter() - START:.1f} s")
     print(card)
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {

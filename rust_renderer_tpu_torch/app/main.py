@@ -151,12 +151,10 @@ class Application:
         self.graph.new_frame()
         self.graph.clear()
         if mode == RenderGraphMode.PATH_TRACED:
-            if int(self.view.marching_cubes_enabled):
-                raise NotImplementedError(
-                    "marching_cubes_enabled in PATH_TRACED: the traced isosurface "
-                    "(ops/mc_bvh.py) is not ported")
             build_path_tracing_render_graph(
                 self.graph, self.cfg, self.camera, self.scene_bvh, self.sun_dir,
+                marching_cubes_enabled=bool(int(self.view.marching_cubes_enabled)),
+                mc_material=self.renderer.ensure_mc_material(),
                 num_lights=self.renderer.get_num_lights())
         elif mode == RenderGraphMode.RASTERIZED:
             build_render_graph(

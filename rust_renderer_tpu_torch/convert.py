@@ -14,7 +14,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
-from rust_renderer_tpu_torch.ops.bvh import BVH, leaf_area_order
+from rust_renderer_tpu_torch.ops.bvh import BVH, LEAF_SIZE, leaf_area_order
 from rust_renderer_tpu_torch.ops.raster import VisibilityBuffer
 from rust_renderer_tpu_torch.renderer import PackedScene
 from rust_renderer_tpu_torch.settings import RenderSettings, to_tensor
@@ -104,3 +104,23 @@ def visibility_from_numpy(vis, device) -> VisibilityBuffer:
         tri=_tensor(tri.astype(np.int32), device),
         bary_u=_tensor(bary_u.astype(np.float32), device),
         bary_v=_tensor(bary_v.astype(np.float32), device))
+
+
+def dynamic_tables_from_numpy(tables: Mapping, device) -> dict[str, torch.Tensor]:
+    """The marching-cubes refit tables of the JAX package's
+    ``ops/mc_bvh.py::build_dynamic_tables`` (mc_wnode, mc_node, mc_leaf,
+    mc_tri_normals) as the port's, on `device`. The leaf rows go from the
+    JAX layout, 10 slots at 100 columns, to the port's 12 slots at 120
+    (``ops/mc_bvh.py``): the 10 slots in order, then two dead slots with
+    zero geometry and id -1."""
+    leaf = np.asarray(tables["mc_leaf"], np.float32)
+    rows, slots = leaf.shape[0], leaf.shape[1] // 10
+    geo = np.zeros((rows, LEAF_SIZE, 9), np.float32)
+    geo[:, :slots] = leaf[:, :9 * slots].reshape(rows, slots, 9)
+    ids = np.full((rows, LEAF_SIZE), -1, np.int32)
+    ids[:, :slots] = leaf[:, 9 * slots:].view(np.int32)
+    out = {name: _tensor(np.asarray(tables[name], np.float32), device)
+           for name in ("mc_wnode", "mc_node", "mc_tri_normals")}
+    out["mc_leaf"] = _tensor(np.concatenate([geo.reshape(rows, -1), ids.view(np.float32)], 1),
+                             device)
+    return out

@@ -276,7 +276,9 @@ class Graph:
           identity, since the capture holds their pointers, and kept alive
           with it; host values by value), the resource declarations, the
           state read as it is, the scene's tensors and `view_update`; not
-          N. A changed key captures anew. A failed capture raises.
+          N, except through the stacked prefix writes, which hold N frames
+          (so a graph with an isolated prefix captures anew for another
+          N). A changed key captures anew. A failed capture raises.
         - Eagerly, the same body N times: on CPU tensors, and on CUDA where
           `capture_unsupported_reason` gives a reason. `last_loop_form`
           says which.

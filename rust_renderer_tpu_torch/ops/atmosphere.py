@@ -11,6 +11,7 @@ import math
 
 import torch
 
+from rust_renderer_tpu_torch.ops.constants import device_constant
 from rust_renderer_tpu_torch.ops.rays import dot, length
 
 PLANET_RADIUS = 6371000.0
@@ -29,19 +30,6 @@ _OPTICAL_DEPTH_SAMPLES = 8
 _SCATTERING_SAMPLES = 16
 
 
-_CONSTANTS: dict = {}
-
-
-def _vec(values, like: torch.Tensor) -> torch.Tensor:
-    """A constant vector on `like`'s device, made once per device (a fresh
-    host-to-device copy per use would stall the stream)."""
-    key = (values, like.device)
-    if key not in _CONSTANTS:
-        _CONSTANTS[key] = torch.tensor(values, dtype=torch.float32,
-                                       device=like.device)
-    return _CONSTANTS[key]
-
-
 def _sphere_intersection(ray_start, ray_dir, center, radius):
     """(atmosphere.glsl:55-71): returns (t0, t1); both -1 on miss."""
     rs = ray_start - center
@@ -57,7 +45,8 @@ def _sphere_intersection(ray_start, ray_dir, center, radius):
 
 
 def atmosphere_intersection(ray_start, ray_dir):
-    return _sphere_intersection(ray_start, ray_dir, _vec(_PLANET_CENTER, ray_start),
+    return _sphere_intersection(ray_start, ray_dir,
+                                device_constant(_PLANET_CENTER, ray_start.device),
                                 PLANET_RADIUS + ATMOSPHERE_HEIGHT)
 
 
@@ -73,7 +62,7 @@ def _phase_mie(costh, g=0.85):
 
 
 def _atmosphere_height(position):
-    return length(position - _vec(_PLANET_CENTER, position)) - PLANET_RADIUS
+    return length(position - device_constant(_PLANET_CENTER, position.device)) - PLANET_RADIUS
 
 
 def _atmosphere_density(h):
@@ -102,9 +91,9 @@ def _absorb(optical_depth):
     like = optical_depth
     return torch.exp(
         -(
-            optical_depth[..., 0:1] * _vec(C_RAYLEIGH, like)
-            + optical_depth[..., 1:2] * _vec(C_MIE, like) * 1.1
-            + optical_depth[..., 2:3] * _vec(C_OZONE, like)
+            optical_depth[..., 0:1] * device_constant(C_RAYLEIGH, like.device)
+            + optical_depth[..., 1:2] * device_constant(C_MIE, like.device) * 1.1
+            + optical_depth[..., 2:3] * device_constant(C_OZONE, like.device)
         )
         * ATMOSPHERE_DENSITY
     )
@@ -153,7 +142,8 @@ def integrate_scattering(ray_start, ray_dir, ray_length, light_dir, light_color)
         prev_ray_time = ray_time
 
     transmittance = _absorb(optical_depth)
-    color = ((rayleigh * _vec(C_RAYLEIGH, rayleigh) + mie * _vec(C_MIE, mie))
+    color = ((rayleigh * device_constant(C_RAYLEIGH, rayleigh.device)
+              + mie * device_constant(C_MIE, mie.device))
              * light_color * EXPOSURE)
     return color, transmittance
 

@@ -1,10 +1,11 @@
-"""G-buffer from primary rays (the port of ``ops/gbuffer.py::from_rays``).
+"""G-buffer from primary rays or a visibility buffer (the port of
+``ops/gbuffer.py``'s `from_rays` and `from_visibility`).
 
 Rebuild of utopian/shaders/gbuffer/gbuffer.{vert,frag}: attribute fetch, TBN
 construction, normal mapping, and the MRT write of (world position, shading
 normal, albedo, (metallic, roughness, occlusion, material id)). Visibility
-comes from a closest-hit query per pixel. The clear value is (1,1,1,0), like
-the reference's color attachments (pass.rs:210-215).
+comes from a closest-hit query per pixel or from the rasterizer. The clear
+value is (1,1,1,0), like the reference's color attachments (pass.rs:210-215).
 """
 
 from __future__ import annotations
@@ -110,6 +111,15 @@ def _shade(scene, tri, u, v, covered):
         clear,
     )
     return out4(position), out4(normal), out4(diffuse[..., :3]), g_pbr
+
+
+def from_visibility(scene, vis) -> GBuffer:
+    """Gbuffer of a rasterized visibility buffer (``ops/raster.py``'s
+    VisibilityBuffer): the covered pixels' triangles shaded at their
+    barycentrics, the depth as rasterized."""
+    covered = vis.tri >= 0
+    p, n, a, pbr = _shade(scene, vis.tri, vis.bary_u, vis.bary_v, covered)
+    return GBuffer(position=p, normal=n, albedo=a, pbr=pbr, depth=vis.depth)
 
 
 def from_rays(scene, hit, origin, direction, projection_view=None) -> GBuffer:

@@ -2,7 +2,8 @@
 ``rust_renderer_tpu/ops/intersect.py``).
 
 Hit encoding mirrors what the reference's hit shaders receive: triangle id,
-barycentrics, and a kind: 0 = miss, 1 = triangle, 2 = analytic sphere.
+barycentrics, and a kind: 0 = miss, 1 = triangle, 2 = analytic sphere, 3 =
+the per-frame dynamic geometry (``ops/mc_bvh.py``'s marching-cubes tree).
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from rust_renderer_tpu_torch.ops import rays as rayops
 HIT_NONE = 0
 HIT_TRIANGLE = 1
 HIT_SPHERE = 2
+HIT_DYNAMIC = 3
 
 _TRI_CHUNK = 128
 
@@ -49,24 +51,14 @@ def _intersect_spheres(scene, origin, direction, t_min, t_max, best: Hit) -> Hit
     return best
 
 
-def closest_hit_bruteforce(scene, origin, direction, t_min=1e-3, t_max=1e4) -> Hit:
-    """Exhaustive closest hit over every triangle and sphere, chunked over
-    triangles. origin/direction: (..., 3). A reference for tests."""
-    shape = origin.shape[:-1]
-    dev = origin.device
-    best = Hit(
-        t=torch.full(shape, rayops.INF, dtype=torch.float32, device=dev),
-        kind=torch.zeros(shape, dtype=torch.int32, device=dev),
-        prim=torch.zeros(shape, dtype=torch.int32, device=dev),
-        u=torch.zeros(shape, dtype=torch.float32, device=dev),
-        v=torch.zeros(shape, dtype=torch.float32, device=dev),
-    )
-    n_tris = scene.indices.shape[0]
+def _intersect_triangles_chunked(scene, origin, direction, t_min, t_max, best: Hit) -> Hit:
+    """Merge every scene triangle into `best` (nearer hit wins), _TRI_CHUNK
+    triangles at a time; within a chunk the lowest id keeps a tie."""
     o = origin[..., None, :]
     d = direction[..., None, :]
     per_ray = lambda x: x[..., None] if torch.is_tensor(x) and x.ndim > 0 else x
     t_min_b, t_max_b = per_ray(t_min), per_ray(t_max)
-    for start in range(0, n_tris, _TRI_CHUNK):
+    for start in range(0, scene.indices.shape[0], _TRI_CHUNK):
         ids = scene.indices[start:start + _TRI_CHUNK].to(torch.int64)
         tv = scene.positions[ids]  # (C,3,3)
         t, u, v, _ = rayops.intersect_triangle(o, d, tv[:, 0], tv[:, 1], tv[:, 2],
@@ -81,7 +73,29 @@ def closest_hit_bruteforce(scene, origin, direction, t_min=1e-3, t_max=1e4) -> H
             u=torch.where(closer, pick(u), best.u),
             v=torch.where(closer, pick(v), best.v),
         )
+    return best
+
+
+def closest_hit_bruteforce(scene, origin, direction, t_min=1e-3, t_max=1e4) -> Hit:
+    """Exhaustive closest hit over every triangle and sphere, chunked over
+    triangles. origin/direction: (..., 3). A reference for tests."""
+    shape = origin.shape[:-1]
+    dev = origin.device
+    best = Hit(
+        t=torch.full(shape, rayops.INF, dtype=torch.float32, device=dev),
+        kind=torch.zeros(shape, dtype=torch.int32, device=dev),
+        prim=torch.zeros(shape, dtype=torch.int32, device=dev),
+        u=torch.zeros(shape, dtype=torch.float32, device=dev),
+        v=torch.zeros(shape, dtype=torch.float32, device=dev),
+    )
+    best = _intersect_triangles_chunked(scene, origin, direction, t_min, t_max, best)
     return _intersect_spheres(scene, origin, direction, t_min, t_max, best)
+
+
+def any_hit_bruteforce(scene, origin, direction, t_min=1e-3, t_max=1e4) -> torch.Tensor:
+    """Exhaustive occlusion query (shadow rays): whether anything is hit in
+    (t_min, t_max), as bool (...,), by the closest-hit search."""
+    return closest_hit_bruteforce(scene, origin, direction, t_min, t_max).is_hit
 
 
 class Surface(NamedTuple):

@@ -6,7 +6,9 @@ Every voxel owns MAX_TRIS_PER_VOXEL triangle slots; unused slots are
 collapsed to the origin (degenerate, they rasterize to nothing).
 `vertex_count` is the reference's DrawIndirectCommand.vertexCount. The
 triangle table (P. Bourke's public-domain table) is read by path from the
-JAX package's ``ops/mc_tables.bin``.
+JAX package's ``ops/mc_tables.bin``. The extraction's constants (the
+tables, corner offsets, the SDF's centres) are device tensors made once per
+device and value, so a frame copies nothing from the host.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from rust_renderer_tpu_torch import native
+from rust_renderer_tpu_torch.ops.constants import device_constant
 
 TABLES_PATH = os.path.join(native.REPO_DIR, "rust_renderer_tpu", "ops", "mc_tables.bin")
 MAX_TRIS_PER_VOXEL = 5
@@ -40,6 +43,13 @@ def tables() -> tuple[np.ndarray, np.ndarray]:
     return tri, ((tri >= 0).sum(1) // 3).astype(np.int32)
 
 
+@functools.lru_cache(maxsize=None)
+def _device_tables(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """`tables()` on `device`, made once."""
+    tri, count = tables()
+    return torch.tensor(tri, device=device), torch.tensor(count, device=device)
+
+
 def _norm(v):
     return torch.linalg.vector_norm(v, dim=-1)
 
@@ -48,7 +58,7 @@ def default_density(pos: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
     """marching_cubes.comp density(): a solid (-1) with a torus at
     (10,20,10), a box at (10,10,10) and a sphere at (10,26,10) pulsing with
     |sin(0.3 t)| carved out by max(-sdf, d)."""
-    vec = lambda *v: pos.new_tensor(v)
+    vec = lambda *v: device_constant(v, pos.device)
     d = torch.full(pos.shape[:-1], -1.0, dtype=torch.float32, device=pos.device)
     p = pos - vec(10.0, 20.0, 10.0)
     q = torch.stack([_norm(p[..., [0, 2]]) - 5.0, p[..., 1]], dim=-1)
@@ -78,8 +88,7 @@ def marching_cubes(density_fn=default_density, grid: int = 32, voxel_size: float
         raise ValueError("marching_cubes needs a device, or a time tensor on one")
     time = torch.as_tensor(time, dtype=torch.float32, device=device)
     dev = time.device
-    tri_np, count_np = tables()
-    tri_table = torch.tensor(tri_np, device=dev)
+    tri_table, tri_count = _device_tables(dev)
 
     n1 = grid + 1
     ii = torch.arange(n1, dtype=torch.float32, device=dev) * voxel_size
@@ -95,7 +104,7 @@ def marching_cubes(density_fn=default_density, grid: int = 32, voxel_size: float
         case = case | torch.where(corner_d[:, i] < iso_level, 1 << i, 0)
 
     base = torch.stack([vx, vy, vz], dim=-1).to(torch.float32) * voxel_size
-    corner = torch.tensor(_CORNER_OFFSETS * voxel_size, device=dev)
+    corner = device_constant(tuple(map(tuple, (_CORNER_OFFSETS * voxel_size).tolist())), dev)
     edge_pos = []
     for a, b in _EDGE_CORNERS:
         pa, pb = base + corner[a], base + corner[b]
@@ -125,12 +134,28 @@ def marching_cubes(density_fn=default_density, grid: int = 32, voxel_size: float
         flat_v = positions.reshape(-1, 3)
         grads = []
         for axis in range(3):
-            off = torch.zeros(3, device=dev)
-            off[axis] = 1.0
+            off = device_constant(tuple(float(i == axis) for i in range(3)), dev)
             grads.append(density_fn(flat_v + off, time) - density_fn(flat_v - off, time))
         grad = torch.stack(grads, dim=-1)
         normals = (-grad / torch.clamp_min(_norm(grad)[..., None], 1e-12)).reshape(
             positions.shape)
-    vertex_count = 3 * torch.tensor(count_np, device=dev)[case].sum()
+    vertex_count = 3 * tri_count[case].sum()
     return MarchingCubesResult(positions=positions, normals=normals, valid=valid,
                                vertex_count=vertex_count.to(torch.int32))
+
+
+def compact(result: MarchingCubesResult, capacity: int):
+    """Prefix-sum compaction of the valid triangles into a buffer of
+    `capacity` (the reference's atomicAdd append, in slot order). Returns
+    (positions (capacity, 3, 3), normals, count), count the valid triangles
+    kept as a () int32 tensor; unfilled rows are zero."""
+    valid = result.valid
+    idx = torch.cumsum(valid.to(torch.int64), 0) - 1
+    idx = torch.where(valid & (idx < capacity), idx, capacity)  # the overflow row
+    out = []
+    for x in (result.positions, result.normals):
+        buf = x.new_zeros((capacity + 1,) + tuple(x.shape[1:]))
+        buf[idx] = x  # row `capacity` takes the invalid and overflowing rows
+        out.append(buf[:capacity])
+    count = torch.clamp_max(valid.sum(), capacity).to(torch.int32)
+    return out[0], out[1], count

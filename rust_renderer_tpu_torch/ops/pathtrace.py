@@ -18,7 +18,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from rust_renderer_tpu_torch.ops import atmosphere, intersect, materials
+from rust_renderer_tpu_torch.ops import atmosphere, intersect, materials, mc_bvh
 from rust_renderer_tpu_torch.ops import rays as rayops
 from rust_renderer_tpu_torch.ops import restir as restirops
 from rust_renderer_tpu_torch.ops import rng as rngmod
@@ -107,7 +107,7 @@ def _nee(scene, view, any_hit, rng_state, origin, throughput, active,
 def path_trace(scene, view, cfg, accumulation: torch.Tensor,
                reservoirs: restirops.Reservoir | None,
                closest_hit: Callable, any_hit: Callable,
-               sky_fn: Callable | None = None) -> PathTraceResult:
+               sky_fn: Callable | None = None, dynamic=None) -> PathTraceResult:
     """One frame of the reference path tracer over the full image.
 
     accumulation: (H, W, 3) f32 linear accumulation of the previous frames.
@@ -115,7 +115,13 @@ def path_trace(scene, view, cfg, accumulation: torch.Tensor,
     closest_hit / any_hit: the scene's hit queries (ops/bvh.py).
     sky_fn(origin, unit direction, view): the miss radiance; None
     integrates the atmosphere per miss ray.
+    dynamic: an ``ops/mc_bvh.py`` DynamicScene (the animated marching-cubes
+    isosurface), traced beside the scene by both queries; its hits shade
+    with the MC normals and material.
     """
+    if dynamic is not None:
+        closest_hit = mc_bvh.combine_closest_hit(closest_hit, dynamic)
+        any_hit = mc_bvh.combine_any_hit(any_hit, dynamic)
     height, width = accumulation.shape[:2]
     dev = accumulation.device
     py, px = pixel_grid(height, width, dev)
@@ -154,6 +160,8 @@ def path_trace(scene, view, cfg, accumulation: torch.Tensor,
                                               sun_dir, view.sky_enabled)
 
             surf = intersect.surface_at_hit(scene, hit, origin, direction)
+            if dynamic is not None:
+                surf = mc_bvh.surface_patch(dynamic, hit, direction, surf)
             rng_state, sc = materials.scatter(scene, surf.material, direction,
                                               surf.normal, surf.uv, rng_state)
 

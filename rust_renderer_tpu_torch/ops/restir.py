@@ -63,6 +63,13 @@ def _gather_reservoir_rows(packed, iy, ix, width: int) -> Reservoir:
     )
 
 
+def get_light_intensity(scene, light_index: torch.Tensor,
+                        distance: torch.Tensor) -> torch.Tensor:
+    """intensity / d^2 (restir_sampling.glsl:59-62). Returns (..., 3)."""
+    intensity = scene.light_intensity[light_index.to(torch.int64)]
+    return intensity / torch.clamp_min(distance * distance, 1e-12)[..., None]
+
+
 def _light_rows(scene) -> torch.Tensor:
     """Packed light rows (L, 6): pos.xyz, intensity.xyz."""
     return torch.cat([scene.light_pos, scene.light_intensity], dim=1)
@@ -141,6 +148,15 @@ def _resample_phat(scene, state, hit_position, num_lights, max_num_lights_used,
     res = finalize_resampling(res, p_sel)
     res = res._replace(W_X=torch.where(res.Y < 0, 0.0, res.W_X))
     return state, res, p_sel
+
+
+def resample(scene, state, hit_position, num_lights, max_num_lights_used,
+             num_candidates: int = 32) -> tuple[torch.Tensor, Reservoir]:
+    """Fresh RIS over `num_candidates` uniform proposals
+    (restir_sampling.glsl:96-130). Returns (state, reservoir)."""
+    state, res, _ = _resample_phat(scene, state, hit_position, num_lights,
+                                   max_num_lights_used, num_candidates)
+    return state, res
 
 
 def initial_ris_pass(scene, state, hit_position, num_lights, max_num_lights_used,

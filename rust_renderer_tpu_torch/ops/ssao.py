@@ -1,12 +1,18 @@
-"""Screen-space ambient occlusion, in the shift-stencil form the SSAO pass
-uses (the port of ``rust_renderer_tpu/ops/ssao.py::ssao_stencil``).
+"""Screen-space ambient occlusion (the port of ``rust_renderer_tpu/ops/ssao.py``).
 
 ssao.frag's 32-sample hemisphere kernel, oriented by a TBN about the
 view-space normal, with the smoothstep range check and strength 1.6; the
-sky (position cleared to (1,1,1)) is unoccluded. Each sample's projected
-tap is snapped to the nearest of 8 directions x 6 log2-spaced rings of
-static pixel offsets (edge-clamped), exactly as the JAX package's stencil
-form does: the raster goldens of the reference are blessed against it.
+sky (position cleared to (1,1,1)) is unoccluded. Two forms:
+
+- `ssao`, the exact one: each sample reads the view depth at its projected
+  pixel;
+- `ssao_stencil`, the one the SSAO pass uses: each sample's projected tap is
+  snapped to the nearest of 8 directions x 6 log2-spaced rings of static
+  pixel offsets (edge-clamped), exactly as the JAX package's stencil form
+  does; the raster goldens of the reference are blessed against it.
+
+`ssao_blur` is the reference's box blur, which its graph never wires in
+(renderers/ssao.rs:34-36); no pass calls it here either.
 """
 
 from __future__ import annotations
@@ -50,10 +56,10 @@ def _to_ndc_xy(p, projection):
     return clip / torch.clamp_min(cw.abs(), 1e-9)[..., None] * torch.sign(cw)[..., None]
 
 
-def ssao_stencil(gbuffer_position, gbuffer_normal, view_matrix, projection,
-                 radius: float, bias: float) -> torch.Tensor:
-    """(H, W) occlusion in [0, 1] (1 = unoccluded)."""
-    h, w = gbuffer_position.shape[:2]
+def _view_frame(gbuffer_position, gbuffer_normal, view_matrix):
+    """The sky mask, view-space positions, the TBN about the view-space
+    normal (from the fixed random vector (1,1,0), ssao.frag:84-96) and the
+    view depth image."""
     pos_world = gbuffer_position[..., :3]
     is_sky = (pos_world == 1.0).all(-1)
     pos_view = pos_world @ view_matrix[:3, :3].T + view_matrix[:3, 3]
@@ -66,6 +72,59 @@ def ssao_stencil(gbuffer_position, gbuffer_normal, view_matrix, projection,
     t = t / torch.clamp_min(torch.linalg.vector_norm(t, dim=-1, keepdim=True), 1e-9)
     b = cross(t, normal_view)
     vz = pos_world @ view_matrix[2, :3] + view_matrix[2, 3]
+    return is_sky, pos_view, normal_view, t, b, vz
+
+
+def _sample_view(i: int, t, b, normal_view, pos_view, radius):
+    k = _KERNEL[i]
+    return (t * float(k[0]) + b * float(k[1]) + normal_view * float(k[2])) * radius + pos_view
+
+
+def _occlusion(pos_view, sample_depth, sample_z, radius, bias):
+    """One sample's occlusion, weighted by the smoothstep range check."""
+    denom = torch.clamp_min((pos_view[..., 2] - sample_depth).abs(), 1e-9)
+    range_check = torch.clamp(radius / denom, 0.0, 1.0)
+    range_check = range_check * range_check * (3.0 - 2.0 * range_check)
+    return (sample_depth >= sample_z + bias).to(torch.float32) * range_check
+
+
+def ssao(gbuffer_position, gbuffer_normal, view_matrix, projection,
+         radius: float, bias: float) -> torch.Tensor:
+    """(H, W) occlusion in [0, 1] (1 = unoccluded), each sample's depth read
+    at its projected pixel (ssao.frag:98-118, FLIP_UV_Y)."""
+    h, w = gbuffer_position.shape[:2]
+    is_sky, pos_view, normal_view, t, b, vz = _view_frame(gbuffer_position, gbuffer_normal,
+                                                          view_matrix)
+    vz_flat = vz.reshape(-1)
+    occlusion = torch.zeros((h, w), dtype=torch.float32, device=vz.device)
+    for i in range(KERNEL_SIZE):
+        sample_view = _sample_view(i, t, b, normal_view, pos_view, radius)
+        suv = _to_ndc_xy(sample_view, projection) * 0.5 + 0.5
+        sx = (suv[..., 0] * w).to(torch.int32).clamp(0, w - 1)
+        sy = ((1.0 - suv[..., 1]) * h).to(torch.int32).clamp(0, h - 1)
+        sample_depth = vz_flat[(sy * w + sx).to(torch.int64)]
+        occlusion = occlusion + _occlusion(pos_view, sample_depth, sample_view[..., 2],
+                                           radius, bias)
+    result = 1.0 - (occlusion / KERNEL_SIZE) * STRENGTH
+    return torch.where(is_sky, 1.0, result)
+
+
+def ssao_blur(occlusion: torch.Tensor, radius: int = 2) -> torch.Tensor:
+    """(2r + 1)^2 box blur of the SSAO term, wrapping at the edges
+    (ssao/blur.frag)."""
+    acc = torch.zeros_like(occlusion)
+    for dy in range(-radius, radius + 1):
+        for dx in range(-radius, radius + 1):
+            acc = acc + torch.roll(torch.roll(occlusion, dy, 0), dx, 1)
+    return acc / (2 * radius + 1) ** 2
+
+
+def ssao_stencil(gbuffer_position, gbuffer_normal, view_matrix, projection,
+                 radius: float, bias: float) -> torch.Tensor:
+    """(H, W) occlusion in [0, 1] (1 = unoccluded)."""
+    h, w = gbuffer_position.shape[:2]
+    is_sky, pos_view, normal_view, t, b, vz = _view_frame(gbuffer_position, gbuffer_normal,
+                                                          view_matrix)
 
     # The view depth shifted by every static offset: plane d * RINGS + r is
     # ring r along direction d (screen x right, y down).
@@ -80,11 +139,9 @@ def ssao_stencil(gbuffer_position, gbuffer_normal, view_matrix, projection,
 
     n_rings = len(_RINGS)
     log_r0 = float(np.log2(_RINGS[0]))
-    occlusion = torch.zeros((h, w), dtype=torch.float32, device=pos_world.device)
+    occlusion = torch.zeros((h, w), dtype=torch.float32, device=vz.device)
     for i in range(KERNEL_SIZE):
-        k = _KERNEL[i]
-        sample_view = (t * float(k[0]) + b * float(k[1]) + normal_view * float(k[2])) \
-            * radius + pos_view
+        sample_view = _sample_view(i, t, b, normal_view, pos_view, radius)
         ndc = _to_ndc_xy(sample_view, projection)
         # Pixel offset from the pixel's own tap (screen y runs opposite to
         # ndc y), snapped to the nearest sector and log2 ring.
@@ -100,10 +157,7 @@ def ssao_stencil(gbuffer_position, gbuffer_normal, view_matrix, projection,
         # it counts as unoccluded.
         tiny = rad < 0.5 * _RINGS[0]
         sample_depth = planes.gather(0, (sector * n_rings + ring)[None])[0]
-        denom = torch.clamp_min((pos_view[..., 2] - sample_depth).abs(), 1e-9)
-        range_check = torch.clamp(radius / denom, 0.0, 1.0)
-        range_check = range_check * range_check * (3.0 - 2.0 * range_check)
-        occluded = (sample_depth >= sample_view[..., 2] + bias) & ~tiny
-        occlusion = occlusion + occluded.to(torch.float32) * range_check
+        occlusion = occlusion + torch.where(
+            tiny, 0.0, _occlusion(pos_view, sample_depth, sample_view[..., 2], radius, bias))
     result = 1.0 - (occlusion / KERNEL_SIZE) * STRENGTH
     return torch.where(is_sky, 1.0, result)

@@ -1,7 +1,8 @@
 """Render-graph construction (rebuild of utopian/src/renderers/mod.rs).
 
-- PATH_TRACED: gbuffer -> reset_reservoirs -> initial_ris -> temporal_reuse
-  -> spatial_reuse -> reference_pt -> present blit (mod.rs:189-375).
+- PATH_TRACED: [mc_extract -> mc_refit] -> gbuffer -> reset_reservoirs ->
+  initial_ris -> temporal_reuse -> spatial_reuse -> reference_pt -> present
+  blit (mod.rs:189-375).
 - RASTERIZED: shadow -> gbuffer -> rt_shadows -> rt_reflections -> ssao ->
   deferred -> [marching_cubes] -> atmosphere -> present (mod.rs:61-187).
 - HYBRID: an empty graph, like the reference (mod.rs:377-391).
@@ -18,6 +19,8 @@ import torch
 
 from rust_renderer_tpu_torch.graph import Graph
 from rust_renderer_tpu_torch.ops import bvh as bvh_ops
+from rust_renderer_tpu_torch.ops import marching_cubes as mc_ops
+from rust_renderer_tpu_torch.ops import mc_bvh
 from rust_renderer_tpu_torch.ops import pathtrace as pathtrace_ops
 from rust_renderer_tpu_torch.ops import restir as restir_ops
 from rust_renderer_tpu_torch.ops import rng as rngmod
@@ -127,14 +130,31 @@ def _rng_for(view, h: int, w: int) -> torch.Tensor:
 
 
 def build_path_tracing_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_dir,
+                                    marching_cubes_enabled: bool = False,
+                                    mc_material: int = 0,
+                                    mc_color=(0.0, 1.0, 0.0, 1.0),
                                     num_lights: int | None = None) -> None:
     """PT graph with the ReSTIR chain (mod.rs:189-375).
 
     cfg.sky_mode: "exact" integrates the atmosphere per miss ray;
     "cubemap" samples the captured environment cubemap's mip 0.
+    marching_cubes_enabled adds the animated isosurface to the traced scene
+    (bench config 5), the analog of the reference's per-frame TLAS rebuild
+    (marching_cubes.rs:63-135, raytracing.rs:400-459): two isolated passes
+    at the head of the graph extract the surface (`mc_extract`) and refit
+    its tree (`mc_refit`, ``ops/mc_bvh.py``) into four table resources;
+    the gbuffer and reference_pt passes read them and walk that tree beside
+    the scene's. The refit reads view.marching_cubes_enabled on the device,
+    so turning it off at run time empties the tree. The surface takes
+    material `mc_material` (`Renderer.ensure_mc_material`), and the gbuffer
+    `mc_color`.
     num_lights: the scene's light count when known. With ZERO lights the
     direct-lighting chain (gbuffer + reset/initial-RIS/temporal/spatial)
     selects nothing, so the graph is built without it (the same output).
+
+    The keyword parameters follow the JAX signature without its
+    `need_environment_update`: the port's application captures the
+    environment itself (`Application._ensure_environment`).
     """
     if cfg.sky_mode not in ("exact", "cubemap"):
         raise ValueError(f"unknown sky_mode {cfg.sky_mode!r}")
@@ -144,6 +164,51 @@ def build_path_tracing_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_di
     if use_cubemap_sky:
         declare_env_resources(graph, cfg)
 
+    dynamic_fn = None
+    mc_reads: tuple[str, ...] = ()
+    if marching_cubes_enabled:
+        grid = cfg.mc_grid
+        v5 = grid ** 3 * mc_ops.MAX_TRIS_PER_VOXEL
+        graph.create_buffer("mc_positions", (v5, 3, 3))
+        graph.create_buffer("mc_normals", (v5, 3, 3))
+        graph.create_buffer("mc_valid", (v5,), dtype=torch.int32)
+        graph.create_buffer("marching_cubes_draw_count", (1,), dtype=torch.int32)
+        shapes = mc_bvh.table_shapes(grid)
+        mc_reads = tuple(shapes)
+        for name, shape in shapes.items():
+            graph.create_buffer(name, shape)
+
+        def mc_extract(res, scene, view):
+            # The fixed [0,32]^3 world domain (the reference's feature
+            # region) at any tessellation.
+            result = mc_ops.marching_cubes(grid=grid, voxel_size=32.0 / grid, time=view.time)
+            return {"mc_positions": result.positions, "mc_normals": result.normals,
+                    "mc_valid": result.valid.to(torch.int32),
+                    "marching_cubes_draw_count": result.vertex_count[None]}
+
+        (graph.add_pass("mc_extract").write("mc_positions").write("mc_normals")
+         .write("mc_valid").write("marching_cubes_draw_count").render(mc_extract)
+         .isolate().build())
+
+        def mc_refit(res, scene, view):
+            # The run-time toggle empties the tree without a change of the
+            # graph, like the reference's uniform flag.
+            result = mc_ops.MarchingCubesResult(
+                positions=res["mc_positions"], normals=res["mc_normals"],
+                valid=(res["mc_valid"] > 0) & (view.marching_cubes_enabled == 1),
+                vertex_count=None)
+            return mc_bvh.build_dynamic_tables(result, grid)
+
+        builder = (graph.add_pass("mc_refit").read("mc_positions").read("mc_normals")
+                   .read("mc_valid").render(mc_refit).isolate())
+        for name in mc_reads:
+            builder.write(name)
+        builder.build()
+
+        def dynamic_fn(res, view):
+            return mc_bvh.dynamic_scene_from_tables({k: res[k] for k in mc_reads}, grid,
+                                                    mc_material)
+
     graph.create_texture("accumulation_image", w, h, 3, persistent=True)
     graph.create_texture("pt_output", w, h, 3)
     # Active-ray count; persistent so the host can read it from Graph.state.
@@ -151,7 +216,8 @@ def build_path_tracing_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_di
 
     if not skip_restir:
         # 1. gbuffer (hit positions for the ReSTIR passes, mod.rs:246-254).
-        setup_gbuffer_pass(graph, scene_bvh, w, h)
+        setup_gbuffer_pass(graph, scene_bvh, w, h, dynamic_fn=dynamic_fn,
+                           dynamic_reads=mc_reads, mc_color=mc_color)
 
         # The spatial output is persistent: the next frame's temporal pass
         # reads it as the previous frame's reservoirs (mod.rs:294).
@@ -253,7 +319,8 @@ def build_path_tracing_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_di
 
         result = pathtrace_ops.path_trace(
             scene, view, cfg, res["accumulation_image"], reservoirs=reservoirs,
-            closest_hit=closest, any_hit=any_hit, sky_fn=sky_fn)
+            closest_hit=closest, any_hit=any_hit, sky_fn=sky_fn,
+            dynamic=None if dynamic_fn is None else dynamic_fn(res, view))
         return {
             "pt_output": result.output,
             "accumulation_image": result.accumulation,
@@ -266,6 +333,8 @@ def build_path_tracing_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_di
     if not skip_restir:
         for name in _reservoir_names("spatial_reuse_reservoirs"):
             pb.read(name)
+    for name in mc_reads:
+        pb.read(name)
     pb.write("pt_output").write("accumulation_image").write("pt_rays")
     if cfg.split_pt_program:
         # Isolated as in the JAX package (its own XLA program there); after

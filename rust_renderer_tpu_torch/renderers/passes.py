@@ -17,6 +17,7 @@ from rust_renderer_tpu_torch.ops import fxaa as fxaa_ops
 from rust_renderer_tpu_torch.ops import gbuffer as gbuffer_ops
 from rust_renderer_tpu_torch.ops import ibl as ibl_ops
 from rust_renderer_tpu_torch.ops import marching_cubes as mc_ops
+from rust_renderer_tpu_torch.ops import mc_bvh
 from rust_renderer_tpu_torch.ops import pbr as pbr_ops
 from rust_renderer_tpu_torch.ops import raster as raster_ops
 from rust_renderer_tpu_torch.ops import rays as rayops
@@ -85,25 +86,57 @@ def _read_ibl(builder, cfg):
 # -- gbuffer (renderers/gbuffer.rs) ------------------------------------------
 
 
-def setup_gbuffer_pass(graph: Graph, scene_bvh, width: int, height: int) -> None:
-    """MRT gbuffer from all scene meshes (gbuffer.rs:32-51), visibility from
-    one closest-hit ray through each pixel center."""
+def _raster_visibility(scene, view, width: int, height: int, method: str):
+    """The scene's triangles rasterized into a visibility buffer (K5 on the
+    card; on CPU tensors the brute path, or K5's plain version with
+    method="binned")."""
+    clip = raster_ops.transform_vertices(scene.positions, view.projection @ view.view)
+    return raster_ops.rasterize(clip, scene.indices, width, height, method=method)
+
+
+def setup_gbuffer_pass(graph: Graph, scene_bvh, width: int, height: int,
+                       use_raycast: bool = True, dynamic_fn=None, dynamic_reads=(),
+                       mc_color=(0.0, 1.0, 0.0, 1.0)) -> None:
+    """MRT gbuffer from all scene meshes (gbuffer.rs:32-51). Visibility from
+    one closest-hit ray through each pixel centre (K1 on the card), or with
+    use_raycast=False from the rasterizer (K5 on the card, the brute path on
+    CPU tensors; its binning reads back to the host, so the pass is marked
+    host_sync).
+
+    dynamic_fn(res, view) -> ops.mc_bvh.DynamicScene adds per-frame geometry
+    (the marching-cubes isosurface) to the primary rays: its tree is walked
+    beside the scene's, the nearer hit wins, and dynamic hits fill the planes
+    with the MC normals, `mc_color` and the MC material. The pass reads
+    `dynamic_reads` (the refit tables)."""
     for name in GBUFFER_PLANES[:4]:
         graph.create_texture(name, width, height, 4, clear=1.0)
     graph.create_texture("gbuffer_depth", width, height, 1, clear=1.0)
-    closest = bvh_ops.make_closest_hit(scene_bvh)
+    closest = bvh_ops.make_closest_hit(scene_bvh) if use_raycast else None
 
     def render(res, scene, view):
+        if not use_raycast:
+            gb = gbuffer_ops.from_visibility(
+                scene, _raster_visibility(scene, view, width, height, "auto"))
+            return dict(zip(GBUFFER_PLANES, gb))
         o, d = _camera_rays(view, width, height)
-        hit = closest(scene, o, d)
+        dyn = None if dynamic_fn is None else dynamic_fn(res, view)
+        query = closest if dyn is None else mc_bvh.combine_closest_hit(closest, dyn)
+        hit = query(scene, o, d)
         gb = gbuffer_ops.from_rays(scene, hit, o, d,
                                    projection_view=view.projection @ view.view)
+        if dyn is not None:
+            gb = mc_bvh.patch_gbuffer(dyn, hit, d, gb, mc_color)
         return dict(zip(GBUFFER_PLANES, gb))
 
     builder = graph.add_pass("gbuffer")
     for name in GBUFFER_PLANES:
         builder.write(name)
-    builder.render(render).build()
+    for name in dynamic_reads:
+        builder.read(name)
+    builder.render(render)
+    if not use_raycast:
+        builder.host_sync(BINS_SYNC)
+    builder.build()
 
 
 # -- shadow cascades (renderers/shadow.rs) -----------------------------------
@@ -381,19 +414,28 @@ def setup_present_pass(graph: Graph, width: int, height: int,
 
 
 def setup_forward_pass(graph: Graph, cfg, width: int, height: int, cascade_matrices,
-                       cascade_splits, scene_bvh) -> None:
-    """Forward PBR + CSM (forward.vert/.frag), visibility from one closest
-    hit per pixel center (K1 on the card)."""
+                       cascade_splits, scene_bvh=None) -> None:
+    """Forward PBR + CSM (forward.vert/.frag). Visibility from the
+    rasterizer by cfg.raster_method (K5 on the card; the pass is then
+    marked host_sync, as its binning reads back to the host), or from one
+    closest hit per pixel centre (K1 on the card) when `scene_bvh` is
+    given: the same image."""
     graph.create_texture("forward_output", width, height, 4, clear=0.0)
     graph.create_texture("gbuffer_depth", width, height, 1, clear=1.0)
-    closest = bvh_ops.make_closest_hit(scene_bvh)
+    closest = None if scene_bvh is None else bvh_ops.make_closest_hit(scene_bvh)
 
     def render(res, scene, view):
         dev = view.view.device
-        o, d = _camera_rays(view, width, height)
-        hit = closest(scene, o, d)
-        gb = gbuffer_ops.from_rays(scene, hit, o, d,
-                                   projection_view=view.projection @ view.view)
+        if closest is None:
+            vis = _raster_visibility(scene, view, width, height, cfg.raster_method)
+            gb = gbuffer_ops.from_visibility(scene, vis)
+            covered = vis.tri >= 0
+        else:
+            o, d = _camera_rays(view, width, height)
+            hit = closest(scene, o, d)
+            gb = gbuffer_ops.from_rays(scene, hit, o, d,
+                                       projection_view=view.projection @ view.view)
+            covered = hit.is_hit
         pixel = _material_pixel(scene, gb.position[..., :3], gb.normal[..., :3],
                                 gb.albedo[..., :3], gb.pbr)
         lo = pbr_ops.shade_all_lights(pixel, scene, view)
@@ -403,9 +445,12 @@ def setup_forward_pass(graph: Graph, cfg, width: int, height: int, cascade_matri
             torch.as_tensor(cascade_matrices, device=dev),
             torch.as_tensor(cascade_splits, device=dev))
         color = color * torch.where(_on(view.shadows_enabled), csm, 1.0)[..., None]
-        color = torch.where(hit.is_hit[..., None], color, 0.0)
+        color = torch.where(covered[..., None], color, 0.0)
         return {"forward_output": torch.cat([color, torch.ones_like(color[..., :1])], -1),
                 "gbuffer_depth": gb.depth}
 
-    (graph.add_pass("forward").read("shadow_map").write("forward_output")
-     .write("gbuffer_depth").render(render).build())
+    builder = (graph.add_pass("forward").read("shadow_map").write("forward_output")
+               .write("gbuffer_depth").render(render))
+    if closest is None:
+        builder.host_sync(BINS_SYNC)
+    builder.build()

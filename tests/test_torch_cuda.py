@@ -23,6 +23,14 @@ depth bit for bit (also where a crowded tile is cut into several work
 items), and K5 its triangle ids, with depth and barycentrics
 within 1e-5 (both walk one table in one order); the rasterized frames must
 match the CPU's under the tolerance of tests/test_torch_raster_slice.py.
+The marching-cubes tree refit on the card (``ops/mc_bvh.py``) must equal
+the CPU's refit of the same surface bit for bit and K1 on it the plain walk
+(as above), the PT frame with the traced isosurface, captured or not, the
+CPU's frame and the host loop's; the rasterized gbuffer pass (K5) its pieces on the
+CPU with K5's plain version (`gbuffer.from_visibility` of a binned
+rasterization): the same material ids, the planes to 1e-4 absolute plus
+1e-4 relative (K5's barycentrics are within 1e-5 of the plain version's,
+and positions scale them by the triangles' edges).
 """
 
 import numpy as np
@@ -30,8 +38,12 @@ import pytest
 import torch
 
 from rust_renderer_tpu_torch.app.main import Application
+from rust_renderer_tpu_torch.graph import Graph
+from rust_renderer_tpu_torch.models import create_cube_scene
 from rust_renderer_tpu_torch.ops import bvh as torch_bvh
-from rust_renderer_tpu_torch.ops import raster_binned, traversal
+from rust_renderer_tpu_torch.ops import (
+    gbuffer, marching_cubes, mc_bvh, raster, raster_binned, traversal)
+from rust_renderer_tpu_torch.renderers.passes import GBUFFER_PLANES, setup_gbuffer_pass
 from rust_renderer_tpu_torch.settings import RenderGraphMode, StaticConfig
 
 torch.set_num_threads(1)
@@ -782,3 +794,103 @@ def test_pt_loop_captured_matches_host_loop_on_card(cuda_device, sky_mode):
             assert torch.equal(loop.graph.state[name], state), name
         assert img.device.type == "cuda"
         np.testing.assert_array_equal(img.cpu().numpy(), want)
+
+
+def _mc_result(grid=8, time=1.7):
+    """The reference SDF scaled into a grid^3 region, extracted on the CPU."""
+    density = lambda p, t: marching_cubes.default_density(p * (32.0 / grid), t)
+    return marching_cubes.marching_cubes(density_fn=density, grid=grid, time=time,
+                                         device="cpu")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_k1_on_refit_tree_matches_plain_on_card(cuda_device, any_hit):
+    grid = 8
+    res = _mc_result(grid)
+    tables = mc_bvh.build_dynamic_tables(
+        marching_cubes.MarchingCubesResult(*(x.to(cuda_device) for x in res)), grid)
+    for name, t in mc_bvh.build_dynamic_tables(res, grid).items():  # bit for bit
+        assert torch.equal(tables[name].cpu().view(torch.int32), t.view(torch.int32)), name
+    dyn = mc_bvh.dynamic_scene_from_tables(tables, grid, 0)
+    rng = np.random.default_rng(11)
+    o = (grid / 2.0 + rng.normal(0, grid, (4096, 3))).astype(np.float32)
+    d = (grid / 2.0 + rng.normal(0, grid / 3, (4096, 3)) - o).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    o, d = (torch.tensor(x, device=cuda_device) for x in (o, d))
+    traversal.K1_LAUNCHES.clear()
+    t, prim, _, _ = mc_bvh.dyn_traverse(dyn, o, d, 1e-3, 1e4, any_hit=any_hit)
+    assert dict(traversal.K1_LAUNCHES) == {"any_hit" if any_hit else "closest": 1}
+    n = o.shape[0]
+    tp, pp, _, _ = traversal.traverse_plain(
+        dyn.bvh.node_packed, dyn.bvh.leaf_packed, o, d, torch.full((n,), 1e-3, device=o.device),
+        torch.full((n,), 1e4, device=o.device), any_hit)
+    hit = pp >= 0
+    assert int(hit.sum()) > 200
+    assert torch.equal(prim >= 0, hit)
+    if not any_hit:
+        assert torch.allclose(t[hit], tp[hit], rtol=1e-6, atol=0)
+        off = hit & (prim != pp)
+        assert torch.equal(t[off], tp[off])
+
+
+def _mc_cube_app(device, size=64):
+    app = Application(size, size, cfg=StaticConfig(num_bounces=3, mc_grid=8), device=device)
+    app.fps_timer.elapsed_seconds = lambda: 1.7
+    app.view = app.view.replace(marching_cubes_enabled=np.int32(1))
+
+    def build(r, cam):
+        create_cube_scene(r, cam)
+        r.add_light([16.0, 34.0, 16.0], [1.0, 1.0, 1.0], 1.0)
+
+    app.create_scene(build)
+    app.camera.set_position_target([58.0, 38.0, 58.0], [10.0, 18.0, 10.0])
+    return app
+
+
+@pytest.mark.cuda
+def test_mc_pt_frame_and_loop_on_card(cuda_device):
+    """The PT frame with the traced isosurface: the card's frame against the
+    CPU's (K1 twice a query, the seed kernel on the static tree only), and a
+    captured 3-frame loop against the host loop bit for bit."""
+    traversal.K1_LAUNCHES.clear()
+    torch_bvh.SEED_LAUNCHES = 0
+    app = _mc_cube_app(cuda_device)
+    got = app.run(1)
+    assert dict(traversal.K1_LAUNCHES) == {"closest": 2 * (1 + 3), "any_hit": 2 * 3}
+    assert torch_bvh.SEED_LAUNCHES == 3
+    diff = np.abs(got - _mc_cube_app("cpu").run(1))
+    assert (diff.max(axis=-1) <= 1e-3).mean() >= 0.99
+    assert diff.mean() <= 1e-3
+    host, loop = _mc_cube_app(cuda_device), _mc_cube_app(cuda_device)
+    want = host.run(3)
+    img = loop.run_on_device(3, tstep=0.0)
+    assert loop.graph.last_loop_form == "captured" and loop.graph.captures == 1
+    for name, state in host.graph.state.items():
+        assert torch.equal(loop.graph.state[name], state), name
+    np.testing.assert_array_equal(img.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_raster_gbuffer_pass_on_card_matches_cpu(cuda_device):
+    size = 96
+    apps = {}
+    for device in ("cpu", cuda_device):
+        apps[str(device)] = Application(size, size, cfg=StaticConfig(), device=device)
+        apps[str(device)].create_scene()
+        apps[str(device)]._refresh_view()
+    cpu = apps["cpu"]
+    view = cpu.view.to("cpu")
+    clip = raster.transform_vertices(cpu.scene.positions, view.projection @ view.view)
+    vis = raster.rasterize(clip, cpu.scene.indices, size, size, method="binned")
+    want = dict(zip(GBUFFER_PLANES, gbuffer.from_visibility(cpu.scene, vis)))
+    card = apps[str(cuda_device)]
+    g = Graph(cuda_device)
+    setup_gbuffer_pass(g, None, size, size, use_raycast=False)
+    raster_binned.K5_LAUNCHES = 0
+    got = {k: v.cpu() for k, v in g.render(card.scene, card.view).items()}
+    assert raster_binned.K5_LAUNCHES == 1
+    assert float((want["gbuffer_depth"] < 1.0).float().mean()) > 0.3
+    assert torch.equal(got["gbuffer_pbr"][..., 3], want["gbuffer_pbr"][..., 3])
+    for name, ref in want.items():
+        assert torch.allclose(got[name], ref, rtol=1e-4, atol=1e-4), name

@@ -208,7 +208,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "import rust_renderer_tpu_torch.app.main; "
             "import rust_renderer_tpu_torch.convert; "
             "from rust_renderer_tpu_torch.ops import (raster, raster_binned, shadow, brdf, "
-            "cubemap, ibl, pbr, ssao, fxaa, noise, marching_cubes); "
+            "cubemap, ibl, pbr, ssao, fxaa, noise, marching_cubes, mc_bvh, intersect, "
+            "gbuffer, colors, restir, constants); "
             "import rust_renderer_tpu_torch.renderers.passes; "
             "assert 'rust_renderer_tpu' not in sys.modules, 'JAX package imported'; "
             "print('ok')")

@@ -16,16 +16,19 @@ from rust_renderer_tpu import Camera as JaxCamera
 from rust_renderer_tpu import Renderer as JaxRenderer
 from rust_renderer_tpu.models import create_scene as jax_create_scene
 from rust_renderer_tpu.ops import atmosphere as jatm
+from rust_renderer_tpu.ops import colors as jcolors
 from rust_renderer_tpu.ops import gbuffer as jgb
 from rust_renderer_tpu.ops import intersect as jint
 from rust_renderer_tpu.ops import materials as jmat
+from rust_renderer_tpu.ops import raster as jraster
 from rust_renderer_tpu.ops import rays as jrays
 from rust_renderer_tpu.ops import restir as jrestir
 from rust_renderer_tpu.ops import rng as jrng
 from rust_renderer_tpu.ops import texture as jtex
 
-from rust_renderer_tpu_torch.convert import packed_scene_from_numpy
+from rust_renderer_tpu_torch.convert import packed_scene_from_numpy, visibility_from_numpy
 from rust_renderer_tpu_torch.ops import atmosphere as tatm
+from rust_renderer_tpu_torch.ops import colors as tcolors
 from rust_renderer_tpu_torch.ops import gbuffer as tgb
 from rust_renderer_tpu_torch.ops import intersect as tint
 from rust_renderer_tpu_torch.ops import materials as tmat
@@ -185,6 +188,67 @@ def test_gbuffer_from_rays(scenes):
     got = tgb.from_rays(ts, _torch_hit(hit), T(o), T(d), projection_view=T(pv))
     for a, b in zip(got, want):
         np.testing.assert_allclose(N(a), np.asarray(b), **TOL)
+
+
+def test_gbuffer_from_visibility(scenes):
+    """A visibility buffer's planes: covered pixels (tri >= 0) shaded at
+    their barycentrics, the rest cleared, the depth as given."""
+    js, ts = scenes
+    hit = _hits(js, H * W, 15)
+    rng = np.random.default_rng(16)
+    tri = np.where(rng.uniform(size=H * W) < 0.8, np.asarray(hit.prim), -1)
+    vis = jraster.VisibilityBuffer(
+        depth=rng.uniform(0, 1, (H, W)).astype(np.float32),
+        tri=tri.reshape(H, W).astype(np.int32), bary_u=np.asarray(hit.u).reshape(H, W),
+        bary_v=np.asarray(hit.v).reshape(H, W))
+    want = jgb.from_visibility(js, vis)
+    got = tgb.from_visibility(ts, visibility_from_numpy(vis, "cpu"))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(N(a), np.asarray(b), **TOL)
+    cleared = (N(got.position) == np.float32([1.0, 1.0, 1.0, 0.0])).all(-1)
+    np.testing.assert_array_equal(cleared, tri.reshape(H, W) < 0)
+
+
+def test_any_hit_bruteforce(scenes):
+    js, ts = scenes
+    rng = np.random.default_rng(17)
+    o = rng.uniform(-6, 6, (300, 3)).astype(np.float32)
+    d = _unit(rng, 300)
+    t_max = rng.uniform(0.5, 30.0, 300).astype(np.float32)
+    want = np.asarray(jint.any_hit_bruteforce(js, jnp.asarray(o), jnp.asarray(d), 1e-3,
+                                              jnp.asarray(t_max)))
+    got = N(tint.any_hit_bruteforce(ts, T(o), T(d), 1e-3, T(t_max)))
+    np.testing.assert_array_equal(got, want)
+    assert 0 < want.mean() < 1
+
+
+def test_srgb_to_linear():
+    x = np.random.default_rng(18).uniform(-0.1, 1.5, 2000).astype(np.float32)
+    x[:4] = (0.0, 0.04045, 0.04044, 1.0)
+    np.testing.assert_allclose(N(tcolors.srgb_to_linear(T(x))),
+                               np.asarray(jcolors.srgb_to_linear(jnp.asarray(x))), **TOL)
+
+
+def test_light_intensity_and_resample(scenes):
+    """get_light_intensity, and resample with the same rng state in and out."""
+    js, ts = scenes
+    n_lights = js.light_pos.shape[0]
+    rng = np.random.default_rng(19)
+    idx = rng.integers(0, n_lights, (H, W)).astype(np.int32)
+    dist = rng.uniform(0.0, 20.0, (H, W)).astype(np.float32)
+    dist[0, :3] = 0.0  # the 1e-12 clamp
+    np.testing.assert_allclose(N(trestir.get_light_intensity(ts, T(idx), T(dist))),
+                               np.asarray(jrestir.get_light_intensity(js, idx, dist)), **TOL)
+    hp = rng.uniform(-12, 12, (H, W, 3)).astype(np.float32)
+    for used in (1024, 3):
+        jst, jr = jrestir.resample(js, jnp.asarray(_states(20)), jnp.asarray(hp),
+                                   np.int32(n_lights), np.int32(used), 16)
+        tst, tr = trestir.resample(ts, T(_states(20)), T(hp),
+                                   torch.tensor(n_lights, dtype=torch.int32),
+                                   torch.tensor(used, dtype=torch.int32), 16)
+        np.testing.assert_array_equal(N(tst), np.asarray(jst).astype(np.int64))
+        _assert_reservoirs(tr, jr)
+        assert (N(tr.Y) >= 0).all()
 
 
 def _reservoir(seed, n_lights):

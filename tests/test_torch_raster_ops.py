@@ -12,13 +12,14 @@ Tolerances, and why:
 - ibl at a 16^2 cubemap: capture and LUT to 1e-4, irradiance to 1e-4 (the
   port sums the samples in batches, another order), specular to 2e-3 (the
   GGX jitter above);
-- ssao, fxaa: their taps snap to pixels, so a rounding difference can move
-  a tap: 99.5% of pixels within 1e-5;
+- ssao (both forms), fxaa: their taps snap to pixels, so a rounding
+  difference can move a tap: 99.5% of pixels within 1e-5; ssao_blur sums
+  the same shifted copies in the same order: 1e-6;
 - noise: the value hash is fract(sin(n) * 43758.5453) of n up to ~2e4:
   a last-ulp difference of sin moves one hash by up to ~4e-3 and the
   noise combines eight of them (and fbm five octaves): 2e-2;
 - marching cubes at mc_grid 8: positions and normals to 1e-5, slot flags
-  and the vertex count equal.
+  and the vertex count equal; its compaction of one result bit for bit.
 """
 
 import jax.numpy as jnp
@@ -228,6 +229,21 @@ def case_ssao():
     _mostly_close(got, want)
 
 
+def case_ssao_exact():
+    jcam, _ = _cameras()
+    pos, normal = _surface()
+    pad = lambda a: np.concatenate([a, np.ones_like(a[..., :1])], -1)
+    args = [pad(pos), pad(normal), jcam.get_view(), jcam.get_projection()]
+    want = jax_ssao.ssao(*(jnp.asarray(a) for a in args), jnp.float32(0.3), jnp.float32(0.025))
+    got = ssao.ssao(*(torch.tensor(a) for a in args), 0.3, 0.025)
+    assert float(np.asarray(want).min()) < 0.95  # some occlusion
+    _mostly_close(got, want)
+    occ = _rng(21).uniform(0, 1, (24, 40)).astype(np.float32)
+    for radius in (1, 2):
+        _close(ssao.ssao_blur(torch.tensor(occ), radius),
+               jax_ssao.ssao_blur(jnp.asarray(occ), radius), rtol=1e-6, atol=1e-6)
+
+
 def case_fxaa():
     rng = _rng(10)
     img = np.kron(rng.uniform(0, 1, (12, 12, 3)), np.ones((4, 4, 1))).astype(np.float32)
@@ -253,6 +269,13 @@ def case_marching_cubes():
         assert int(got.vertex_count) == int(want.vertex_count) > 0
         _close(got.positions, want.positions)
         _close(got.normals, want.normals, rtol=1e-4, atol=1e-5)
+    res = marching_cubes.MarchingCubesResult(
+        *(torch.tensor(np.asarray(x)) for x in (want.positions, want.normals, want.valid)),
+        vertex_count=torch.tensor(int(want.vertex_count)))
+    n_valid = int(np.asarray(want.valid).sum())
+    for capacity in (n_valid + 7, n_valid // 2):  # room to spare, and overflow
+        for a, b in zip(marching_cubes.compact(res, capacity), jax_mc.compact(want, capacity)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
 CASES = {name[5:]: fn for name, fn in globals().items() if name.startswith("case_")}

@@ -121,12 +121,21 @@ def test_hybrid_graph_is_empty_like_the_reference():
     assert app.graph.passes == []
 
 
-@pytest.mark.parametrize("setting", ["sky_mode", "marching_cubes"])
+@pytest.mark.parametrize("setting", ["sky_mode"])
 def test_pt_graph_refuses_what_is_not_ported(setting):
-    cfg = StaticConfig(**SMALL, sky_mode="nope" if setting == "sky_mode" else "exact")
+    cfg = StaticConfig(**SMALL, sky_mode="nope")
     app = Application(16, 16, cfg=cfg, device="cpu")
     app.create_scene()
-    if setting == "marching_cubes":
-        app.view = app.view.replace(marching_cubes_enabled=np.int32(1))
     with pytest.raises((ValueError, NotImplementedError), match=setting):
         app.render_frame()
+
+
+def test_pt_graph_renders_marching_cubes_on_the_default_scene():
+    """marching_cubes_enabled on the default scene: a finite frame, led by
+    the extract and refit passes (tests/test_torch_mc.py holds the traced
+    isosurface to the JAX package)."""
+    app = Application(16, 16, cfg=StaticConfig(**SMALL, sky_mode="exact"), device="cpu")
+    app.create_scene()
+    app.view = app.view.replace(marching_cubes_enabled=np.int32(1))
+    assert np.isfinite(app.run(1)).all()
+    assert [p.name for p in app.graph.passes][:2] == ["mc_extract", "mc_refit"]
