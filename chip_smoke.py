@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k5    # K5's times alone (`k5_alone`)
+    python3 chip_smoke.py --app   # the app phase alone (`app_alone`)
 
 Builds the traversal kernels (rust_renderer_tpu_torch/csrc/traverse_wide.cu:
 K1 and K3's wide forms; traverse_q32.cu: K1q; traverse_drain.cu: K2;
@@ -108,7 +109,22 @@ one nvcc per source, started together; then:
    RMSE < 0.01, a 1.5% bias caught, region energies, wall colours);
 21. furnace test: a small PT frame of the RTIOW scene's four spheres with
    StaticConfig(furnace_test=True) and the sky, sun and lights off, on the
-   card and on the CPU: the frames agree and the top row (the sky) is 1.0.
+   card and on the CPU: the frames agree and the top row (the sky) is 1.0;
+22. the application's own entry point (`app/main.py::main`, called
+   in-process by its command line): --sanitize at 1920x1080, 4 frames, for
+   PT, RASTERIZED and MINIMAL on the default scene and PT on the RTIOW
+   scene at 256x256: launches a frame, the sanitizer's report, the written
+   image (PNG, or PPM where PIL is missing) decoded at the frame's size,
+   the profiler's top scopes; on the PT app, a host frame with the
+   sanitizer off and on, run(8) with present_every 1 and 4, and a frame
+   with the profiler's timers on and off, each pair in turns, and one
+   scope's host cost; a sanitized run_on_device(4) captured, its summed
+   report equal to 4 host frames', and its replay against a twin's with
+   the sanitizer off, in turns; the metal sphere moved by
+   set_instance_transform: the next host frame bit-equal to a fresh app's
+   with the sphere there, the next loop captured anew and bit-equal to the
+   host loop; a glTF written to a temporary directory rendered bit-equal
+   to the same scene built from ModelLoader primitives.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after. Every failed check raises. The last log line gives
@@ -1546,13 +1562,13 @@ def host_frames(app, n: int) -> tuple:
     return out["present_output"], ms / n
 
 
-def twin_apps(Application, cfg, builder, mode, size=None, view=None) -> list:
-    """Two Applications of one configuration and scene (at `size`, else
+def twin_apps(Application, cfg, builder, mode, size=None, view=None, n: int = 2) -> list:
+    """`n` Applications of one configuration and scene (at `size`, else
     WIDTH x HEIGHT), the clock pinned (view.time seeds every random
     stream), the view's fields `view` set: one for the host loop, one for
     run_on_device."""
     apps = []
-    for _ in range(2):
+    for _ in range(n):
         app = Application(*(size or (WIDTH, HEIGHT)), mode, cfg=cfg, device="cuda")
         app.fps_timer.elapsed_seconds = lambda: PARITY_TIME
         app.view = app.view.replace(**(view or {}))
@@ -1791,26 +1807,347 @@ def golden_phase(Application, StaticConfig, models, launches, counted) -> None:
             raise AssertionError(f"golden {label}: the gate fails")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch sees no GPU", file=sys.stderr)
-        return 1
-    if sys.argv[1:] == ["--k5"]:
-        return k5_alone()
-    if sys.argv[1:]:
-        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
-        return 2
-    from rust_renderer_tpu_torch import native
-    from rust_renderer_tpu_torch.app.main import Application
-    from rust_renderer_tpu_torch import models
-    from rust_renderer_tpu_torch.models import create_scene, create_sponza_scale_scene
-    from rust_renderer_tpu_torch.graph import Graph
-    from rust_renderer_tpu_torch.ops import (
-        bvh as bvh_ops, compaction, marching_cubes, mc_bvh, pathtrace, raster, raster_binned,
-        rays, shadow, traversal)
-    from rust_renderer_tpu_torch.renderers.passes import setup_gbuffer_pass
-    from rust_renderer_tpu_torch.settings import RenderGraphMode, StaticConfig
+# -- the application's own entry point ----------------------------------------
 
+
+# Frames a main() run; pairs of host frames (sanitizer, profiler) and of
+# run() calls (present_every) in turns.
+APP_FRAMES, APP_FRAME_TURNS, APP_TURNS, APP_PRESENT_FRAMES, APP_PRESENT_EVERY = 4, 10, 3, 8, 4
+APP_RTIOW_SIZE, APP_GLTF_SIZE, APP_SCOPE_CALLS = 256, 256, 20000
+APP_GIZMO_MOVE = np.float32([0.6, -0.5, 1.2])
+# main()'s frames at the StaticConfig defaults, the isosurface off (main() has
+# the JAX package's flags, none of which turns it on): PT 6 + 5 K1 and 5
+# seed a frame; RASTERIZED 2 + 1 K1, 4 K4, 1 seed (K5 draws the isosurface
+# alone); MINIMAL 1 K1, 4 K4; RTIOW (no light, no triangle) 5 + 5 K1.
+APP_WANT = {"pt": Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0, seed=BOUNCES),
+            "raster": Launches.frame_want(2, 1, 4, 0, seed=1),
+            "minimal": Launches.frame_want(1, 0, 4, 0)}
+APP_RTIOW_WANT = Launches.frame_want(BOUNCES, BOUNCES, 0, 0)
+
+
+def run_main(app_main, PROFILER, image_io, launches, counted, argv, want, size) -> object:
+    """`main()` in-process by its command line `argv`, the counts zeroed just
+    before and read just after: launches a frame must be `want`; prints the
+    sanitizer report of the last frame, the written file's format and size
+    (it must decode to the frame's), and the profiler's top scopes. Returns
+    the Application main() made."""
+    made = []
+
+    class Recorded(app_main.Application):
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            made.append(self)
+
+    saved_argv, saved_app = sys.argv, app_main.Application
+    sys.argv, app_main.Application = ["main", *argv], Recorded
+    PROFILER.reset()
+    launches.reset()
+    t0 = time.perf_counter()
+    try:
+        rc = app_main.main()
+    finally:
+        sys.argv, app_main.Application = saved_argv, saved_app
+    wall = time.perf_counter() - t0
+    got = launches.read()
+    counted.update(got)
+    (app,) = made
+    frames = int(argv[argv.index("--frames") + 1])
+    label = " ".join(argv)
+    per_frame = {k: v / frames for k, v in got.items()}
+    img = image_io.read_image(app.saved_to)
+    top = list(PROFILER.totals().items())[:6]
+    log(f"app `main {label}`: rc {rc}, {wall:.2f} s of host time (scene build included); "
+        f"launches a frame { {k: v for k, v in per_frame.items() if v} }; sanitizer report "
+        f"of the last frame {app.graph.last_sanitizer_report}; wrote {app.saved_to} "
+        f"({img.shape[1]}x{img.shape[0]}x{img.shape[2]} {img.dtype}); top scopes "
+        + ", ".join(f"{name} {calls} calls {ms:.1f} ms" for name, (calls, ms) in top))
+    if rc != 0 or got != {k: v * frames for k, v in want.items()}:
+        raise AssertionError(f"app {label}: rc {rc}, launches {got}, expected {want} a frame")
+    if img.shape != (size[1], size[0], 3) or img.std() <= 1.0:
+        raise AssertionError(f"app {label}: the written image is {img.shape} or constant")
+    return app
+
+
+def host_ms(fn) -> float:
+    """Host milliseconds of fn() and a synchronize (the step time)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def in_turns(cases: dict, turns: int) -> dict:
+    """Host ms of each case's fn, ABBA-ordered over `turns` pairs (frame times
+    drift across a call, so cases are compared in turns); the medians."""
+    names = list(cases)
+    times = {k: [] for k in names}
+    for i in range(turns):
+        for name in (names if i % 2 == 0 else names[::-1]):
+            times[name].append(host_ms(cases[name]))
+    return {k: (sorted(v)[len(v) // 2], v) for k, v in times.items()}
+
+
+def app_costs(app, PROFILER) -> None:
+    """On the PT 1080p app main() made: a host frame with the sanitizer off
+    and on, run(APP_PRESENT_FRAMES) with present_every 1 and
+    APP_PRESENT_EVERY, and a frame with the profiler's timers on and off,
+    each pair in turns (host clock and a synchronize); the sanitizer's report
+    of each sanitized frame; one scope's host cost."""
+    def frame(sanitize):
+        app.graph.sanitize = sanitize
+        app.render_frame()
+        if sanitize and app.graph.last_sanitizer_report:
+            log(f"app sanitizer: nonzero counts {app.graph.last_sanitizer_report}")
+
+    med = in_turns({"off": lambda: frame(False), "on": lambda: frame(True)}, 2 * APP_FRAME_TURNS)
+    log(f"app PT {WIDTH}x{HEIGHT} host frame, sanitize off / on (ms, host clock, in turns): "
+        f"{[round(x, 2) for x in med['off'][1]]} / {[round(x, 2) for x in med['on'][1]]}; "
+        f"medians {med['off'][0]:.2f} / {med['on'][0]:.2f} (on / off "
+        f"{med['on'][0] / med['off'][0]:.4f}); {len(app.graph.passes)} passes, "
+        f"{sum(1 for _ in app.graph.descs)} resources declared")
+    app.graph.sanitize = False
+    med = in_turns({f"every {k}": functools.partial(app.run, APP_PRESENT_FRAMES, present_every=k)
+                    for k in (1, APP_PRESENT_EVERY)}, 2 * APP_TURNS)
+    one, many = med["every 1"][0], med[f"every {APP_PRESENT_EVERY}"][0]
+    log(f"app PT {WIDTH}x{HEIGHT} run({APP_PRESENT_FRAMES}) present_every 1 / {APP_PRESENT_EVERY} "
+        f"(ms per frame, host clock, in turns): "
+        f"{[round(x / APP_PRESENT_FRAMES, 2) for x in med['every 1'][1]]} / "
+        f"{[round(x / APP_PRESENT_FRAMES, 2) for x in med[f'every {APP_PRESENT_EVERY}'][1]]}; "
+        f"frames per second {1e3 * APP_PRESENT_FRAMES / one:.2f} / "
+        f"{1e3 * APP_PRESENT_FRAMES / many:.2f} (ratio {one / many:.4f})")
+
+    def profiled(enabled):
+        PROFILER.enabled = enabled
+        app.render_frame()
+
+    try:
+        med = in_turns({"on": lambda: profiled(True), "off": lambda: profiled(False)},
+                       2 * APP_FRAME_TURNS)
+    finally:
+        PROFILER.enabled = True
+    t0 = time.perf_counter()
+    for _ in range(APP_SCOPE_CALLS):
+        with PROFILER.scope("empty"):
+            pass
+    scope_us = (time.perf_counter() - t0) * 1e6 / APP_SCOPE_CALLS
+    calls = sum(c for name, (c, _) in PROFILER.totals().items() if name != "empty")
+    log(f"app profiler: PT {WIDTH}x{HEIGHT} host frame with the timers on / off (ms, in turns) "
+        f"{med['on'][0]:.2f} / {med['off'][0]:.2f} (ratio {med['on'][0] / med['off'][0]:.4f}); "
+        f"one empty scope {scope_us:.2f} us on the host (record_function and NVTX ranges "
+        f"included); {calls} timed scopes so far")
+
+
+def app_loop_sanitized(Application, StaticConfig, mode, create_scene, launches,
+                       counted) -> None:
+    """Two PT 1080p apps with sanitize on from one state: APP_FRAMES host
+    frames, their reports summed, against run_on_device(APP_FRAMES), which
+    must stay captured with a summed report equal to the host frames' and
+    the state bit-equal; then the captured replay with sanitize on against
+    a twin capture with it off, in turns."""
+    cfg = StaticConfig(num_bounces=BOUNCES)
+    host, loop = twin_apps(Application, cfg, create_scene, mode)
+    for app in (host, loop):
+        app.graph.sanitize = True
+    summed = collections.Counter()
+    launches.reset()
+    for _ in range(APP_FRAMES):
+        host.render_frame()
+        summed.update(host.graph.last_sanitizer_report)
+    loop.run_on_device(APP_FRAMES, tstep=0.0)
+    counted.update(launches.read())
+    log(f"app sanitized device loop: form {loop.graph.last_loop_form}, captures "
+        f"{loop.graph.captures}, report {loop.graph.last_sanitizer_report} (host frames "
+        f"summed {dict(summed)})")
+    if (loop.graph.last_loop_form != "captured" or loop.graph.captures != 1
+            or loop.graph.last_sanitizer_report != dict(summed)):
+        raise AssertionError("app: the sanitized loop is not captured or reports otherwise")
+    for name, t in host.graph.state.items():
+        if not torch.equal(t, loop.graph.state[name]):
+            raise AssertionError(f"app: the sanitized loop's {name} differs from the host's")
+    del host
+    (plain,) = twin_apps(Application, cfg, create_scene, mode, n=1)
+    plain.run_on_device(APP_FRAMES, tstep=0.0)
+    med = in_turns({"off": lambda: plain.run_on_device(APP_FRAMES, tstep=0.0),
+                    "on": lambda: loop.run_on_device(APP_FRAMES, tstep=0.0)}, 2 * APP_TURNS)
+    if loop.graph.captures != 1 or plain.graph.captures != 1:
+        raise AssertionError("app: a replay in turns captured anew")
+    log(f"app captured replay of {APP_FRAMES} frames, sanitize off / on (ms per frame, host "
+        f"clock, in turns): {[round(x / APP_FRAMES, 3) for x in med['off'][1]]} / "
+        f"{[round(x / APP_FRAMES, 3) for x in med['on'][1]]}; medians "
+        f"{med['off'][0] / APP_FRAMES:.3f} / {med['on'][0] / APP_FRAMES:.3f} (on / off "
+        f"{med['on'][0] / med['off'][0]:.4f})")
+
+
+def app_gizmo(Application, StaticConfig, mode, create_scene, launches, counted) -> None:
+    """The metal sphere moved by set_instance_transform on a host app and a
+    loop app of one state (temporal reuse off in every app: a fresh app
+    has no last frame's reservoirs): the next host frame bit-equal to the
+    first frame of a fresh app built with the sphere there, the same view
+    time; the next run_on_device captures anew (one capture more) and its
+    state and image stay bit-equal to the host loop's."""
+    cfg = StaticConfig(num_bounces=BOUNCES)
+    off = dict(temporal_reuse_enabled=np.int32(0))
+    host, loop = twin_apps(Application, cfg, create_scene, mode, view=off)
+    metal = len(host.renderer.instances) - 2  # create_sponza_scene: metal, dielectric
+    move = np.array(host.renderer.instances[metal].transform, np.float32)
+    move[:3, 3] += APP_GIZMO_MOVE
+
+    def moved(renderer, camera):
+        create_scene(renderer, camera)
+        renderer.set_instance_transform(metal, move)
+
+    (fresh,) = twin_apps(Application, cfg, moved, mode, view=off, n=1)
+    host_frames(host, 2)
+    loop.run_on_device(2, tstep=0.0)
+    for app in (host, loop):
+        app.set_instance_transform(metal, move)
+    launches.reset()
+    after = host.render_frame()["present_output"]
+    first = fresh.render_frame()["present_output"]
+    counted.update(launches.read())
+    same = torch.equal(after, first) and all(
+        torch.equal(t, fresh.graph.state[n]) for n, t in host.graph.state.items())
+    if not same or not torch.equal(host.scene.positions, fresh.scene.positions):
+        raise AssertionError("app: the frame after the move differs from a fresh app's")
+    want, _ = host_frames(host, APP_FRAMES - 1)
+    launches.reset()
+    img = loop.run_on_device(APP_FRAMES, tstep=0.0)
+    counted.update(launches.read())
+    if loop.graph.captures != 2 or loop.graph.last_loop_form != "captured":
+        raise AssertionError(f"app: after the move the loop made {loop.graph.captures} "
+                             "captures in all, expected 2")
+    compare_loop("app gizmo: run_on_device after set_instance_transform", host, loop, want, img)
+    log(f"app gizmo: instance {metal} (the metal sphere) moved by {APP_GIZMO_MOVE.tolist()}; "
+        f"the next host frame bit-equal to a fresh app's first frame with the sphere there; "
+        f"the loop captured anew ({loop.graph.captures} captures in all)")
+
+
+def write_gltf(path, models) -> None:
+    """A glTF of `models` [(Model, 4x4 world matrix)]: each mesh's positions,
+    normals, uvs, indices and material factors, one node each with its
+    matrix, every buffer in a data: URI."""
+    import base64
+
+    views, accessors, meshes, nodes, materials, blob = [], [], [], [], [], b""
+    for model, matrix in models:
+        for mesh in model.meshes:
+            prim, attrs = mesh.primitive, {}
+            for name, arr, kind, ctype in (
+                    ("POSITION", prim.positions, "VEC3", 5126),
+                    ("NORMAL", prim.normals, "VEC3", 5126),
+                    ("TEXCOORD_0", prim.uvs, "VEC2", 5126),
+                    ("indices", prim.indices.astype(np.uint32), "SCALAR", 5125)):
+                data = np.ascontiguousarray(arr).tobytes()
+                views.append({"buffer": 0, "byteOffset": len(blob), "byteLength": len(data)})
+                accessors.append({"bufferView": len(views) - 1, "componentType": ctype,
+                                  "count": len(arr), "type": kind})
+                attrs[name] = len(accessors) - 1
+                blob += data
+            m = mesh.material
+            materials.append({"pbrMetallicRoughness": {
+                "baseColorFactor": [float(x) for x in m.base_color_factor],
+                "metallicFactor": float(m.metallic_factor),
+                "roughnessFactor": float(m.roughness_factor)}})
+            meshes.append({"primitives": [{"attributes": attrs, "indices": attrs.pop("indices"),
+                                           "material": len(materials) - 1}]})
+            nodes.append({"mesh": len(meshes) - 1,
+                          "matrix": np.asarray(matrix, np.float32).T.reshape(-1).tolist()})
+    uri = "data:application/octet-stream;base64," + base64.b64encode(blob).decode()
+    with open(path, "w") as f:
+        json.dump({"asset": {"version": "2.0"}, "scene": 0,
+                   "scenes": [{"nodes": list(range(len(nodes)))}], "nodes": nodes,
+                   "meshes": meshes, "materials": materials, "bufferViews": views,
+                   "accessors": accessors, "buffers": [{"uri": uri, "byteLength": len(blob)}]},
+                  f)
+
+
+def app_gltf(Application, StaticConfig, tmp, launches, counted) -> None:
+    """A glTF written to `tmp` (a floor, a cube and a sphere, node
+    matrices) loaded by `load_gltf` and rendered (PT, APP_GLTF_SIZE², 2
+    frames) against the same scene built from ModelLoader primitives: the
+    packed scenes and the frames bit-equal."""
+    import os
+
+    from rust_renderer_tpu_torch.scene import ModelLoader, load_gltf
+    from rust_renderer_tpu_torch.utils import math3d
+
+    parts = [(ModelLoader.load_cube, math3d.scale([8.0, 0.1, 8.0])),
+             (ModelLoader.load_cube, math3d.translation([0.6, 0.5, 0.0])),
+             (lambda: ModelLoader.load_sphere(stacks=24, slices=48),
+              math3d.translation([-0.7, 0.6, 0.3]) @ math3d.scale(0.6))]
+    path = os.path.join(tmp, "scene.gltf")
+    write_gltf(path, [(load(), m) for load, m in parts])
+
+    def lights(r, cam):
+        r.add_light([2.0, 3.0, 2.0], [1.0, 1.0, 1.0], 1.0)
+        cam.set_position_target([3, 2, 5], [0, 0.5, 0])
+
+    def from_gltf(r, cam):
+        r.add_model(load_gltf(path), np.eye(4, dtype=np.float32))
+        lights(r, cam)
+
+    def from_primitives(r, cam):
+        for load, m in parts:
+            r.add_model(load(), m)
+        lights(r, cam)
+
+    imgs, apps = [], []
+    for builder in (from_gltf, from_primitives):
+        app = Application(APP_GLTF_SIZE, APP_GLTF_SIZE, cfg=StaticConfig(num_bounces=BOUNCES),
+                          device="cuda")
+        app.fps_timer.elapsed_seconds = lambda: PARITY_TIME
+        app.create_scene(builder)
+        launches.reset()
+        imgs.append(app.run(2))
+        counted.update(launches.read())
+        apps.append(app)
+    packed = all(torch.equal(getattr(apps[0].scene, f), getattr(apps[1].scene, f))
+                 for f in ("positions", "indices", "normals", "uvs"))
+    log(f"app glTF: {os.path.getsize(path)} bytes, {apps[0].scene.num_triangles} triangles, "
+        f"packed scene equal to the primitives' {packed}, frames bit-equal "
+        f"{bool(np.array_equal(imgs[0], imgs[1]))} (mean {float(imgs[0].mean()):.4f})")
+    if not packed or not np.array_equal(imgs[0], imgs[1]) or imgs[0].std() <= 1e-3:
+        raise AssertionError("app glTF: the loaded scene renders otherwise")
+
+
+def app_phase(Application, StaticConfig, RenderGraphMode, create_scene, launches,
+              counted) -> None:
+    """The application's own entry point on the card: `main()` by its command
+    line at 1920x1080 with --sanitize for PT, RASTERIZED and MINIMAL on the
+    default scene and PT on the RTIOW scene at 256x256; the sanitizer,
+    present_every and profiler costs; the sanitized device loop; the gizmo;
+    a glTF scene."""
+    import tempfile
+
+    from rust_renderer_tpu_torch.app import main as app_main
+    from rust_renderer_tpu_torch.utils import image_io
+    from rust_renderer_tpu_torch.utils.profiler import PROFILER
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for mode, want in APP_WANT.items():
+            argv = ["--width", str(WIDTH), "--height", str(HEIGHT), "--frames",
+                    str(APP_FRAMES), "--sanitize", "--mode", mode, "--out", f"{tmp}/{mode}.png"]
+            app = run_main(app_main, PROFILER, image_io, launches, counted, argv, want,
+                           (WIDTH, HEIGHT))
+            if mode == "pt":
+                pt_app = app
+            del app
+        run_main(app_main, PROFILER, image_io, launches, counted,
+                 ["--width", str(APP_RTIOW_SIZE), "--height", str(APP_RTIOW_SIZE), "--frames",
+                  str(APP_FRAMES), "--sanitize", "--scene", "rtiow", "--out", f"{tmp}/rtiow.png"],
+                 APP_RTIOW_WANT, (APP_RTIOW_SIZE, APP_RTIOW_SIZE))
+        app_costs(pt_app, PROFILER)
+        del pt_app
+        pt = RenderGraphMode.PATH_TRACED
+        app_loop_sanitized(Application, StaticConfig, pt, create_scene, launches, counted)
+        app_gizmo(Application, StaticConfig, pt, create_scene, launches, counted)
+        app_gltf(Application, StaticConfig, tmp, launches, counted)
+
+
+def build_kernels(native, traversal, raster_binned) -> str:
+    """Versions and the card's line logged; every kernel library built, one
+    nvcc per source, all started together. Returns the card's line."""
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     card = card_line()
@@ -1825,6 +2162,51 @@ def main() -> int:
     for lib in (*traversal.SOURCES, "k45_raster_binned"):
         with open(f"{native.BUILD_DIR}/lib{lib}.so.log") as f:
             log(f.read().strip())
+    return card
+
+
+def app_alone() -> int:
+    """`--app`: the kernels built, then the app phase alone (no kernels
+    line and no result line)."""
+    from rust_renderer_tpu_torch import native
+    from rust_renderer_tpu_torch.app.main import Application
+    from rust_renderer_tpu_torch.models import create_scene
+    from rust_renderer_tpu_torch.ops import bvh as bvh_ops, raster_binned, traversal
+    from rust_renderer_tpu_torch.settings import RenderGraphMode, StaticConfig
+
+    card = build_kernels(native, traversal, raster_binned)
+    counted = collections.Counter()
+    app_phase(Application, StaticConfig, RenderGraphMode, create_scene,
+              Launches(traversal, raster_binned, bvh_ops), counted)
+    log(f"app phase launches {dict(counted)}; chip_smoke --app total "
+        f"{time.perf_counter() - START:.1f} s")
+    print(card)
+    return 0
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch sees no GPU", file=sys.stderr)
+        return 1
+    if sys.argv[1:] == ["--k5"]:
+        return k5_alone()
+    if sys.argv[1:] == ["--app"]:
+        return app_alone()
+    if sys.argv[1:]:
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
+        return 2
+    from rust_renderer_tpu_torch import native
+    from rust_renderer_tpu_torch.app.main import Application
+    from rust_renderer_tpu_torch import models
+    from rust_renderer_tpu_torch.models import create_scene, create_sponza_scale_scene
+    from rust_renderer_tpu_torch.graph import Graph
+    from rust_renderer_tpu_torch.ops import (
+        bvh as bvh_ops, compaction, marching_cubes, mc_bvh, pathtrace, raster, raster_binned,
+        rays, shadow, traversal)
+    from rust_renderer_tpu_torch.renderers.passes import setup_gbuffer_pass
+    from rust_renderer_tpu_torch.settings import RenderGraphMode, StaticConfig
+
+    card = build_kernels(native, traversal, raster_binned)
     launches = Launches(traversal, raster_binned, bvh_ops)
     counted = collections.Counter()
     fronts, bvhs = {}, {}
@@ -1930,6 +2312,7 @@ def main() -> int:
     scene_phase(Application, StaticConfig, RenderGraphMode, models, launches, counted)
     golden_phase(Application, StaticConfig, models, launches, counted)
     counted.update(furnace_phase(Application, StaticConfig, launches))
+    app_phase(Application, StaticConfig, RenderGraphMode, create_scene, launches, counted)
 
     # Launches: the frames', the variant, compaction and seed runs' (every
     # path's count was read just after it); times and bounds on the default

@@ -6,8 +6,10 @@ written by hand for NVIDIA Hopper (``csrc/``), built from the checkout at
 first use. The JAX package is the reference the port is tested against; the
 port never imports it (nor jax).
 
-Ported so far: the PATH_TRACED frame of the default scene (exact sky), with
-kernel K1 (BVH traversal).
+Ported so far: every frame mode of every scene builder, the device frame
+loop, and the application with its entry point
+(``python -m rust_renderer_tpu_torch.app.main``); not yet the multi-device
+layer. ROADMAP.md keeps the list.
 """
 
 from rust_renderer_tpu_torch.camera import Camera

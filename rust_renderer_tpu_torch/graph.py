@@ -13,6 +13,13 @@ resources cached by name; `render` runs the passes in order, and
 - A resource read before any pass of the frame wrote it holds its clear value
   (transient) or last frame's value (persistent). Persistent resources
   (accumulation image, reservoirs) live in `Graph.state` across frames.
+- `Graph(sanitize=True)` is the validation-layer analog (the JAX package's
+  graph.py:154-175): the non-finite values of every floating pass output
+  are counted on the device and read with one copy a frame (or one a
+  `render_loop` call) into `last_sanitizer_report`.
+- Hot reload (graph.rs:673-701): `recompile_shader(module)` reloads a
+  kernel module; a pass that then fails falls back to the pass function of
+  the last good frame.
 """
 
 from __future__ import annotations
@@ -20,7 +27,10 @@ from __future__ import annotations
 import dataclasses
 import enum
 import functools
+import importlib
 import inspect
+import logging
+import sys
 from collections.abc import Mapping
 from typing import Callable
 
@@ -29,16 +39,22 @@ import torch
 
 from rust_renderer_tpu_torch.settings import RenderSettings, to_tensor
 
+log = logging.getLogger(__name__)
+PACKAGE = __name__.rpartition(".")[0]
+
 
 @dataclasses.dataclass
 class ResourceDesc:
     """Named resource descriptor (graph.rs:563-619); `clear` is the value a
-    fresh resource holds."""
+    fresh resource holds. sanitize=False exempts the resource from the
+    sanitizer: for float tables whose columns hold bit-cast int32 ids, where
+    -1 and other ids are NaN bit patterns."""
 
     name: str
     shape: tuple[int, ...]
     dtype: torch.dtype
     clear: float = 0.0
+    sanitize: bool = True
 
     def allocate(self, device) -> torch.Tensor:
         return torch.full(self.shape, self.clear, dtype=self.dtype, device=device)
@@ -139,8 +155,21 @@ class _PassResources(Mapping):
 class Graph:
     """The frame graph (graph.rs:99-106 + 440-1065) on one device."""
 
-    def __init__(self, device="cuda") -> None:
+    def __init__(self, device="cuda", sanitize: bool = False,
+                 suppress: tuple[str, ...] = ()) -> None:
+        """sanitize=True counts the non-finite values of the passes' floating
+        outputs and logs the nonzero counts by (pass, resource), except for
+        the passes named in `suppress` (the analog of the reference's
+        suppressed validation message, vulkan_base.rs:55-58)."""
         self.device = torch.device(device)
+        self.sanitize = bool(sanitize)
+        self.suppress = tuple(suppress)
+        self.last_sanitizer_report: dict[str, int] = {}
+        # Hot reload: the generation grows with each reload; per pass name,
+        # the function of the last frame it ran in without fault and the
+        # generation then.
+        self._generation = 0
+        self._last_good: dict[str, tuple[Callable, int]] = {}
         self.passes: list[RenderPass] = []
         self.descs: dict[str, ResourceDesc] = {}
         self.persist: set[str] = set()
@@ -164,18 +193,19 @@ class Graph:
 
     def create_texture(self, name: str, width: int, height: int, channels: int = 4,
                        dtype=torch.float32, clear: float = 0.0,
-                       persistent: bool = False) -> str:
+                       persistent: bool = False, sanitize: bool = True) -> str:
         """Name-keyed texture cache (graph.rs:563-587). (H, W, C) layout."""
         shape = (height, width, channels) if channels > 1 else (height, width)
-        return self._declare(name, shape, dtype, clear, persistent)
+        return self._declare(name, shape, dtype, clear, persistent, sanitize)
 
     def create_buffer(self, name: str, shape: tuple[int, ...], dtype=torch.float32,
-                      clear: float = 0.0, persistent: bool = False) -> str:
+                      clear: float = 0.0, persistent: bool = False,
+                      sanitize: bool = True) -> str:
         """graph.rs:593-619."""
-        return self._declare(name, tuple(shape), dtype, clear, persistent)
+        return self._declare(name, tuple(shape), dtype, clear, persistent, sanitize)
 
-    def _declare(self, name, shape, dtype, clear, persistent) -> str:
-        desc = ResourceDesc(name, tuple(shape), dtype, clear)
+    def _declare(self, name, shape, dtype, clear, persistent, sanitize=True) -> str:
+        desc = ResourceDesc(name, tuple(shape), dtype, clear, sanitize)
         old = self.descs.get(name)
         if old is not None and (old.shape != desc.shape or old.dtype != desc.dtype):
             # A resolution change drops the cached resource.
@@ -190,29 +220,118 @@ class Graph:
     def add_pass(self, name: str) -> PassBuilder:
         return PassBuilder(self, name)
 
+    # -- hot reload (graph.rs:673-701) ----------------------------------------
+
+    def recompile(self) -> None:
+        """Start a new generation after a reload: a pass that fails from now
+        on falls back to its function of the last good frame, and the
+        captured loop is dropped, so the next `render_loop` captures anew."""
+        self._generation += 1
+        self._loop = None
+
+    def recompile_shader(self, module_name: str) -> bool:
+        """Reload one kernel module by name (the reference's per-path shader
+        recompile, graph.rs:683-701), then `recompile`. A module that builds
+        CUDA libraries loads them anew: `native.load_library` names a
+        library by its sources' hash. Returns whether the reload succeeded;
+        a failed one keeps the old module."""
+        mod = sys.modules.get(module_name)
+        if mod is None:
+            log.warning("recompile_shader: module %s not loaded", module_name)
+            return False
+        try:
+            importlib.reload(mod)
+        except Exception:
+            log.exception("recompile_shader: reload of %s failed; keeping the old one",
+                          module_name)
+            return False
+        self.recompile()
+        return True
+
+    def recompile_all_shaders(self) -> None:
+        """Reload every loaded module of the port's ops and renderers."""
+        for name, mod in list(sys.modules.items()):
+            if name.startswith((f"{PACKAGE}.ops", f"{PACKAGE}.renderers")):
+                try:
+                    importlib.reload(mod)
+                except Exception:
+                    log.exception("reload of %s failed; keeping the old one", name)
+        self.recompile()
+
     # -- execution ------------------------------------------------------------
 
-    def _run_passes(self, passes, resources: dict, scene, view) -> dict:
-        """Run `passes` in order over `resources` (updated in place)."""
+    def _run_passes(self, passes, resources: dict, scene, view, count=None,
+                    fell_back: set | None = None) -> dict:
+        """Run `passes` in order over `resources` (updated in place);
+        `count(pass, name, tensor)` sees each output. With `fell_back` (a
+        set), a pass that raises after a reload runs its function of the last
+        good frame instead, and its name is added to the set."""
         for p in passes:
-            outs = p.fn(_PassResources(self, resources, p), scene, view)
+            try:
+                outs = p.fn(_PassResources(self, resources, p), scene, view)
+            except Exception:
+                old = self._last_good.get(p.name)
+                if fell_back is None or old is None or old[1] == self._generation:
+                    raise  # no reload since the pass last ran: a fault to surface
+                log.exception("pass '%s' failed after a hot reload; running its "
+                              "function of the last good frame", p.name)
+                outs = old[0](_PassResources(self, resources, p), scene, view)
+                fell_back.add(p.name)
             for wname, arr in (outs or {}).items():
                 if wname not in p.writes:
                     raise ValueError(
                         f"pass '{p.name}' writes resource '{wname}' without "
                         "declaring it with .write()")
                 resources[wname] = arr
+                if count is not None:
+                    count(p, wname, arr)
         return resources
 
     def render(self, scene, view) -> dict[str, torch.Tensor]:
         """Run the recorded passes in order. `view` (a host RenderSettings) is
         uploaded once. Returns every resource of the frame; persistent ones
-        are kept in `state` for the next frame."""
+        are kept in `state` for the next frame. With sanitize, every floating
+        output whose resource is not exempt is checked, its non-finite count
+        made on the device, and the counts of the frame read with one copy."""
         if isinstance(view, RenderSettings):
             view = view.to(self.device)
-        resources = self._run_passes(self.passes, dict(self.state), scene, view)
+        checks: dict[str, torch.Tensor] = {}
+
+        def count(p, name, arr):
+            desc = self.descs.get(name)
+            if arr.is_floating_point() and (desc is None or desc.sanitize):
+                checks[f"{p.name}/{name}"] = _nonfinite(arr)
+
+        fell_back: set[str] = set()
+        resources = self._run_passes(self.passes, dict(self.state), scene, view,
+                                     count if self.sanitize else None, fell_back)
+        self._last_good.update({p.name: (p.fn, self._generation) for p in self.passes
+                                if p.name not in fell_back})
         self.state.update({n: resources[n] for n in self.persist if n in resources})
+        if checks:
+            self._report(checks)
         return resources
+
+    def _report(self, checks: dict[str, torch.Tensor], frames: int = 1) -> None:
+        """The nonzero counts of `checks` (device scalars), read with one copy,
+        into last_sanitizer_report; logged unless their pass is suppressed."""
+        counts = torch.stack(list(checks.values())).cpu().tolist() if checks else []
+        self.last_sanitizer_report = {k: c for k, c in zip(checks, counts) if c > 0}
+        for key, c in self.last_sanitizer_report.items():
+            if key.split("/", 1)[0] not in self.suppress:
+                log.error("sanitizer: %s produced %d non-finite values%s", key, c,
+                          "" if frames == 1 else f" across the {frames}-frame loop")
+
+    def _sanitized_writes(self, passes) -> list[str]:
+        """The `render_loop` sanitizer's keys: each declared floating write
+        (a resource declared and not exempt) as "pass/resource"."""
+        keys = []
+        for p in passes:
+            for w in p.writes:
+                d = self.descs.get(w)
+                if d is not None and d.sanitize and d.dtype.is_floating_point:
+                    keys.append(f"{p.name}/{w}")
+        return keys
 
     # -- the device loop (the JAX package's graph.py:341-372, 484-690) -------
 
@@ -282,10 +401,16 @@ class Graph:
         - Eagerly, the same body N times: on CPU tensors, and on CUDA where
           `capture_unsupported_reason` gives a reason. `last_loop_form`
           says which.
+        - With sanitize, the non-finite values of each declared floating
+          write of the prefix and the body (`_sanitized_writes`) are summed
+          over the N frames into device counters that the body adds to (in
+          the captured form too), zeroed before frame 1 and read with one
+          copy after the call into `last_sanitizer_report`. A pass that
+          fails here raises: the hot-reload fallback is `render`'s alone.
 
         Raises ValueError where `device_loop_unsupported_reason` gives a
         reason. The JAX loop's frame checksum has no counterpart (eager
-        torch elides no frame), and its sanitizer none yet."""
+        torch elides no frame)."""
         reason = self.device_loop_unsupported_reason()
         if reason is not None:
             raise ValueError(f"render_loop: {reason}")
@@ -300,11 +425,15 @@ class Graph:
         inv = {n: t for n, t in self.state.items() if n not in carry_names}
         fresh_view = view.to(self.device)
         aux = {k: to_tensor(v, self.device) for k, v in (aux or {}).items()}
-        stacked = {}
+        stacked, prefix_checks = {}, {}
+        if self.sanitize:
+            prefix_checks = {k: torch.zeros((), dtype=torch.int64, device=self.device)
+                             for k in self._sanitized_writes(prefix)}
         if prefix:
             stacked = self._run_prefix(prefix, inv, scene, fresh_view, n_frames,
-                                       view_update, aux, stacked_names)
+                                       view_update, aux, stacked_names, prefix_checks)
         present = self.descs.get("present_output")
+        san_keys = self._sanitized_writes(main) if self.sanitize else []
 
         def new_loop(key) -> _Loop:
             return _Loop(
@@ -313,7 +442,9 @@ class Graph:
                 carry={n: self.state[n].clone() for n in carry_names}, inv=inv,
                 stacked=stacked,
                 present=None if present is None else present.allocate(self.device),
-                passes=main, scene=scene, view_update=view_update, key=key)
+                passes=main, scene=scene, view_update=view_update, key=key,
+                san={k: torch.zeros((), dtype=torch.int64, device=self.device)
+                     for k in san_keys})
 
         why = (f"no CUDA graphs on {self.device.type}" if self.device.type != "cuda"
                else self.capture_unsupported_reason())
@@ -326,9 +457,10 @@ class Graph:
             layout = lambda d: [(n, str(t.dtype), tuple(t.shape)) for n, t in d.items()]
             key = _value_key((
                 [(p.name, p.fn, p.reads, p.writes) for p in main],
-                sorted((d.name, d.shape, str(d.dtype), d.clear) for d in self.descs.values()),
-                carry_names, inv, scene, view_update, layout(vars(fresh_view)), layout(aux),
-                layout(stacked)))
+                sorted((d.name, d.shape, str(d.dtype), d.clear, d.sanitize)
+                       for d in self.descs.values()),
+                san_keys, carry_names, inv, scene, view_update, layout(vars(fresh_view)),
+                layout(aux), layout(stacked)))
             loop = self._loop
             if loop is None or loop.key != key:
                 loop = self._loop = None  # frees the last capture's memory first
@@ -347,17 +479,21 @@ class Graph:
             if n in self.persist and n not in written:
                 self.state[n] = stacked[n][-1]
         self.current_frame += n_frames
+        if self.sanitize:
+            self._report({**prefix_checks, **loop.san}, n_frames)
         return None if loop.present is None else loop.present.clone()
 
     def _run_prefix(self, prefix, inv, scene, view, n_frames, view_update, aux,
-                    names) -> dict[str, torch.Tensor]:
+                    names, checks: dict) -> dict[str, torch.Tensor]:
         """The isolated prefix for frames 0..N-1 (the JAX package's
-        `lax.map`): each written resource in `names`, stacked over frames."""
+        `lax.map`): each written resource in `names`, stacked over frames;
+        the non-finite counts of the writes keyed in `checks` added to it."""
         frames = []
         for i in range(n_frames):
             k = torch.full((), i, dtype=torch.int32, device=self.device)
             view_k = view if view_update is None else view_update(view, k, aux)
-            resources = self._run_passes(prefix, dict(inv), scene, view_k)
+            resources = self._run_passes(prefix, dict(inv), scene, view_k,
+                                         _counter(checks))
             frames.append({n: resources[n] if n in resources
                            else self.descs[n].allocate(self.device) for n in names})
         return {n: torch.stack([f[n] for f in frames]) for n in names}
@@ -374,7 +510,7 @@ class Graph:
         index = loop.k.reshape(1)
         for name, arr in loop.stacked.items():
             resources[name] = arr.index_select(0, index)[0]
-        self._run_passes(loop.passes, resources, loop.scene, view)
+        self._run_passes(loop.passes, resources, loop.scene, view, _counter(loop.san))
         for name, t in loop.carry.items():
             t.copy_(resources[name])
         if loop.present is not None and "present_output" in resources:
@@ -417,10 +553,12 @@ class _Loop:
     scene: object
     view_update: Callable | None
     key: object
+    san: dict  # "pass/resource" -> () int64 non-finite count, summed over the frames
     graph: object = None
 
     def reload(self, view: RenderSettings, aux: dict, state: dict, stacked: dict) -> None:
-        """A new call's inputs copied into the captured tensors; k = 0."""
+        """A new call's inputs copied into the captured tensors; k = 0 and
+        the sanitizer's counts 0."""
         for name, t in vars(self.view).items():
             t.copy_(getattr(view, name))
         for name, t in self.aux.items():
@@ -429,7 +567,29 @@ class _Loop:
             t.copy_(state[name])
         for name, t in self.stacked.items():
             t.copy_(stacked[name])
+        for t in self.san.values():
+            t.zero_()
         self.k.zero_()
+
+
+def _nonfinite(t: torch.Tensor) -> torch.Tensor:
+    """The () int64 count of t's NaN and infinite values, on t's device."""
+    return torch.isfinite(t).logical_not().sum()
+
+
+def _counter(checks: dict):
+    """A `_run_passes` count that adds the non-finite values of each output
+    keyed "pass/resource" in `checks` to its () int64 tensor, in place (so
+    that a captured body adds to the same tensor on every replay)."""
+    if not checks:
+        return None
+
+    def count(p, name, arr):
+        key = f"{p.name}/{name}"
+        if key in checks:
+            checks[key].add_(_nonfinite(arr))
+
+    return count
 
 
 def _value_key(x, _path=()):

@@ -1,11 +1,10 @@
-"""Scene definitions (rebuild of prototype/src/scenes.rs), procedural branch.
+"""Scene definitions (rebuild of prototype/src/scenes.rs).
 
-The port of the builders of ``rust_renderer_tpu/models/scenes.py``: the
-glTF loader is not ported yet, so every builder here takes the procedural
-branch that the JAX package takes when the upstream assets are absent, with
-the same random draws. A builder raises if the asset directory named by
-RUST_RENDERER_TPU_ASSETS holds the real asset, since the JAX package would
-then load a different scene.
+The port of the builders of ``rust_renderer_tpu/models/scenes.py``. A
+builder loads an upstream glTF asset (Sponza, the Cornell box, FlightHelmet,
+the sphere, MetalRoughSpheres) from the asset directory named by
+RUST_RENDERER_TPU_ASSETS where it is there, and otherwise takes the JAX
+package's procedural branch, with the same random draws.
 """
 
 from __future__ import annotations
@@ -16,20 +15,26 @@ import numpy as np
 
 from rust_renderer_tpu_torch.camera import Camera
 from rust_renderer_tpu_torch.renderer import Renderer
-from rust_renderer_tpu_torch.scene import Material, MaterialType, ModelLoader
+from rust_renderer_tpu_torch.scene import Material, MaterialType, ModelLoader, load_gltf
 from rust_renderer_tpu_torch.utils import math3d
 
 
-def _refuse_asset(rel: str) -> None:
+def _find_asset(rel: str) -> str | None:
+    """The path of asset `rel` (relative to the upstream checkout) under the
+    directory RUST_RENDERER_TPU_ASSETS names, read when called; None where
+    it is not there."""
     root = os.environ.get("RUST_RENDERER_TPU_ASSETS", "")
-    if root and os.path.exists(os.path.join(root, rel)):
-        raise NotImplementedError(
-            f"{rel} exists under {root}: glTF assets are not ported yet, "
-            "so this scene would differ from the JAX package's")
+    if root:
+        path = os.path.join(root, rel)
+        if os.path.exists(path):
+            return path
+    return None
 
 
 def _load_sphere_model():
-    _refuse_asset("utopian/data/models/sphere.gltf")
+    path = _find_asset("utopian/data/models/sphere.gltf")
+    if path:
+        return load_gltf(path)
     return ModelLoader.load_sphere()
 
 
@@ -52,11 +57,16 @@ def create_scene(renderer: Renderer, camera: Camera) -> None:
 
 
 def create_sponza_scene(renderer: Renderer, camera: Camera) -> None:
-    """scenes.rs:102-150: Sponza (here its procedural stand-in) + one metal
-    and one dielectric sphere."""
+    """scenes.rs:102-150: Sponza + one metal and one dielectric sphere."""
     camera.set_position_target([-10.28, 2.10, -0.18], [0.0, 0.5, 0.0])
-    _refuse_asset("prototype/data/models/Sponza/glTF/Sponza.bin")
-    create_atrium_standin(renderer)
+    sponza_path = _find_asset("prototype/data/models/Sponza/glTF/Sponza.gltf")
+    sponza_bin = _find_asset("prototype/data/models/Sponza/glTF/Sponza.bin")
+    if sponza_path and sponza_bin:
+        renderer.add_model(load_gltf(sponza_path), np.eye(4, dtype=np.float32))
+    else:
+        # The upstream checkout ships Sponza.gltf without its (LFS) .bin:
+        # a procedural atrium stands in.
+        create_atrium_standin(renderer)
 
     metal_sphere = _load_sphere_model()
     metal_sphere.meshes[0].material.material_type = MaterialType.METAL
@@ -75,16 +85,19 @@ def create_sponza_scene(renderer: Renderer, camera: Camera) -> None:
 
 def create_cornell_box_scene(renderer: Renderer, camera: Camera) -> None:
     """scenes.rs:58-100: the Cornell box glTF, a DIFFUSE_LIGHT cube and the
-    FlightHelmet glTF. Without the assets (the only case ported) the light
-    cube alone, as the JAX package builds it then."""
+    FlightHelmet glTF; without the assets, the light cube alone."""
     camera.set_position_target([0.0, 0.9, 2.0], [0.0, 0.5, 0.0])
-    _refuse_asset("prototype/data/models/CornellBox-Original.gltf")
+    box_path = _find_asset("prototype/data/models/CornellBox-Original.gltf")
+    if box_path:
+        renderer.add_model(load_gltf(box_path), np.eye(4, dtype=np.float32))
     light = ModelLoader.load_cube()
     light.meshes[0].material.material_type = MaterialType.DIFFUSE_LIGHT
     renderer.add_model(
         light, math3d.translation([0.0, 1.95, 0.0]) @ math3d.scale([0.50, 0.05, 0.35])
     )
-    _refuse_asset("prototype/data/models/FlightHelmet/glTF/FlightHelmet.gltf")
+    helmet_path = _find_asset("prototype/data/models/FlightHelmet/glTF/FlightHelmet.gltf")
+    if helmet_path:
+        renderer.add_model(load_gltf(helmet_path), math3d.translation([-0.33, 0.4, 0.3]))
 
 
 def create_cornell_standin_scene(renderer: Renderer, camera: Camera) -> None:
@@ -118,11 +131,14 @@ def create_cornell_standin_scene(renderer: Renderer, camera: Camera) -> None:
 
 
 def create_metal_rough_spheres(renderer: Renderer, camera: Camera) -> None:
-    """scenes.rs:32-56: the MetalRoughSpheres glTF. Without the asset (the
-    only case ported) nothing, as the JAX package builds it then."""
+    """scenes.rs:32-56: the MetalRoughSpheres glTF; without it, nothing."""
     camera.set_position_target([0.0, 0.9, 2.0], [0.0, 0.5, 0.0])
-    _refuse_asset("prototype/data/models/MetalRoughSpheresNoTextures/glTF/"
-                  "MetalRoughSpheresNoTextures.gltf")
+    path = _find_asset("prototype/data/models/MetalRoughSpheresNoTextures/glTF/"
+                       "MetalRoughSpheresNoTextures.gltf")
+    if path:
+        transform = (math3d.translation([-10.0, 15.0, 2.5]) @ math3d.rotation_y(np.pi / 2.0)
+                     @ math3d.scale(1000.0))
+        renderer.add_model(load_gltf(path), transform)
 
 
 def create_cube_scene(renderer: Renderer, camera: Camera) -> None:

@@ -9,8 +9,11 @@ Two libraries are built from the checkout's sources into the git-ignored
 - the CUDA kernels under ``rust_renderer_tpu_torch/csrc/``, compiled with
   nvcc (see ``ops/traversal.py``).
 
-A library is rebuilt when the hash of its sources or build command changes.
-A failed build raises: the port has no silent fallback.
+A library's file is named by the hash of its sources and build command,
+so a changed source builds a new file and a process that loads the library
+again (a hot reload) loads the new code: the dynamic loader would hand back
+the old handle for an unchanged path. A failed build raises: the port has no
+silent fallback.
 """
 
 from __future__ import annotations
@@ -28,26 +31,23 @@ BUILD_DIR = os.path.join(PACKAGE_DIR, "build")
 BVH_BUILDER_SRC = os.path.join(REPO_DIR, "rust_renderer_tpu", "native",
                                "bvh_builder.cpp")
 
-_loaded: dict[str, ctypes.CDLL] = {}
+_loaded: dict[str, ctypes.CDLL] = {}  # by the library's path
 
 
 def build_library(name: str, sources: list[str], command: list[str],
                   timeout: float = 600.0, deps: tuple[str, ...] = ()) -> str:
-    """Compile `sources` into BUILD_DIR/lib<name>.so unless a library built
-    from the same sources, headers (`deps`) and command is there. `command`
-    is the compiler invocation without the output flag and sources. Returns
-    the path."""
+    """Compile `sources` into BUILD_DIR/lib<name>-<hash>.so, the hash that of
+    the sources, headers (`deps`) and command, unless that file is there.
+    `command` is the compiler invocation without the output flag and
+    sources. The compiler's report of the last build goes to
+    BUILD_DIR/lib<name>.so.log. Returns the path."""
     digest = hashlib.sha256(" ".join(command).encode())
     for src in [*sources, *deps]:
         with open(src, "rb") as f:
             digest.update(f.read())
-    want = digest.hexdigest()
-    lib_path = os.path.join(BUILD_DIR, f"lib{name}.so")
-    hash_path = lib_path + ".srchash"
-    if os.path.exists(lib_path) and os.path.exists(hash_path):
-        with open(hash_path) as f:
-            if f.read().strip() == want:
-                return lib_path
+    lib_path = os.path.join(BUILD_DIR, f"lib{name}-{digest.hexdigest()[:16]}.so")
+    if os.path.exists(lib_path):
+        return lib_path
     os.makedirs(BUILD_DIR, exist_ok=True)
     # Build under a private name and rename: concurrent test workers may
     # build the same library at once.
@@ -58,22 +58,22 @@ def build_library(name: str, sources: list[str], command: list[str],
         raise RuntimeError(
             f"building lib{name}.so failed ({' '.join(command)}):\n"
             f"{proc.stdout}\n{proc.stderr}")
-    os.replace(tmp, lib_path)
     # The compiler's report (nvcc -Xptxas=-v: registers, spills) for reading.
-    with open(lib_path + ".log", "w") as f:
+    with open(f"{tmp}.log", "w") as f:
         f.write(proc.stdout + proc.stderr)
-    with open(f"{hash_path}.{os.getpid()}.tmp", "w") as f:
-        f.write(want)
-    os.replace(f"{hash_path}.{os.getpid()}.tmp", hash_path)
+    os.replace(f"{tmp}.log", os.path.join(BUILD_DIR, f"lib{name}.so.log"))
+    os.replace(tmp, lib_path)
     return lib_path
 
 
 def load_library(name: str, sources: list[str], command: list[str],
                  deps: tuple[str, ...] = ()) -> ctypes.CDLL:
-    """build_library + ctypes load, once per process."""
-    if name not in _loaded:
-        _loaded[name] = ctypes.CDLL(build_library(name, sources, command, deps=deps))
-    return _loaded[name]
+    """build_library + ctypes load, once per process for each version of the
+    sources."""
+    path = build_library(name, sources, command, deps=deps)
+    if path not in _loaded:
+        _loaded[path] = ctypes.CDLL(path)
+    return _loaded[path]
 
 
 def _bvh_lib() -> ctypes.CDLL:

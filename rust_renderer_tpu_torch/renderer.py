@@ -245,6 +245,11 @@ class Renderer:
                 *self._default_maps(), color, 0.0, 1.0, 0, 0.0))
         return self._mc_material_index
 
+    def set_instance_transform(self, instance_index: int, transform: np.ndarray) -> None:
+        """The gizmo move (prototype/src/main.rs:344-359): the next pack()
+        rebuilds the world-space pools (the TLAS-rebuild equivalent)."""
+        self.instances[instance_index].transform = np.asarray(transform, np.float32)
+
     # -- packing --------------------------------------------------------------
 
     def pack_numpy(self) -> dict[str, np.ndarray]:

@@ -8,9 +8,12 @@
 - HYBRID: an empty graph, like the reference (mod.rs:377-391).
 - MINIMAL: shadow -> forward -> present (mod.rs:393-433).
 
-The builders run every frame over the graph's cached resources. The
-captured environment (cubemaps, irradiance, LUT) is a persistent resource
-that `Application._ensure_environment` fills when it is stale.
+The builders run every frame over the graph's cached resources, and take
+the JAX package's arguments in its order. The captured environment
+(cubemaps, irradiance, LUT) is a persistent resource: with
+`need_environment_update` the graph records the environment pass that
+makes it; else it is only declared, and `Application._ensure_environment`
+fills it when it is stale.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from rust_renderer_tpu_torch.renderers.passes import (
     setup_gbuffer_pass,
     setup_marching_cubes_pass,
     setup_present_pass,
+    setup_environment_passes,
     setup_rt_reflections_pass,
     setup_rt_shadows_pass,
     setup_shadow_pass,
@@ -47,19 +51,32 @@ __all__ = [
 ]
 
 
+def _environment(graph: Graph, cfg, sun_dir, need_environment_update: bool) -> None:
+    """The environment pass where it must be recomputed this frame, else its
+    persistent resources declared so that reads resolve (ibl.rs:63-66)."""
+    if need_environment_update:
+        setup_environment_passes(graph, cfg, sun_dir)
+    else:
+        declare_env_resources(graph, cfg)
+
+
 def build_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_dir,
-                       shadows_enabled: bool = True, marching_cubes_enabled: bool = False,
+                       need_environment_update: bool = False,
+                       shadows_enabled: bool = True,
+                       shadow_map_size: int | None = None,
+                       marching_cubes_enabled: bool = False,
                        raytracing_supported: bool = True) -> None:
     """The rasterized graph (mod.rs:61-187). Visibility comes from BVH
     primary rays; the shadow cascades (K4) and the marching-cubes draw (K5)
-    are rasterized. raytracing_supported=False leaves the RT passes out
+    are rasterized. The cascades are `shadow_map_size` square, else
+    cfg.shadow_map_size. raytracing_supported=False leaves the RT passes out
     (device.rs:93-103): shading falls back to CSM and IBL-only reflections."""
     w, h = cfg.width, cfg.height
     matrices, splits = setup_shadow_pass(graph, camera, sun_dir, shadows_enabled,
-                                         cfg.shadow_map_size, cfg.shadow_cascade_count,
-                                         cfg.raster_method)
+                                         shadow_map_size or cfg.shadow_map_size,
+                                         cfg.shadow_cascade_count, cfg.raster_method)
     setup_gbuffer_pass(graph, scene_bvh, w, h)
-    declare_env_resources(graph, cfg)
+    _environment(graph, cfg, sun_dir, need_environment_update)
     if raytracing_supported:
         setup_rt_shadows_pass(graph, scene_bvh, cfg, w, h)
         setup_rt_reflections_pass(graph, scene_bvh, cfg, w, h)
@@ -80,13 +97,14 @@ def build_hybrid_render_graph(graph: Graph, *args, **kwargs) -> None:
 
 
 def build_minimal_forward_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_dir,
-                                       shadows_enabled: bool = True) -> None:
+                                       shadows_enabled: bool = True,
+                                       shadow_map_size: int | None = None) -> None:
     """Minimal forward graph (mod.rs:393-433): shadow -> forward -> present;
     no atmosphere pass, the sky stays at the clear color."""
     w, h = cfg.width, cfg.height
     matrices, splits = setup_shadow_pass(graph, camera, sun_dir, shadows_enabled,
-                                         cfg.shadow_map_size, cfg.shadow_cascade_count,
-                                         cfg.raster_method)
+                                         shadow_map_size or cfg.shadow_map_size,
+                                         cfg.shadow_cascade_count, cfg.raster_method)
     setup_forward_pass(graph, cfg, w, h, matrices, splits, scene_bvh)
     setup_present_pass(graph, w, h, source="forward_output")
 
@@ -130,6 +148,7 @@ def _rng_for(view, h: int, w: int) -> torch.Tensor:
 
 
 def build_path_tracing_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_dir,
+                                    need_environment_update: bool = False,
                                     marching_cubes_enabled: bool = False,
                                     mc_material: int = 0,
                                     mc_color=(0.0, 1.0, 0.0, 1.0),
@@ -151,10 +170,8 @@ def build_path_tracing_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_di
     num_lights: the scene's light count when known. With ZERO lights the
     direct-lighting chain (gbuffer + reset/initial-RIS/temporal/spatial)
     selects nothing, so the graph is built without it (the same output).
-
-    The keyword parameters follow the JAX signature without its
-    `need_environment_update`: the port's application captures the
-    environment itself (`Application._ensure_environment`).
+    need_environment_update records the environment pass in a cubemap-sky
+    graph (`build_render_graph`).
     """
     if cfg.sky_mode not in ("exact", "cubemap"):
         raise ValueError(f"unknown sky_mode {cfg.sky_mode!r}")
@@ -162,7 +179,7 @@ def build_path_tracing_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_di
     skip_restir = num_lights == 0
     use_cubemap_sky = cfg.sky_mode == "cubemap"
     if use_cubemap_sky:
-        declare_env_resources(graph, cfg)
+        _environment(graph, cfg, sun_dir, need_environment_update)
 
     dynamic_fn = None
     mc_reads: tuple[str, ...] = ()
@@ -176,7 +193,10 @@ def build_path_tracing_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_di
         shapes = mc_bvh.table_shapes(grid)
         mc_reads = tuple(shapes)
         for name, shape in shapes.items():
-            graph.create_buffer(name, shape)
+            # The tree tables hold bit-cast int32 ids and child refs in float
+            # columns (-1 and leaf refs are NaN bit patterns): exempt from
+            # the sanitizer, as in the JAX package.
+            graph.create_buffer(name, shape, sanitize=name == "mc_tri_normals")
 
         def mc_extract(res, scene, view):
             # The fixed [0,32]^3 world domain (the reference's feature

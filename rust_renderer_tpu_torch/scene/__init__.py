@@ -1,4 +1,5 @@
-"""Scene assets: primitives, materials and procedural models (host numpy)."""
+"""Scene assets: primitives, materials, glTF loading and procedural models
+(host numpy)."""
 
 from rust_renderer_tpu_torch.scene.primitive import Primitive
 from rust_renderer_tpu_torch.scene.gltf_loader import (
@@ -7,6 +8,7 @@ from rust_renderer_tpu_torch.scene.gltf_loader import (
     MaterialType,
     Mesh,
     Model,
+    load_gltf,
 )
 from rust_renderer_tpu_torch.scene.model_loader import ModelLoader
 
@@ -17,5 +19,6 @@ __all__ = [
     "Mesh",
     "Model",
     "DEFAULT_TEXTURE_MAP",
+    "load_gltf",
     "ModelLoader",
 ]

@@ -30,8 +30,15 @@ CPU's frame and the host loop's; the rasterized gbuffer pass (K5) its pieces on 
 CPU with K5's plain version (`gbuffer.from_visibility` of a binned
 rasterization): the same material ids, the planes to 1e-4 absolute plus
 1e-4 relative (K5's barycentrics are within 1e-5 of the plain version's,
-and positions scale them by the triangles' edges).
+and positions scale them by the triangles' edges). The sanitizer's counts
+in a captured loop must sum over the frames of each call, and a sanitized
+PT loop stay captured and bit-equal to the host loop; a CUDA library
+rebuilt from a changed source must run the new code once loaded again;
+after `set_instance_transform` the next loop must capture anew, free the
+old capture and stay bit-equal to the host loop.
 """
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -894,3 +901,107 @@ def test_raster_gbuffer_pass_on_card_matches_cpu(cuda_device):
     assert torch.equal(got["gbuffer_pbr"][..., 3], want["gbuffer_pbr"][..., 3])
     for name, ref in want.items():
         assert torch.allclose(got[name], ref, rtol=1e-4, atol=1e-4), name
+
+
+@pytest.mark.cuda
+def test_captured_loop_sanitizer_counts_on_card(cuda_device):
+    """The sanitizer in the captured loop: a pass that writes one NaN a frame
+    reports N for an N-frame call, on the capture's call and on a replay
+    (the counts are device tensors the captured body adds to, zeroed before
+    each call), and the loop stays captured."""
+    g = Graph(cuda_device, sanitize=True)
+    g.create_texture("present_output", 8, 8, 3)
+
+    def bad(res, scene, view):
+        img = torch.zeros((8, 8, 3), device=cuda_device)
+        img.view(-1)[:1].fill_(float("nan"))  # no host copy: capture-safe
+        return {"present_output": img}
+
+    g.add_pass("bad").write("present_output").render(bad).build()
+    from rust_renderer_tpu_torch.settings import RenderSettings
+
+    for n in (3, 2):
+        g.render_loop(None, RenderSettings.default(), n)
+        assert g.last_loop_form == "captured" and g.captures == 1
+        assert g.last_sanitizer_report == {"bad/present_output": n}
+
+
+@pytest.mark.cuda
+def test_pt_loop_with_sanitizer_stays_captured_on_card(cuda_device):
+    """`run_on_device` with sanitize on: captured, nothing reported, and the
+    state bit-equal to the host loop's with sanitize off."""
+    cfg = StaticConfig(num_bounces=3)
+
+    def make(sanitize):
+        app = Application(64, 64, cfg=cfg, sanitize=sanitize, device=cuda_device)
+        app.fps_timer.elapsed_seconds = lambda: 0.25
+        app.create_scene()
+        return app
+
+    host, loop = make(False), make(True)
+    want = host.run(3)
+    img = loop.run_on_device(3, tstep=0.0)
+    assert loop.graph.last_loop_form == "captured"
+    assert loop.graph.last_sanitizer_report == {}
+    for name, state in host.graph.state.items():
+        assert torch.equal(loop.graph.state[name], state), name
+    np.testing.assert_array_equal(img.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+def test_cuda_library_reloads_a_changed_source(cuda_device, tmp_path, monkeypatch):
+    """One small library built twice from two versions of its source: the
+    second load runs the second version's kernel (the library is named by
+    its sources' hash, `native.load_library`)."""
+    from rust_renderer_tpu_torch import native
+
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    src = tmp_path / "version.cu"
+    out = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    for version in (1, 2):
+        src.write_text(
+            "#include <cuda_runtime.h>\n"
+            f"__global__ void write_version(int* out) {{ *out = {version}; }}\n"
+            'extern "C" int run(void* out) {\n'
+            "  write_version<<<1, 1>>>(static_cast<int*>(out));\n"
+            "  return static_cast<int>(cudaGetLastError());\n}\n")
+        lib = native.load_library("hot_version", [str(src)], traversal.nvcc_command())
+        lib.run.restype = ctypes.c_int
+        lib.run.argtypes = [ctypes.c_void_p]
+        assert lib.run(out.data_ptr()) == 0
+        torch.cuda.synchronize()
+        assert int(out) == version
+
+
+@pytest.mark.cuda
+def test_set_instance_transform_captures_anew_on_card(cuda_device):
+    """After the metal sphere moves, the next `run_on_device` captures anew
+    (the old capture held the old scene's tensors), the old capture is
+    freed, and the loop stays bit-equal to the host loop."""
+    import gc
+    import weakref
+
+    def make():
+        app = Application(64, 64, cfg=StaticConfig(num_bounces=3), device=cuda_device)
+        app.fps_timer.elapsed_seconds = lambda: 0.25
+        app.create_scene()
+        return app
+
+    host, loop = make(), make()
+    metal = len(loop.renderer.instances) - 2
+    move = np.array(loop.renderer.instances[metal].transform, np.float32)
+    move[:3, 3] += [0.5, -0.4, 1.0]
+    host.run(2)
+    loop.run_on_device(2, tstep=0.0)
+    old = weakref.ref(loop.graph._loop)
+    for app in (host, loop):
+        app.set_instance_transform(metal, move)
+    want = host.run(2)
+    img = loop.run_on_device(2, tstep=0.0)
+    gc.collect()
+    assert old() is None
+    assert loop.graph.captures == 2 and loop.graph.last_loop_form == "captured"
+    assert loop.graph._loop.scene is loop.scene
+    for name, state in host.graph.state.items():
+        assert torch.equal(loop.graph.state[name], state), name
+    np.testing.assert_array_equal(img.cpu().numpy(), want)

@@ -211,6 +211,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             "cubemap, ibl, pbr, ssao, fxaa, noise, marching_cubes, mc_bvh, intersect, "
             "gbuffer, colors, restir, constants); "
             "import rust_renderer_tpu_torch.renderers.passes; "
+            "import rust_renderer_tpu_torch.app.viewer, rust_renderer_tpu_torch.app.ui, "
+            "rust_renderer_tpu_torch.input, rust_renderer_tpu_torch.scene.gltf_loader; "
+            "from rust_renderer_tpu_torch.utils import hud, image_io, profiler, watcher; "
             "assert 'rust_renderer_tpu' not in sys.modules, 'JAX package imported'; "
             "print('ok')")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -9,9 +9,9 @@ cube scene, against the JAX package's Application with its BVH built with
 leaf_size=12 (the port's layout) and the clock pinned. Tolerance: the
 slice's, at least 99% of pixels within 1e-3 and a mean absolute difference
 of at most 1e-3; the active-ray counts equal. The JAX frames are rendered
-once per mode, in module fixtures. The two glTF builders are ported without
-their assets: with an asset present the port refuses (`_refuse_asset`);
-without, it builds what the JAX package builds then.
+once per mode, in module fixtures. The glTF builders take an asset where
+RUST_RENDERER_TPU_ASSETS holds it (`_find_asset`) and pack what the JAX
+package packs then; without, what it builds then.
 """
 
 import dataclasses
@@ -157,9 +157,20 @@ def test_cube_scene_rasterized_frame_matches_jax(jax_raster_frame):
 
 @pytest.mark.parametrize("name,asset", ASSETS)
 def test_asset_builders_refuse_a_present_asset(name, asset, tmp_path, monkeypatch):
+    """With an asset present (here an empty glTF document) the builder loads
+    it, as the JAX package's does, and no longer refuses: one more
+    instance, and the same packed scene as the JAX package's."""
     path = tmp_path / asset
     path.parent.mkdir(parents=True)
     path.write_text("{}")
     monkeypatch.setenv("RUST_RENDERER_TPU_ASSETS", str(tmp_path))
-    with pytest.raises(NotImplementedError, match="glTF assets are not ported"):
-        _build(torch_rt, getattr(torch_models, name))
+    # The JAX package reads the variable when it is imported.
+    monkeypatch.setattr(jax_scenes, "_ASSET_ROOTS", [str(tmp_path)])
+    tr, _ = _build(torch_rt, getattr(torch_models, name))
+    jr, _ = _build(jax_rt, _jax_builder(name))
+    assert len(tr.instances) == len(jr.instances) == (
+        2 if name == "create_cornell_box_scene" else 1)
+    jax_scene, port = jr.pack(), tr.pack_numpy()
+    for f in dataclasses.fields(jax_scene):
+        np.testing.assert_array_equal(port[f.name], np.asarray(getattr(jax_scene, f.name)),
+                                      err_msg=f.name)
