@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --k5    # K5's times alone (`k5_alone`)
     python3 chip_smoke.py --app   # the app phase alone (`app_alone`)
+    python3 chip_smoke.py --tiles # the tiles phase alone (`tiles_alone`)
 
 Builds the traversal kernels (rust_renderer_tpu_torch/csrc/traverse_wide.cu:
 K1 and K3's wide forms; traverse_q32.cu: K1q; traverse_drain.cu: K2;
@@ -124,7 +125,21 @@ one nvcc per source, started together; then:
    set_instance_transform: the next host frame bit-equal to a fresh app's
    with the sphere there, the next loop captured anew and bit-equal to the
    host loop; a glTF written to a temporary directory rendered bit-equal
-   to the same scene built from ModelLoader primitives.
+   to the same scene built from ModelLoader primitives;
+23. row bands on torch.distributed (`parallel/`, `Graph.shard_image_rows`;
+   `tiles_phase`), every rank a process of its own and all of them on the
+   one card (not a scaling figure): the PT Application's first 2 frames at
+   1920x1080, flagship_step over their views from the same zero state and
+   render_flagship_tiled over a one-rank NCCL group (bit-equal; each
+   against the Application's frames, printed); then 2 and 4 gloo ranks
+   over CUDA tensors (rank 0's gathered output and spatial Y against one
+   rank: Y bit-equal, output within 2e-5; per rank the frame ms, 6 + 5 K1
+   and 5 seed launches a frame, 2 x 16 B x H x W gathered a frame, the time
+   of a gather); on the 2 ranks the PT, RASTERIZED (marching cubes on) and
+   MINIMAL Applications with row-sharded graphs, gathered against one rank
+   (PT within 2e-5, raster within 3e-5), with per-rank frame ms and
+   launches. The kernels are built before the ranks start; each
+   rank loads them.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after. Every failed check raises. The last log line gives
@@ -2145,6 +2160,267 @@ def app_phase(Application, StaticConfig, RenderGraphMode, create_scene, launches
         app_gltf(Application, StaticConfig, tmp, launches, counted)
 
 
+# The tiles phase: row bands over torch.distributed ranks (parallel/). The
+# sharded flagship frame's launches a frame on every rank; the row-sharded
+# graphs' (PT; RASTERIZED with the marching-cubes draw; MINIMAL) and the
+# largest |diff| of their gathered frames from one rank's.
+TILES_RANKS, TILES_FRAMES = (2, 4), 2
+TILES_ATOL, TILES_RASTER_ATOL = 2e-5, 3e-5
+FLAGSHIP_WANT = Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0, seed=BOUNCES)
+TILES_GRAPHS = {"PATH_TRACED": (FLAGSHIP_WANT, TILES_ATOL),
+                "RASTERIZED": (Launches.frame_want(2, 1, 4, 1, seed=1), TILES_RASTER_ATOL),
+                "MINIMAL": (Launches.frame_want(1, 0, 4, 0), TILES_RASTER_ATOL)}
+
+
+def flagship_inputs(app, bvh_ops):
+    """The flagship chain's hit queries, built as the PT graph builds them
+    (renderers/__init__.py: compaction windows, Morton order, the seed
+    test's rows)."""
+    cfg = app.cfg
+    return (bvh_ops.make_closest_hit(app.scene_bvh, compact_window=cfg.compact_window,
+                                     compact_order=cfg.compact_order),
+            bvh_ops.make_any_hit(app.scene_bvh, compact_window=cfg.compact_window_any,
+                                 compact_order=cfg.compact_order, seed_rows=cfg.seed_rows))
+
+
+def flagship_frames(app, views, group=None) -> tuple:
+    """TILES_FRAMES flagship frames of `app`'s scene from a zero state, one
+    a view: through flagship_step (group None) or this rank's band through
+    render_flagship_tiled. Returns the frames' (output, accumulation,
+    spatial) bands, the ms of each frame by CUDA events and the bytes the
+    chain gathered a frame."""
+    from rust_renderer_tpu_torch.ops import bvh as bvh_ops
+    from rust_renderer_tpu_torch.ops.restir import Reservoir
+    from rust_renderer_tpu_torch.parallel import (
+        flagship_step, render_flagship_tiled, shard_flagship_inputs, tiles)
+
+    closest, any_hit = flagship_inputs(app, bvh_ops)
+    accum = torch.zeros((HEIGHT, WIDTH, 3), device="cuda")
+    res = Reservoir.empty((HEIGHT, WIDTH), "cuda")
+    if group is not None:
+        accum, res = shard_flagship_inputs(group, accum, res)
+    frames, ms, gathered = [], [], []
+    for view in views:
+        tiles.GATHERED_BYTES = 0
+        if group is None:
+            out, t = timed(lambda: flagship_step(app.scene, view, app.cfg, accum, res,
+                                                 closest, any_hit))
+        else:
+            out, t = timed(lambda: render_flagship_tiled(app.scene, view, app.cfg, accum, res,
+                                                         closest, any_hit, group))
+        _, accum, res = out
+        frames.append(out)
+        ms.append(t)
+        gathered.append(tiles.GATHERED_BYTES)
+    return frames, ms, gathered
+
+
+def tiles_app(Application, StaticConfig, mode, group=None):
+    """An Application of the default scene at 1920x1080 (PT at 5 bounces),
+    the clock pinned, the marching-cubes draw on in RASTERIZED; its graph
+    row-sharded over `group` where given."""
+    from rust_renderer_tpu_torch.settings import RenderGraphMode
+
+    mode = getattr(RenderGraphMode, mode)
+    cfg = StaticConfig(num_bounces=BOUNCES) if mode == RenderGraphMode.PATH_TRACED else None
+    app = Application(WIDTH, HEIGHT, mode, cfg=cfg, device="cuda")
+    app.fps_timer.elapsed_seconds = lambda: PARITY_TIME
+    app.view = app.view.replace(
+        marching_cubes_enabled=np.int32(mode == RenderGraphMode.RASTERIZED))
+    if group is not None:
+        app.graph.shard_image_rows(group, HEIGHT, WIDTH)
+    app.create_scene()
+    return app
+
+
+def tiles_rank(rank: int, n: int, view_fields: list, graphs: bool) -> dict:
+    """One rank of the tiles phase (gloo over CUDA tensors, the ranks sharing
+    the card): the flagship frame on its band, then, with `graphs`, the PT,
+    RASTERIZED and MINIMAL frames of a row-sharded graph. Per frame: ms by
+    CUDA events, launches, bytes gathered; the time of one flagship gather
+    (4 planes) by the host clock; rank 0 also returns the gathered images
+    and spatial Y."""
+    import torch.distributed as dist
+
+    from rust_renderer_tpu_torch.app.main import Application
+    from rust_renderer_tpu_torch.convert import view_from_numpy
+    from rust_renderer_tpu_torch.ops import bvh as bvh_ops, raster_binned, traversal
+    from rust_renderer_tpu_torch.parallel import make_tile_group, tiles
+    from rust_renderer_tpu_torch.settings import StaticConfig
+
+    group, index = make_tile_group(backend="gloo", device="cuda")
+    launches = Launches(traversal, raster_binned, bvh_ops)
+    app = tiles_app(Application, StaticConfig, "PATH_TRACED")
+    views = [view_from_numpy(v, "cuda") for v in view_fields]
+    launches.reset()
+    frames, ms, gathered = flagship_frames(app, views, group)
+    out = {"index": index, "flagship_ms": ms, "gathered": gathered,
+           "flagship_launches": launches.read()}
+    spatial = frames[-1][2]
+    [tiles.gather_rows(p, group) for p in spatial]  # the ranks in step
+    torch.cuda.synchronize()
+    dist.barrier(group)
+    t0 = time.perf_counter()
+    for _ in range(3):
+        [tiles.gather_rows(p, group) for p in spatial]
+    torch.cuda.synchronize()
+    out["gather_ms"] = (time.perf_counter() - t0) / 3 * 1e3
+    if index == 0:
+        out["flagship"] = []
+    for img, _, res in frames:
+        whole = [tiles.gather_rows(img, group), tiles.gather_rows(res.Y, group)]
+        if index == 0:
+            out["flagship"].append([t.cpu() for t in whole])
+    del app, frames, spatial
+    if graphs:
+        for mode in TILES_GRAPHS:
+            app = tiles_app(Application, StaticConfig, mode, group)
+            launches.reset()
+            imgs, ms = [], []
+            for _ in range(TILES_FRAMES):
+                res, t = timed(app.render_frame)
+                imgs.append(res["present_output"])
+                ms.append(t)
+            out[f"{mode}_launches"] = launches.read()
+            out[f"{mode}_ms"] = ms
+            out[f"{mode}_shape"] = tuple(imgs[-1].shape)
+            whole = tiles.gather_rows(imgs[-1], group)
+            if index == 0:
+                out[mode] = whole.cpu()
+            del app, imgs
+    return out
+
+
+def tiles_phase(Application, StaticConfig, launches, card: str) -> collections.Counter:
+    """Row bands on torch.distributed (parallel/), the ranks sharing the one
+    card: not a scaling figure, a check of the bands' frames, their launches
+    and the collectives' cost.
+
+    1. The PT Application's first TILES_FRAMES frames at 1920x1080 (their
+       views recorded); flagship_step over the same views from the same zero
+       state, and render_flagship_tiled over a one-rank NCCL group: the two
+       bit-equal, and flagship_step bit-equal to the Application's frames
+       (output and spatial Y).
+    2. 2 and 4 gloo ranks over CUDA tensors, the same frames: rank 0's
+       gathered output and spatial Y against step 1's (Y bit-equal, output
+       within TILES_ATOL); per rank the frame ms, the K1 and seed launches
+       (6 + 5 and 5 a frame), the bytes gathered a frame (2 x 16 B x H x W)
+       and the time of one gather of the 4 planes.
+    3. On the 2 ranks, PT, RASTERIZED (marching cubes on) and MINIMAL
+       Applications whose graph is row-sharded (Graph.shard_image_rows):
+       the gathered present_output of the last frame against the one-rank
+       frame (PT within TILES_ATOL, raster within TILES_RASTER_ATOL),
+       per-rank frame ms and launches.
+    Returns every launch of the phase (the ranks' included)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from rust_renderer_tpu_torch.parallel import make_tile_group, spawn_ranks
+
+    counted = collections.Counter()
+    app = tiles_app(Application, StaticConfig, "PATH_TRACED")
+    views, render = [], app.graph.render
+
+    def recording(scene, view):
+        views.append(view)
+        return render(scene, view)
+
+    app.graph.render = recording
+    launches.reset()
+    want = []
+    for _ in range(TILES_FRAMES):
+        res = app.render_frame()
+        want.append((res["present_output"], res["spatial_reuse_reservoirs_Y"].to(torch.int32)))
+    counted.update(launches.read())
+    device_views = [v.to("cuda") for v in views]
+    launches.reset()
+    single, single_ms, _ = flagship_frames(app, device_views)
+    counted.update(launches.read())
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/store", rank=0,
+                                world_size=1)
+        try:
+            group, _ = make_tile_group(device="cuda")
+            launches.reset()
+            nccl, nccl_ms, nccl_bytes = flagship_frames(app, device_views, group)
+            counted.update(launches.read())
+        finally:
+            dist.destroy_process_group()
+    for k, ((img, acc, sp), (n_img, n_acc, n_sp), (a_img, a_y)) in enumerate(
+            zip(single, nccl, want)):
+        exact = torch.equal(img, n_img) and torch.equal(acc, n_acc) and all(
+            torch.equal(a, b) for a, b in zip(sp, n_sp))
+        as_app = torch.equal(img, a_img) and torch.equal(sp.Y, a_y)
+        log(f"tiles: flagship frame {k + 1} at {WIDTH}x{HEIGHT}: one-rank NCCL group "
+            f"{'bit-equal' if exact else 'NOT bit-equal'} to flagship_step "
+            f"({nccl_ms[k]:.1f} / {single_ms[k]:.1f} ms, {nccl_bytes[k]} bytes gathered); "
+            f"against the PT Application's frame: output max |diff| "
+            f"{float((img - a_img).abs().max()):.3e}, spatial Y unequal on "
+            f"{int((sp.Y != a_y).sum())} pixels")
+        if not exact:
+            raise AssertionError("tiles: the one-rank NCCL flagship differs from flagship_step")
+        if not as_app:
+            raise AssertionError("tiles: flagship_step differs from the PT Application's frame")
+    view_fields = [{f: np.asarray(getattr(v, f)) for f in vars(v)} for v in views]
+    ref = [(img.cpu(), sp.Y.cpu()) for img, _, sp in single]
+    graph_ref = {"PATH_TRACED": want[-1][0].cpu()}
+    del app, single, nccl, want, device_views
+    torch.cuda.empty_cache()
+    for mode in list(TILES_GRAPHS)[1:]:
+        app = tiles_app(Application, StaticConfig, mode)
+        for _ in range(TILES_FRAMES):
+            img = app.render_frame()["present_output"]
+        graph_ref[mode] = img.cpu()
+        del app
+
+    for n in TILES_RANKS:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            ranks = spawn_ranks(tiles_rank, n, tmp, args=(view_fields, n == TILES_RANKS[0]))
+            log(f"tiles: {n} gloo ranks on one card (CUDA tensors; ranks share the card: "
+                f"not a scaling figure), spawn to join {time.perf_counter() - t0:.1f} s")
+        for rank in ranks:
+            got, want_ = rank["flagship_launches"], {
+                k: v * TILES_FRAMES for k, v in FLAGSHIP_WANT.items()}
+            log(f"tiles: {n} ranks, rank {rank['index']}: flagship frame ms "
+                f"{[round(x, 2) for x in rank['flagship_ms']]}, launches "
+                f"{ {k: v for k, v in got.items() if v} }, bytes "
+                f"gathered a frame {rank['gathered']}, one gather of the 4 planes "
+                f"{rank['gather_ms']:.2f} ms (two a frame)")
+            if got != want_ or rank["gathered"] != [2 * 16 * HEIGHT * WIDTH] * TILES_FRAMES:
+                raise AssertionError(f"tiles: {n} ranks: launches {got} (want {want_}) or "
+                                     f"bytes {rank['gathered']}")
+            counted.update(got)
+        for k, ((img, y), (r_img, r_y)) in enumerate(zip(ranks[0]["flagship"], ref)):
+            diff = (img - r_img).abs()
+            log(f"tiles: {n} ranks, frame {k + 1} gathered: spatial Y unequal on "
+                f"{int((y != r_y).sum())} pixels, output max |diff| {float(diff.max()):.3e}, "
+                f"unequal pixels {int((diff.amax(-1) > 0).sum())}")
+            if not torch.equal(y, r_y) or float(diff.max()) > TILES_ATOL:
+                raise AssertionError(f"tiles: {n} ranks: frame {k + 1} differs from one rank")
+        for mode, (per_frame, atol) in TILES_GRAPHS.items():
+            if mode not in ranks[0]:
+                continue
+            want_ = {k: v * TILES_FRAMES for k, v in per_frame.items()}
+            for rank in ranks:
+                log(f"tiles: {n} ranks, rank {rank['index']}: {mode} row-sharded frame ms "
+                    f"{[round(x, 2) for x in rank[f'{mode}_ms']]}, band "
+                    f"{rank[f'{mode}_shape']}, launches "
+                    f"{ {k: v for k, v in rank[f'{mode}_launches'].items() if v} }")
+                if rank[f"{mode}_launches"] != want_:
+                    raise AssertionError(f"tiles: {mode}: launches {rank[f'{mode}_launches']}"
+                                         f", expected {want_}")
+                counted.update(rank[f"{mode}_launches"])
+            diff = float((ranks[0][mode] - graph_ref[mode]).abs().max())
+            log(f"tiles: {n} ranks {mode} gathered present_output against one rank: max "
+                f"|diff| {diff:.3e}")
+            if diff > atol:
+                raise AssertionError(f"tiles: {mode} row-sharded frame differs from one rank")
+    log(f"tiles phase launches { {k: v for k, v in counted.items() if v} } ({card})")
+    return counted
+
+
 def build_kernels(native, traversal, raster_binned) -> str:
     """Versions and the card's line logged; every kernel library built, one
     nvcc per source, all started together. Returns the card's line."""
@@ -2184,6 +2460,21 @@ def app_alone() -> int:
     return 0
 
 
+def tiles_alone() -> int:
+    """`--tiles`: the kernels built, then the tiles phase alone (no kernels
+    line and no result line)."""
+    from rust_renderer_tpu_torch import native
+    from rust_renderer_tpu_torch.app.main import Application
+    from rust_renderer_tpu_torch.ops import bvh as bvh_ops, raster_binned, traversal
+    from rust_renderer_tpu_torch.settings import StaticConfig
+
+    card = build_kernels(native, traversal, raster_binned)
+    tiles_phase(Application, StaticConfig, Launches(traversal, raster_binned, bvh_ops), card)
+    log(f"chip_smoke --tiles total {time.perf_counter() - START:.1f} s")
+    print(card)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no GPU", file=sys.stderr)
@@ -2192,6 +2483,8 @@ def main() -> int:
         return k5_alone()
     if sys.argv[1:] == ["--app"]:
         return app_alone()
+    if sys.argv[1:] == ["--tiles"]:
+        return tiles_alone()
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -2313,6 +2606,7 @@ def main() -> int:
     golden_phase(Application, StaticConfig, models, launches, counted)
     counted.update(furnace_phase(Application, StaticConfig, launches))
     app_phase(Application, StaticConfig, RenderGraphMode, create_scene, launches, counted)
+    counted.update(tiles_phase(Application, StaticConfig, launches, card))
 
     # Launches: the frames', the variant, compaction and seed runs' (every
     # path's count was read just after it); times and bounds on the default

@@ -16,6 +16,7 @@ import torch
 
 from rust_renderer_tpu_torch.ops.bvh import BVH, LEAF_SIZE, leaf_area_order
 from rust_renderer_tpu_torch.ops.raster import VisibilityBuffer
+from rust_renderer_tpu_torch.ops.restir import Reservoir
 from rust_renderer_tpu_torch.renderer import PackedScene
 from rust_renderer_tpu_torch.settings import RenderSettings, to_tensor
 
@@ -104,6 +105,16 @@ def visibility_from_numpy(vis, device) -> VisibilityBuffer:
         tri=_tensor(tri.astype(np.int32), device),
         bary_u=_tensor(bary_u.astype(np.float32), device),
         bary_v=_tensor(bary_v.astype(np.float32), device))
+
+
+def reservoir_from_numpy(planes, device) -> Reservoir:
+    """A reservoir's planes (Y, W_sum, W_X, M), the frame-carried ReSTIR
+    state, on `device`: Y and M int32, the weights float32."""
+    y, w_sum, w_x, m = (np.asarray(p) for p in planes)
+    return Reservoir(Y=_tensor(y.astype(np.int32), device),
+                     W_sum=_tensor(w_sum.astype(np.float32), device),
+                     W_X=_tensor(w_x.astype(np.float32), device),
+                     M=_tensor(m.astype(np.int32), device))
 
 
 def dynamic_tables_from_numpy(tables: Mapping, device) -> dict[str, torch.Tensor]:

@@ -20,6 +20,9 @@ resources cached by name; `render` runs the passes in order, and
 - Hot reload (graph.rs:673-701): `recompile_shader(module)` reloads a
   kernel module; a pass that then fails falls back to the pass function of
   the last good frame.
+- `shard_image_rows(group, height, width)` splits the image over the ranks
+  of a torch.distributed group: image-space resources hold this rank's row
+  band, and the passes read `Graph.band` (parallel/tiles.py::RowBand).
 """
 
 from __future__ import annotations
@@ -55,6 +58,7 @@ class ResourceDesc:
     dtype: torch.dtype
     clear: float = 0.0
     sanitize: bool = True
+    image: bool = False  # image-space: row-banded in a sharded graph
 
     def allocate(self, device) -> torch.Tensor:
         return torch.full(self.shape, self.clear, dtype=self.dtype, device=device)
@@ -180,6 +184,52 @@ class Graph:
         self.last_loop_form: str | None = None
         self.captures = 0  # CUDA graphs captured by render_loop
         self._loop: _Loop | None = None  # the captured loop render_loop replays
+        self.band = None  # this rank's RowBand of a row-sharded graph
+
+    def shard_image_rows(self, group, height: int, width: int | None = None,
+                         axis: str = "rows") -> None:
+        """Split the image into row bands over the ranks of `group` (a
+        torch.distributed process group; the JAX package's mesh, whose only
+        axis here is "rows"): from now on every image-space resource is
+        declared and carried as this rank's (height / n, width, ...) band,
+        and image-space state already held is cut to the band. Image-space
+        resources are the textures (`create_texture`) and the buffers
+        declared with image=True (the reservoir planes and their p_hat), and
+        not any resource whose leading dims happen to be (height, width)
+        (the JAX package's predicate): here the band changes what is
+        allocated and held, so a square light-space table such as the BRDF
+        LUT must never be taken for the image. Light-space resources (shadow
+        cascades, cubemaps, the BRDF LUT) stay whole.
+
+        Passes read `band`, this rank's row offset, its rows, the image's
+        size and the gather of a band to the whole image (`offset`, `rows`,
+        `full_height`, `width`, `gather`):
+        per-pixel passes compute their band's rows in image coordinates,
+        SSAO and FXAA gather the plane they shift to full height for the
+        rows beyond the band's edges, and the rasterized draws rasterize the
+        whole frame and keep their band. A sharded graph does not run
+        `render_loop` (`device_loop_unsupported_reason`)."""
+        from rust_renderer_tpu_torch.parallel.tiles import RowBand
+
+        if axis != "rows":
+            raise ValueError(f"a graph is sharded over image rows only, not {axis!r}")
+        if self.band is not None:
+            raise ValueError("the graph is row-sharded already")
+        self.band = RowBand.of(group, height, width)
+        for name, desc in self.descs.items():
+            if desc.image:
+                desc.shape = self._band_shape(name, desc.shape)
+                if name in self.state:
+                    start = self.band.offset
+                    self.state[name] = self.state[name][start:start + self.band.rows].clone()
+
+    def _band_shape(self, name: str, shape: tuple[int, ...]) -> tuple[int, ...]:
+        """This rank's band of the image-space shape (H, W, ...)."""
+        band = self.band
+        if shape[0] != band.full_height or (band.width is not None and shape[1] != band.width):
+            raise ValueError(f"image-space resource {name!r} of shape {shape} is not "
+                             f"the sharded image's ({band.full_height}, {band.width})")
+        return (band.rows, *shape[1:])
 
     # -- per-frame recording (graph.rs:459-484) -----------------------------
 
@@ -196,16 +246,21 @@ class Graph:
                        persistent: bool = False, sanitize: bool = True) -> str:
         """Name-keyed texture cache (graph.rs:563-587). (H, W, C) layout."""
         shape = (height, width, channels) if channels > 1 else (height, width)
-        return self._declare(name, shape, dtype, clear, persistent, sanitize)
+        return self._declare(name, shape, dtype, clear, persistent, sanitize, image=True)
 
     def create_buffer(self, name: str, shape: tuple[int, ...], dtype=torch.float32,
                       clear: float = 0.0, persistent: bool = False,
-                      sanitize: bool = True) -> str:
-        """graph.rs:593-619."""
-        return self._declare(name, tuple(shape), dtype, clear, persistent, sanitize)
+                      sanitize: bool = True, image: bool = False) -> str:
+        """graph.rs:593-619. image=True marks an (H, W, ...) image-space
+        buffer, which a row-sharded graph bands (`shard_image_rows`)."""
+        return self._declare(name, tuple(shape), dtype, clear, persistent, sanitize, image)
 
-    def _declare(self, name, shape, dtype, clear, persistent, sanitize=True) -> str:
-        desc = ResourceDesc(name, tuple(shape), dtype, clear, sanitize)
+    def _declare(self, name, shape, dtype, clear, persistent, sanitize=True,
+                 image=False) -> str:
+        shape = tuple(shape)
+        if self.band is not None and image:
+            shape = self._band_shape(name, shape)
+        desc = ResourceDesc(name, shape, dtype, clear, sanitize, image)
         old = self.descs.get(name)
         if old is not None and (old.shape != desc.shape or old.dtype != desc.dtype):
             # A resolution change drops the cached resource.
@@ -346,6 +401,9 @@ class Graph:
         """Why `render_loop` cannot run the current pass list as the host
         loop would (None: it can). The one rule behind render_loop's
         ValueError and Application.run_on_device's host loop."""
+        if self.band is not None:
+            return ("the graph is row-sharded (shard_image_rows): its passes call "
+                    "collectives every frame, which the device loop does not run")
         prefix, main = self._split_prefix()
         if any(p.isolated for p in main):
             return ("isolated pass after a non-isolated pass: only a leading "
@@ -460,7 +518,7 @@ class Graph:
                 sorted((d.name, d.shape, str(d.dtype), d.clear, d.sanitize)
                        for d in self.descs.values()),
                 san_keys, carry_names, inv, scene, view_update, layout(vars(fresh_view)),
-                layout(aux), layout(stacked)))
+                layout(aux), layout(stacked), self.band))
             loop = self._loop
             if loop is None or loop.key != key:
                 loop = self._loop = None  # frees the last capture's memory first

@@ -7,6 +7,8 @@ vertical edge classification, the edge-end walk with the quality step table
 edge-center offset and subpixel blending. Every probe is an edge-clamped
 neighbor read (`ops/ssao.py::shifted`). The present pass's settings
 (enabled, debug, threshold 0.45, renderers/present.rs:13-31) are arguments.
+On a row band of the image (`band`, a parallel/tiles.py RowBand) the probes
+read the whole image, gathered once, at the band's image rows.
 """
 
 from __future__ import annotations
@@ -27,11 +29,15 @@ for _i in range(1, ITERATIONS):
     _DISTS.append(_DISTS[-1] + QUALITY[min(_i, len(QUALITY) - 1)])
 
 
-def fxaa(color: torch.Tensor, threshold: float = 0.45, enabled=1, debug=0) -> torch.Tensor:
-    """color: (H, W, 3) in display space. debug=1 paints antialiased pixels
-    red (horizontal edge) or green (vertical edge) (fxaa.glsl:247-258)."""
+def fxaa(color: torch.Tensor, threshold: float = 0.45, enabled=1, debug=0,
+         band=None) -> torch.Tensor:
+    """color: (H, W, 3) in display space, or `band`'s rows of the image.
+    debug=1 paints antialiased pixels red (horizontal edge) or green
+    (vertical edge) (fxaa.glsl:247-258)."""
+    full = color if band is None else band.gather(color)
     luma = luminance(color)
-    sh = lambda dy, dx: shifted(luma, dy, dx)
+    full_luma = luma if band is None else luminance(full)
+    sh = lambda dy, dx: shifted(full_luma, dy, dx, band)
     l_c, l_d, l_u, l_l, l_r = luma, sh(1, 0), sh(-1, 0), sh(0, -1), sh(0, 1)
     l_min = torch.minimum(l_c, torch.minimum(torch.minimum(l_d, l_u), torch.minimum(l_l, l_r)))
     l_max = torch.maximum(l_c, torch.maximum(torch.maximum(l_d, l_u), torch.maximum(l_l, l_r)))
@@ -107,7 +113,7 @@ def fxaa(color: torch.Tensor, threshold: float = 0.45, enabled=1, debug=0) -> to
     final_offset = torch.maximum(final_offset, sub_off2 * sub_off2 * SUBPIXEL_QUALITY)
 
     # Resample final_offset texels across the edge: a two-texel lerp.
-    shc = lambda dy, dx: shifted(color, dy, dx)
+    shc = lambda dy, dx: shifted(full, dy, dx, band)
     s3 = s_pos[..., None]
     neighbor = torch.where(is_horizontal[..., None],
                            torch.where(s3, shc(1, 0), shc(-1, 0)),

@@ -38,9 +38,12 @@ def frame_seed(view) -> torch.Tensor:
     return (view.total_samples.to(torch.float32) + view.time * 10000.0).to(torch.int32)
 
 
-def pixel_grid(height: int, width: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """(py, px) int32 pixel coordinates of an (H, W) image."""
-    py = torch.arange(height, dtype=torch.int32, device=device)[:, None].expand(height, width)
+def pixel_grid(height: int, width: int, device,
+               row_offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(py, px) int32 pixel coordinates of an (H, W) image, or of the
+    (H, W) row band that starts at image row `row_offset`."""
+    py = torch.arange(row_offset, row_offset + height, dtype=torch.int32,
+                      device=device)[:, None].expand(height, width)
     px = torch.arange(width, dtype=torch.int32, device=device)[None, :].expand(height, width)
     return py, px
 
@@ -105,27 +108,40 @@ def _nee(scene, view, any_hit, rng_state, origin, throughput, active,
 
 
 def path_trace(scene, view, cfg, accumulation: torch.Tensor,
-               reservoirs: restirops.Reservoir | None,
-               closest_hit: Callable, any_hit: Callable,
+               reservoirs: restirops.Reservoir | None = None,
+               closest_hit: Callable = intersect.closest_hit_bruteforce,
+               any_hit: Callable | None = None, row_offset: int = 0,
+               full_size: tuple[int, int] | None = None,
                sky_fn: Callable | None = None, dynamic=None) -> PathTraceResult:
-    """One frame of the reference path tracer over the full image.
+    """One frame of the reference path tracer over the full image, or over
+    one row band of it.
 
     accumulation: (H, W, 3) f32 linear accumulation of the previous frames.
     reservoirs: spatial-reuse output for reservoir NEE (None = uniform only).
-    closest_hit / any_hit: the scene's hit queries (ops/bvh.py).
+    closest_hit / any_hit: the scene's hit queries (ops/bvh.py); any_hit
+    defaults to closest_hit's hit flag.
+    row_offset / full_size: `accumulation` is the band of image rows
+    [row_offset, row_offset + H) of a (full_height, full_width) image
+    (parallel/tiles.py): pixel coordinates, camera mapping and RNG seeds are
+    the image's, so the bands of a frame are the rows of the whole frame.
     sky_fn(origin, unit direction, view): the miss radiance; None
     integrates the atmosphere per miss ray.
     dynamic: an ``ops/mc_bvh.py`` DynamicScene (the animated marching-cubes
     isosurface), traced beside the scene by both queries; its hits shade
     with the MC normals and material.
     """
+    if any_hit is None:
+        def any_hit(s, o, d, t_min=1e-3, t_max=1e4):
+            return closest_hit(s, o, d, t_min, t_max).is_hit
+
     if dynamic is not None:
         closest_hit = mc_bvh.combine_closest_hit(closest_hit, dynamic)
         any_hit = mc_bvh.combine_any_hit(any_hit, dynamic)
     height, width = accumulation.shape[:2]
+    full_height, full_width = (height, width) if full_size is None else full_size
     dev = accumulation.device
-    py, px = pixel_grid(height, width, dev)
-    rng_state = rngmod.init_rng(px, py, width, frame_seed(view))
+    py, px = pixel_grid(height, width, dev, row_offset)
+    rng_state = rngmod.init_rng(px, py, full_width, frame_seed(view))
     sun_dir = rayops.normalize(view.sun_dir)
 
     pixel_color = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
@@ -136,7 +152,7 @@ def path_trace(scene, view, cfg, accumulation: torch.Tensor,
         rng_state, jy = rngmod.random_float(rng_state)
         origin, direction = rayops.generate_camera_rays(
             view.inverse_view, view.inverse_projection,
-            px.to(torch.float32) + jx, py.to(torch.float32) + jy, width, height)
+            px.to(torch.float32) + jx, py.to(torch.float32) + jy, full_width, full_height)
 
         radiance = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
         throughput = torch.ones((height, width, 3), dtype=torch.float32, device=dev)
@@ -182,7 +198,7 @@ def path_trace(scene, view, cfg, accumulation: torch.Tensor,
 
             rng_state, radiance = _nee(scene, view, any_hit, rng_state, origin,
                                        throughput, active, radiance, reservoirs,
-                                       px, width)
+                                       px, full_width)
             rays_traced = rays_traced + 2.0 * active.to(torch.float32).sum()
 
         pixel_color = pixel_color + radiance

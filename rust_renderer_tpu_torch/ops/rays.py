@@ -20,6 +20,17 @@ def length(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(dot(v, v))
 
 
+def apply_rows(p: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """p @ m[:, :3].T for points p (..., 3) and the rows of an (R, 3)
+    matrix block, plus m[:, 3] for an (R, 4) block: (..., R), term by term.
+    The card's matrix-vector product picks its kernel, and with it the
+    order of its sums, by the number of points, so a row band of an image
+    would get other bits than the whole image; term by term, every point
+    gets the same bits whatever the count."""
+    out = p[..., 0:1] * m[:, 0] + p[..., 1:2] * m[:, 1] + p[..., 2:3] * m[:, 2]
+    return out + m[:, 3] if m.shape[1] == 4 else out
+
+
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.stack([
         a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],

@@ -160,29 +160,40 @@ def resample(scene, state, hit_position, num_lights, max_num_lights_used,
 
 
 def initial_ris_pass(scene, state, hit_position, num_lights, max_num_lights_used,
-                     num_candidates: int = 32):
+                     num_candidates: int = 32, return_p_hat: bool = False):
     """restir/initial_ris.rgen: fresh RIS fed through one more reservoir with
-    weight W_sum * M, then finalized. Returns (state, reservoir, p_hat)."""
+    weight W_sum * M, then finalized. Returns (state, reservoir), and with
+    return_p_hat=True also p_hat of its sample, for the next pass."""
     state, r, p_sel = _resample_phat(scene, state, hit_position, num_lights,
                                      max_num_lights_used, num_candidates)
     new = Reservoir.empty(state.shape, state.device)
     state, new = update_reservoir(state, new, r.Y, r.W_sum * r.M.to(torch.float32), r.M)
     p_hat = torch.where(new.Y == r.Y, p_sel, 0.0)  # new.Y is r.Y or -1
     new = finalize_resampling(new, p_hat)
-    return state, new, torch.where(new.Y < 0, 0.0, p_hat)
+    if return_p_hat:
+        return state, new, torch.where(new.Y < 0, 0.0, p_hat)
+    return state, new
 
 
 def temporal_reuse_pass(scene, state, hit_position, initial: Reservoir,
                         prev_frame: Reservoir, prev_frame_projection_view,
-                        enabled, p_hat_initial):
+                        enabled, full_height: int | None = None, p_hat_initial=None,
+                        return_p_hat: bool = False):
     """restir/temporal_reuse.rgen:35-121: combine with the previous frame's
     reservoir at the backprojected pixel. hit_position (H,W,3); reservoir
-    planes (H,W); p_hat_initial is p_hat of `initial`'s sample. Returns
-    (state, reservoir, its p_hat)."""
+    planes (H,W). p_hat_initial is p_hat of `initial`'s sample (None:
+    evaluated here). Returns (state, reservoir), and with return_p_hat=True
+    also the reservoir's p_hat.
+
+    Row bands (parallel/flagship.py): `initial` covers this rank's band and
+    `prev_frame` is the whole previous frame (full_height rows), since the
+    backprojection can land on any row."""
     h, w = initial.Y.shape
+    fh = h if full_height is None else full_height
 
     new = Reservoir.empty((h, w), state.device)
-    p_hat = p_hat_initial
+    p_hat = (target_function(scene, initial.Y, hit_position) if p_hat_initial is None
+             else p_hat_initial)
     initial_weight = p_hat * initial.W_X * initial.M.to(torch.float32)
     state, new = update_reservoir(state, new, initial.Y, initial_weight, initial.M)
 
@@ -198,7 +209,7 @@ def temporal_reuse_pass(scene, state, hit_position, initial: Reservoir,
     v = 1.0 - ((row(1) / clip_w) * 0.5 + 0.5)
     in_bounds = (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (v <= 1.0)
     px = (u * w + 0.5).to(torch.int32).clamp(0, w - 1)
-    py = (v * h + 0.5).to(torch.int32).clamp(0, h - 1)
+    py = (v * fh + 0.5).to(torch.int32).clamp(0, fh - 1)
     fetched = _gather_reservoir_rows(_pack_reservoir_rows(prev_frame), py, px, w)
     prev = fetched.where(in_bounds, Reservoir.empty((h, w), state.device))
 
@@ -216,19 +227,30 @@ def temporal_reuse_pass(scene, state, hit_position, initial: Reservoir,
 
     # Disabled = passthrough (temporal_reuse.rgen:43-46).
     on = enabled == 1
-    return state, new.where(on, initial), torch.where(on, p_hat_new, p_hat)
+    out = new.where(on, initial)
+    if return_p_hat:
+        return state, out, torch.where(on, p_hat_new, p_hat)
+    return state, out
 
 
 def spatial_reuse_pass(scene, state, hit_position, temporal: Reservoir, enabled,
                        num_neighbors: int = 5, radius: int = 30,
+                       temporal_full: Reservoir | None = None, row_offset: int = 0,
                        p_hat_temporal=None) -> tuple[torch.Tensor, Reservoir]:
     """restir/spatial_reuse.rgen:35-75: combine with `num_neighbors` random
     neighbours within `radius` pixels. p_hat_temporal is p_hat of
-    `temporal`'s sample."""
+    `temporal`'s sample (None: evaluated here).
+
+    Row bands (parallel/flagship.py): a neighbour may lie on another rank's
+    band, so neighbours are read from `temporal_full`, the whole frame's
+    planes, at image row row_offset + y + offset."""
     h, w = temporal.Y.shape
     dev = state.device
+    src = temporal if temporal_full is None else temporal_full
+    fh = src.Y.shape[0]
     new = Reservoir.empty((h, w), dev)
-    p_hat = p_hat_temporal
+    p_hat = (target_function(scene, temporal.Y, hit_position) if p_hat_temporal is None
+             else p_hat_temporal)
     state, new = update_reservoir(
         state, new, temporal.Y,
         p_hat * temporal.W_X * temporal.M.to(torch.float32), temporal.M)
@@ -236,13 +258,13 @@ def spatial_reuse_pass(scene, state, hit_position, temporal: Reservoir, enabled,
 
     yy = torch.arange(h, dtype=torch.int32, device=dev)[:, None].expand(h, w)
     xx = torch.arange(w, dtype=torch.int32, device=dev)[None, :].expand(h, w)
-    src_packed = _pack_reservoir_rows(temporal)
+    src_packed = _pack_reservoir_rows(src)
 
     for _ in range(num_neighbors):
         state, off = rngmod.random_vec2(state)
         off = (off * 2.0 - 1.0) * radius
         nx = (xx + off[..., 0].to(torch.int32)).clamp(0, w - 1)
-        ny = (yy + off[..., 1].to(torch.int32)).clamp(0, h - 1)
+        ny = (yy + row_offset + off[..., 1].to(torch.int32)).clamp(0, fh - 1)
         nb = _gather_reservoir_rows(src_packed, ny, nx, w)
         p_hat_nb = target_function(scene, nb.Y, hit_position)
         state, new = update_reservoir(

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from rust_renderer_tpu_torch.ops.rays import apply_rows
 from rust_renderer_tpu_torch.utils import math3d
 
 CASCADE_COUNT = 4
@@ -89,7 +90,7 @@ def calculate_shadow(position, view_matrix, shadow_map, cascade_view_proj,
     with clamped taps, lit outside the light's depth range. Returns
     (shadow (H, W), cascade (H, W) int64)."""
     n_cascades, size = shadow_map.shape[0], shadow_map.shape[1]
-    view_z = position @ view_matrix[2, :3] + view_matrix[2, 3]
+    view_z = apply_rows(position, view_matrix[2:3])[..., 0]
     cascade = torch.zeros(position.shape[:-1], dtype=torch.int64, device=position.device)
     for i in range(n_cascades - 1):
         cascade = torch.where(view_z < -cascade_split_depths[i], i + 1, cascade)
@@ -99,8 +100,8 @@ def calculate_shadow(position, view_matrix, shadow_map, cascade_view_proj,
     for i in range(n_cascades):
         m = cascade_view_proj[i]
         sel = cascade == i
-        lsp = torch.where(sel[..., None], position @ m[:3, :3].T + m[:3, 3], lsp)
-        lsw = torch.where(sel, position @ m[3, :3] + m[3, 3], lsw)
+        lsp = torch.where(sel[..., None], apply_rows(position, m[:3]), lsp)
+        lsw = torch.where(sel, apply_rows(position, m[3:4])[..., 0], lsw)
     proj = lsp / torch.clamp_min(lsw.abs(), 1e-9)[..., None] * torch.sign(lsw)[..., None]
     uv = proj[..., :2] * 0.5 + 0.5
     depth_ref = proj[..., 2]

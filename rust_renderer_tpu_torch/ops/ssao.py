@@ -13,6 +13,11 @@ sky (position cleared to (1,1,1)) is unoccluded. Two forms:
 
 `ssao_blur` is the reference's box blur, which its graph never wires in
 (renderers/ssao.rs:34-36); no pass calls it here either.
+
+On a row band of the image (`band`, a parallel/tiles.py RowBand) the
+stencil and the blur read rows beyond the band's edges: they gather the
+plane they shift to full height and read it at the band's image rows, so
+that the edge clamp (or wrap) holds only at the image's top and bottom.
 """
 
 from __future__ import annotations
@@ -20,7 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from rust_renderer_tpu_torch.ops.rays import cross, dot
+from rust_renderer_tpu_torch.ops.rays import apply_rows, cross, dot
 
 KERNEL_SIZE = 32
 STRENGTH = 1.6
@@ -42,17 +47,19 @@ def _make_kernel(n: int = KERNEL_SIZE, seed: int = 17) -> np.ndarray:
 _KERNEL = _make_kernel()
 
 
-def shifted(img: torch.Tensor, dy: int, dx: int) -> torch.Tensor:
-    """img[y + dy, x + dx] with coordinates clamped to the image."""
+def shifted(img: torch.Tensor, dy: int, dx: int, band=None) -> torch.Tensor:
+    """img[y + dy, x + dx] with coordinates clamped to the image; with a
+    RowBand, img is the whole image and y runs over the band's rows."""
     h, w = img.shape[:2]
-    rows = (torch.arange(h, device=img.device) + dy).clamp(0, h - 1)
+    top, n = (0, h) if band is None else (band.offset, band.rows)
+    rows = (torch.arange(top, top + n, device=img.device) + dy).clamp(0, h - 1)
     cols = (torch.arange(w, device=img.device) + dx).clamp(0, w - 1)
     return img[rows][:, cols]
 
 
 def _to_ndc_xy(p, projection):
-    clip = p @ projection[:2, :3].T + projection[:2, 3]
-    cw = p @ projection[3, :3] + projection[3, 3]
+    clip = apply_rows(p, projection[:2])
+    cw = apply_rows(p, projection[3:4])[..., 0]
     return clip / torch.clamp_min(cw.abs(), 1e-9)[..., None] * torch.sign(cw)[..., None]
 
 
@@ -62,16 +69,16 @@ def _view_frame(gbuffer_position, gbuffer_normal, view_matrix):
     view depth image."""
     pos_world = gbuffer_position[..., :3]
     is_sky = (pos_world == 1.0).all(-1)
-    pos_view = pos_world @ view_matrix[:3, :3].T + view_matrix[:3, 3]
+    pos_view = apply_rows(pos_world, view_matrix[:3])
     normal_matrix = torch.linalg.inv(view_matrix).T
-    normal_view = gbuffer_normal[..., :3] @ normal_matrix[:3, :3].T
+    normal_view = apply_rows(gbuffer_normal[..., :3], normal_matrix[:3, :3])
     normal_view = normal_view / torch.clamp_min(
         torch.linalg.vector_norm(normal_view, dim=-1, keepdim=True), 1e-9)
     random_vec = pos_world.new_tensor([1.0, 1.0, 0.0])
     t = random_vec - normal_view * dot(random_vec, normal_view)[..., None]
     t = t / torch.clamp_min(torch.linalg.vector_norm(t, dim=-1, keepdim=True), 1e-9)
     b = cross(t, normal_view)
-    vz = pos_world @ view_matrix[2, :3] + view_matrix[2, 3]
+    vz = apply_rows(pos_world, view_matrix[2:3])[..., 0]
     return is_sky, pos_view, normal_view, t, b, vz
 
 
@@ -109,22 +116,27 @@ def ssao(gbuffer_position, gbuffer_normal, view_matrix, projection,
     return torch.where(is_sky, 1.0, result)
 
 
-def ssao_blur(occlusion: torch.Tensor, radius: int = 2) -> torch.Tensor:
+def ssao_blur(occlusion: torch.Tensor, radius: int = 2, band=None) -> torch.Tensor:
     """(2r + 1)^2 box blur of the SSAO term, wrapping at the edges
-    (ssao/blur.frag)."""
-    acc = torch.zeros_like(occlusion)
+    (ssao/blur.frag); of `band`'s rows of the image where given."""
+    src = occlusion if band is None else band.gather(occlusion)
+    acc = torch.zeros_like(src)
     for dy in range(-radius, radius + 1):
         for dx in range(-radius, radius + 1):
-            acc = acc + torch.roll(torch.roll(occlusion, dy, 0), dx, 1)
-    return acc / (2 * radius + 1) ** 2
+            acc = acc + torch.roll(torch.roll(src, dy, 0), dx, 1)
+    out = acc / (2 * radius + 1) ** 2
+    return out if band is None else out[band.offset:band.offset + band.rows]
 
 
 def ssao_stencil(gbuffer_position, gbuffer_normal, view_matrix, projection,
-                 radius: float, bias: float) -> torch.Tensor:
-    """(H, W) occlusion in [0, 1] (1 = unoccluded)."""
+                 radius: float, bias: float, band=None) -> torch.Tensor:
+    """(H, W) occlusion in [0, 1] (1 = unoccluded); the planes and the
+    result are `band`'s rows of the image where given."""
     h, w = gbuffer_position.shape[:2]
     is_sky, pos_view, normal_view, t, b, vz = _view_frame(gbuffer_position, gbuffer_normal,
                                                           view_matrix)
+    if band is not None:
+        h, vz = band.full_height, band.gather(vz)
 
     # The view depth shifted by every static offset: plane d * RINGS + r is
     # ring r along direction d (screen x right, y down).
@@ -133,13 +145,13 @@ def ssao_stencil(gbuffer_position, gbuffer_normal, view_matrix, projection,
         ang = 2.0 * np.pi * d / _DIRS
         ux, uy = np.cos(ang), np.sin(ang)
         for r in _RINGS:
-            planes.append(shifted(vz, int(round(uy * r)), int(round(ux * r))))
+            planes.append(shifted(vz, int(round(uy * r)), int(round(ux * r)), band))
     planes = torch.stack(planes)
     ndc_c = _to_ndc_xy(pos_view, projection)
 
     n_rings = len(_RINGS)
     log_r0 = float(np.log2(_RINGS[0]))
-    occlusion = torch.zeros((h, w), dtype=torch.float32, device=vz.device)
+    occlusion = torch.zeros(is_sky.shape, dtype=torch.float32, device=vz.device)
     for i in range(KERNEL_SIZE):
         sample_view = _sample_view(i, t, b, normal_view, pos_view, radius)
         ndc = _to_ndc_xy(sample_view, projection)

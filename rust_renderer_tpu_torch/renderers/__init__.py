@@ -19,6 +19,7 @@ fills it when it is stale.
 from __future__ import annotations
 
 import torch
+import torch.distributed
 
 from rust_renderer_tpu_torch.graph import Graph
 from rust_renderer_tpu_torch.ops import bvh as bvh_ops
@@ -139,11 +140,13 @@ def _declare_reservoir(graph: Graph, name: str, w: int, h: int,
     """W*H planes per field (the reference's W*H*16B SSBOs, mod.rs:222-244)."""
     for f in _RES_FIELDS:
         graph.create_buffer(f"{name}_{f}", (h, w), clear=-1.0 if f == "Y" else 0.0,
-                            persistent=persistent)
+                            persistent=persistent, image=True)
 
 
-def _rng_for(view, h: int, w: int) -> torch.Tensor:
-    py, px = pathtrace_ops.pixel_grid(h, w, view.time.device)
+def _rng_for(view, h: int, w: int, row_offset: int = 0) -> torch.Tensor:
+    """The per-pixel RNG states of the (h, w) rows at image row
+    `row_offset` of a w-wide image."""
+    py, px = pathtrace_ops.pixel_grid(h, w, view.time.device, row_offset)
     return rngmod.init_rng(px, py, w, pathtrace_ops.frame_seed(view))
 
 
@@ -172,10 +175,19 @@ def build_path_tracing_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_di
     selects nothing, so the graph is built without it (the same output).
     need_environment_update records the environment pass in a cubemap-sky
     graph (`build_render_graph`).
+    In a row-sharded graph (`Graph.shard_image_rows`) every pass computes
+    this rank's band as `parallel/flagship.py` does: temporal reuse reads
+    the previous frame's spatial planes and spatial reuse the temporal
+    planes gathered to full height, and pt_rays is summed over the ranks.
     """
     if cfg.sky_mode not in ("exact", "cubemap"):
         raise ValueError(f"unknown sky_mode {cfg.sky_mode!r}")
     w, h = cfg.width, cfg.height
+    band = graph.band
+    rows, top = (h, 0) if band is None else (band.rows, band.offset)
+
+    def gathered(r: restir_ops.Reservoir) -> restir_ops.Reservoir:
+        return r if band is None else restir_ops.Reservoir(*(band.gather(p) for p in r))
     skip_restir = num_lights == 0
     use_cubemap_sky = cfg.sky_mode == "cubemap"
     if use_cubemap_sky:
@@ -247,7 +259,7 @@ def build_path_tracing_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_di
 
         # 2. reset_reservoirs (restir/reset_reservoirs.comp).
         def reset(res, scene, view):
-            empty = restir_ops.Reservoir.empty((h, w), view.time.device)
+            empty = restir_ops.Reservoir.empty((rows, w), view.time.device)
             out = _write_reservoir("initial_ris_reservoirs", empty)
             out.update(_write_reservoir("temporal_reuse_reservoirs", empty))
             return out
@@ -259,16 +271,16 @@ def build_path_tracing_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_di
         rb.render(reset).build()
 
         # p_hat of each pass's selected sample rides along to the next pass.
-        graph.create_buffer("initial_ris_p_hat", (h, w))
-        graph.create_buffer("temporal_reuse_p_hat", (h, w))
+        graph.create_buffer("initial_ris_p_hat", (h, w), image=True)
+        graph.create_buffer("temporal_reuse_p_hat", (h, w), image=True)
 
         # 3. initial RIS (restir/initial_ris.rgen).
         def initial_ris(res, scene, view):
-            state = _rng_for(view, h, w)
+            state = _rng_for(view, rows, w, top)
             hit_pos = res["gbuffer_position"][..., :3]
             state, r, p_hat = restir_ops.initial_ris_pass(
                 scene, state, hit_pos, view.num_lights, view.max_num_lights_used,
-                cfg.ris_candidates)
+                cfg.ris_candidates, return_p_hat=True)
             out = _write_reservoir("initial_ris_reservoirs", r)
             out["initial_ris_p_hat"] = p_hat
             return out
@@ -280,13 +292,13 @@ def build_path_tracing_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_di
 
         # 4. temporal reuse (restir/temporal_reuse.rgen).
         def temporal(res, scene, view):
-            state = (_rng_for(view, h, w) * 9781 + 1) & rngmod.MASK32
+            state = (_rng_for(view, rows, w, top) * 9781 + 1) & rngmod.MASK32
             state, out, p_hat = restir_ops.temporal_reuse_pass(
                 scene, state, res["gbuffer_position"][..., :3],
                 _read_reservoir(res, "initial_ris_reservoirs"),
-                _read_reservoir(res, "spatial_reuse_reservoirs"),
+                gathered(_read_reservoir(res, "spatial_reuse_reservoirs")),
                 view.prev_frame_projection_view, view.temporal_reuse_enabled,
-                res["initial_ris_p_hat"])
+                full_height=h, p_hat_initial=res["initial_ris_p_hat"], return_p_hat=True)
             writes = _write_reservoir("temporal_reuse_reservoirs", out)
             writes["temporal_reuse_p_hat"] = p_hat
             return writes
@@ -302,12 +314,13 @@ def build_path_tracing_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_di
 
         # 5. spatial reuse (restir/spatial_reuse.rgen).
         def spatial(res, scene, view):
-            state = (_rng_for(view, h, w) * 6271 + 1) & rngmod.MASK32
+            state = (_rng_for(view, rows, w, top) * 6271 + 1) & rngmod.MASK32
+            temporal = _read_reservoir(res, "temporal_reuse_reservoirs")
             state, out = restir_ops.spatial_reuse_pass(
-                scene, state, res["gbuffer_position"][..., :3],
-                _read_reservoir(res, "temporal_reuse_reservoirs"),
-                view.spatial_reuse_enabled, cfg.spatial_neighbors,
-                cfg.spatial_radius, p_hat_temporal=res["temporal_reuse_p_hat"])
+                scene, state, res["gbuffer_position"][..., :3], temporal,
+                view.spatial_reuse_enabled, cfg.spatial_neighbors, cfg.spatial_radius,
+                temporal_full=None if band is None else gathered(temporal),
+                row_offset=top, p_hat_temporal=res["temporal_reuse_p_hat"])
             return _write_reservoir("spatial_reuse_reservoirs", out)
 
         pb = graph.add_pass("spatial_reuse").read("gbuffer_position").read(
@@ -339,12 +352,16 @@ def build_path_tracing_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_di
 
         result = pathtrace_ops.path_trace(
             scene, view, cfg, res["accumulation_image"], reservoirs=reservoirs,
-            closest_hit=closest, any_hit=any_hit, sky_fn=sky_fn,
-            dynamic=None if dynamic_fn is None else dynamic_fn(res, view))
+            closest_hit=closest, any_hit=any_hit, row_offset=top, full_size=(h, w),
+            sky_fn=sky_fn, dynamic=None if dynamic_fn is None else dynamic_fn(res, view))
+        rays = result.rays_traced
+        if band is not None:
+            rays = rays.clone()
+            torch.distributed.all_reduce(rays, group=band.group)
         return {
             "pt_output": result.output,
             "accumulation_image": result.accumulation,
-            "pt_rays": result.rays_traced,
+            "pt_rays": rays,
         }
 
     pb = graph.add_pass("reference_pt").read("accumulation_image")

@@ -3,6 +3,14 @@
 into the Graph; resource names are the reference's (gbuffer_position,
 shadow_map, ssao_output, ...). Per-frame host values (cascade matrices,
 pass settings) are captured by the pass body.
+
+In a row-sharded graph (`Graph.shard_image_rows`) each pass computes this
+rank's band (`graph.band`) of the image: per-pixel passes by image
+coordinates, SSAO and FXAA with the rows beyond the band's edges gathered
+from the other ranks, and the rasterized draws (K5: the gbuffer and forward
+raster branches, the marching-cubes draw) over the whole frame on every
+rank, keeping their band. The shadow cascades are light space: every rank
+renders them whole.
 """
 
 from __future__ import annotations
@@ -34,13 +42,23 @@ BINS_SYNC = ("reads its triangle bins back to the host "
              "(ops/raster_binned.py::bin_triangles)")
 
 
-def _camera_rays(view, width: int, height: int):
+def _camera_rays(view, width: int, height: int, band=None):
+    """Pixel-centre rays of the (height, width) image, or of its rows in
+    `band`."""
     dev = view.inverse_view.device
-    py = torch.arange(height, dtype=torch.float32, device=dev)[:, None] + 0.5
+    top, rows = (0, height) if band is None else (band.offset, band.rows)
+    py = torch.arange(top, top + rows, dtype=torch.float32, device=dev)[:, None] + 0.5
     px = torch.arange(width, dtype=torch.float32, device=dev)[None, :] + 0.5
-    py, px = py.expand(height, width), px.expand(height, width)
+    py, px = py.expand(rows, width), px.expand(rows, width)
     return rayops.generate_camera_rays(view.inverse_view, view.inverse_projection,
                                        px, py, width, height)
+
+
+def _band_of(vis: VisibilityBuffer, band) -> VisibilityBuffer:
+    """A whole-frame visibility buffer's rows in `band` (all of it without)."""
+    if band is None:
+        return vis
+    return VisibilityBuffer(*(t[band.offset:band.offset + band.rows] for t in vis))
 
 
 def _unit(v: torch.Tensor) -> torch.Tensor:
@@ -112,13 +130,14 @@ def setup_gbuffer_pass(graph: Graph, scene_bvh, width: int, height: int,
         graph.create_texture(name, width, height, 4, clear=1.0)
     graph.create_texture("gbuffer_depth", width, height, 1, clear=1.0)
     closest = bvh_ops.make_closest_hit(scene_bvh) if use_raycast else None
+    band = graph.band
 
     def render(res, scene, view):
         if not use_raycast:
-            gb = gbuffer_ops.from_visibility(
-                scene, _raster_visibility(scene, view, width, height, "auto"))
+            vis = _raster_visibility(scene, view, width, height, "auto")
+            gb = gbuffer_ops.from_visibility(scene, _band_of(vis, band))
             return dict(zip(GBUFFER_PLANES, gb))
-        o, d = _camera_rays(view, width, height)
+        o, d = _camera_rays(view, width, height, band)
         dyn = None if dynamic_fn is None else dynamic_fn(res, view)
         query = closest if dyn is None else mc_bvh.combine_closest_hit(closest, dyn)
         hit = query(scene, o, d)
@@ -175,10 +194,11 @@ def setup_shadow_pass(graph: Graph, camera, sun_dir, enabled: bool, size: int = 
 def setup_ssao_pass(graph: Graph, width: int, height: int, radius: float = 0.3,
                     bias: float = 0.025) -> None:
     graph.create_texture("ssao_output", width, height, 1, clear=1.0)
+    band = graph.band
 
     def render(res, scene, view):
         occ = ssao_ops.ssao_stencil(res["gbuffer_position"], res["gbuffer_normal"],
-                                    view.view, view.projection, radius, bias)
+                                    view.view, view.projection, radius, bias, band=band)
         return {"ssao_output": torch.where(_on(view.ssao_enabled), occ, 1.0)}
 
     (graph.add_pass("ssao").read("gbuffer_position").read("gbuffer_normal")
@@ -333,9 +353,10 @@ def setup_atmosphere_pass(graph: Graph, cfg, width: int, height: int,
     scattering integral."""
     mip = min(2, cfg.cubemap_mips - 1)  # LOD 2 (atmosphere.frag)
     env_name = f"env_cubemap_mip{mip}"
+    band = graph.band
 
     def render(res, scene, view):
-        o, d = _camera_rays(view, width, height)
+        o, d = _camera_rays(view, width, height, band)
         live = atmosphere_ops.sky_radiance(o, d, _unit(view.sun_dir), view.sky_enabled)
         cached = torch.where(_on(view.sky_enabled), sample_cubemap(res[env_name], d), 0.0)
         sky = torch.where(_on(view.cubemap_enabled), cached, live)
@@ -360,6 +381,7 @@ def setup_marching_cubes_pass(graph: Graph, cfg, width: int, height: int,
     domain is the reference's [0,32]^3 at any cfg.mc_grid."""
     graph.create_buffer("marching_cubes_draw_count", (1,), dtype=torch.int32)
     voxel_size = 32.0 / cfg.mc_grid
+    band = graph.band
 
     def render(res, scene, view):
         dev = view.view.device
@@ -370,11 +392,14 @@ def setup_marching_cubes_pass(graph: Graph, cfg, width: int, height: int,
                                              view.projection @ view.view)
         idx = torch.arange(t * 3, dtype=torch.int32, device=dev).reshape(-1, 3)
         depth = res["gbuffer_depth"]
+        # The draw rasterizes the whole frame over the whole depth plane.
+        full_depth = depth if band is None else band.gather(depth)
         init = VisibilityBuffer(
-            depth=depth, tri=torch.full(depth.shape, -1, dtype=torch.int32, device=dev),
-            bary_u=torch.zeros_like(depth), bary_v=torch.zeros_like(depth))
-        vis = raster_ops.rasterize(clip, idx, width, height, init=init,
-                                   method=cfg.raster_method)
+            depth=full_depth,
+            tri=torch.full(full_depth.shape, -1, dtype=torch.int32, device=dev),
+            bary_u=torch.zeros_like(full_depth), bary_v=torch.zeros_like(full_depth))
+        vis = _band_of(raster_ops.rasterize(clip, idx, width, height, init=init,
+                                            method=cfg.raster_method), band)
         covered = vis.tri >= 0
         normals = raster_ops.interpolate(vis, idx, result.normals.reshape(-1, 3))
         normals = normals / torch.clamp_min(
@@ -401,11 +426,12 @@ def setup_present_pass(graph: Graph, width: int, height: int,
                        source: str = "deferred_output", fxaa_threshold: float = 0.45) -> None:
     """Fullscreen composite: FXAA (toggle) over linear -> sRGB (present.frag)."""
     graph.create_texture("present_output", width, height, 3, clear=0.0)
+    band = graph.band
 
     def render(res, scene, view):
         color = linear_to_srgb(torch.clamp_min(res[source][..., :3], 0.0))
         return {"present_output": fxaa_ops.fxaa(color, fxaa_threshold, view.fxaa_enabled,
-                                                view.fxaa_debug)}
+                                                view.fxaa_debug, band=band)}
 
     graph.add_pass("present").read(source).write("present_output").render(render).build()
 
@@ -423,15 +449,17 @@ def setup_forward_pass(graph: Graph, cfg, width: int, height: int, cascade_matri
     graph.create_texture("forward_output", width, height, 4, clear=0.0)
     graph.create_texture("gbuffer_depth", width, height, 1, clear=1.0)
     closest = None if scene_bvh is None else bvh_ops.make_closest_hit(scene_bvh)
+    band = graph.band
 
     def render(res, scene, view):
         dev = view.view.device
         if closest is None:
-            vis = _raster_visibility(scene, view, width, height, cfg.raster_method)
+            vis = _band_of(_raster_visibility(scene, view, width, height, cfg.raster_method),
+                           band)
             gb = gbuffer_ops.from_visibility(scene, vis)
             covered = vis.tri >= 0
         else:
-            o, d = _camera_rays(view, width, height)
+            o, d = _camera_rays(view, width, height, band)
             hit = closest(scene, o, d)
             gb = gbuffer_ops.from_rays(scene, hit, o, d,
                                        projection_view=view.projection @ view.view)

@@ -35,7 +35,10 @@ in a captured loop must sum over the frames of each call, and a sanitized
 PT loop stay captured and bit-equal to the host loop; a CUDA library
 rebuilt from a changed source must run the new code once loaded again;
 after `set_instance_transform` the next loop must capture anew, free the
-old capture and stay bit-equal to the host loop.
+old capture and stay bit-equal to the host loop. The flagship frame on 2
+gloo ranks sharing the card (``parallel/``) must match it in one process:
+spatial Y bit-equal, the output within 2e-5, each rank launching K1 and
+the seed kernel.
 """
 
 import ctypes
@@ -1005,3 +1008,77 @@ def test_set_instance_transform_captures_anew_on_card(cuda_device):
     for name, state in host.graph.state.items():
         assert torch.equal(loop.graph.state[name], state), name
     np.testing.assert_array_equal(img.cpu().numpy(), want)
+
+
+FLAGSHIP_SIZE = 64
+
+
+def _flagship_frames_on(device, group=None) -> dict:
+    """Two flagship frames of the cube scene with 4 lights at 64² (2
+    bounces; tests/test_torch_parallel.py's case) with the PT graph's hit
+    queries (compaction windows, the seed test), one process (group None)
+    or this rank's band over `group`: the whole output and spatial Y of
+    each frame, and the K1 and seed launches."""
+    import rust_renderer_tpu_torch as port
+    from rust_renderer_tpu_torch.ops.restir import Reservoir
+    from rust_renderer_tpu_torch.parallel import (
+        flagship_step, render_flagship_tiled, shard_flagship_inputs, tiles)
+    from rust_renderer_tpu_torch.settings import RenderSettings
+
+    size = FLAGSHIP_SIZE
+    r = port.Renderer()
+    cam = port.Camera([-2.5, 3.0, -2.5], [10.0, 1.0, 10.0], aspect_ratio=1.0)
+    create_cube_scene(r, cam)
+    for i in range(4):
+        r.add_light([float(i) * 4.0, 3.0, float(i % 2) * 4.0], [1.0, 1.0, 1.0])
+    scene = r.pack(device)
+    bvh = torch_bvh.build_scene_bvh(scene)
+    cfg = StaticConfig(width=size, height=size, num_bounces=2)
+    closest = torch_bvh.make_closest_hit(bvh, compact_window=cfg.compact_window,
+                                         compact_order=cfg.compact_order)
+    any_hit = torch_bvh.make_any_hit(bvh, compact_window=cfg.compact_window_any,
+                                     compact_order=cfg.compact_order, seed_rows=cfg.seed_rows)
+    view = RenderSettings.default(num_lights=4).with_camera(cam, size, size)
+    accum = torch.zeros((size, size, 3), device=device)
+    res = Reservoir.empty((size, size), device)
+    if group is not None:
+        accum, res = shard_flagship_inputs(group, accum, res)
+    traversal.K1_LAUNCHES.clear()
+    torch_bvh.SEED_LAUNCHES = 0
+    frames = []
+    for k in range(2):
+        v = view.replace(total_samples=np.uint32(k + 1)).to(device)
+        if group is None:
+            img, accum, res = flagship_step(scene, v, cfg, accum, res, closest, any_hit)
+        else:
+            img, accum, res = render_flagship_tiled(scene, v, cfg, accum, res, closest,
+                                                    any_hit, group)
+            img, y = tiles.gather_rows(img, group), tiles.gather_rows(res.Y, group)
+        frames.append((img.cpu().numpy(), (res.Y if group is None else y).cpu().numpy()))
+    return {"frames": frames, "k1": dict(traversal.K1_LAUNCHES),
+            "seed": torch_bvh.SEED_LAUNCHES}
+
+
+def _flagship_cuda_rank(rank, n):
+    from rust_renderer_tpu_torch.parallel import make_tile_group
+
+    group, _ = make_tile_group(backend="gloo", device="cuda")
+    return _flagship_frames_on(torch.device("cuda"), group)
+
+
+@pytest.mark.cuda
+def test_flagship_tiled_on_card_matches_one_rank(cuda_device, tmp_path):
+    """render_flagship_tiled on 2 gloo ranks sharing the card (CUDA tensors),
+    two frames, against flagship_step in one process on the card: spatial
+    Y bit-equal, output within 2e-5; every rank launches K1 (2 + 2
+    closest, 2 any-hit a frame) and the seed kernel (2 a frame)."""
+    from rust_renderer_tpu_torch.parallel import spawn_ranks
+
+    want = _flagship_frames_on(cuda_device)
+    ranks = spawn_ranks(_flagship_cuda_rank, 2, str(tmp_path))
+    for rank in ranks:
+        for (img, y), (ref, ref_y) in zip(rank["frames"], want["frames"]):
+            np.testing.assert_array_equal(y, ref_y)
+            np.testing.assert_allclose(img, ref, atol=2e-5)
+        assert rank["k1"] == want["k1"] == {"closest": 2 * 3, "any_hit": 2 * 2}
+        assert rank["seed"] == want["seed"] == 2 * 2

@@ -206,7 +206,7 @@ def test_graph_undeclared_write_raises_naming_it():
 def test_port_imports_neither_jax_nor_the_jax_package():
     code = ("import sys; sys.modules['jax'] = None; "
             "import rust_renderer_tpu_torch.app.main; "
-            "import rust_renderer_tpu_torch.convert; "
+            "import rust_renderer_tpu_torch.convert, rust_renderer_tpu_torch.parallel; "
             "from rust_renderer_tpu_torch.ops import (raster, raster_binned, shadow, brdf, "
             "cubemap, ibl, pbr, ssao, fxaa, noise, marching_cubes, mc_bvh, intersect, "
             "gbuffer, colors, restir, constants); "

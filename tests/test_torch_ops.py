@@ -282,7 +282,8 @@ def test_restir_passes(scenes, enabled):
 
     jst, jr, jp = jrestir.initial_ris_pass(js, jnp.asarray(_states(11)), jhp, nl, mx, 32,
                                            return_p_hat=True)
-    tst, tr, tp = trestir.initial_ris_pass(ts, T(_states(11)), T(hp), t_nl, t_mx, 32)
+    tst, tr, tp = trestir.initial_ris_pass(ts, T(_states(11)), T(hp), t_nl, t_mx, 32,
+                                           return_p_hat=True)
     np.testing.assert_array_equal(N(tst), np.asarray(jst).astype(np.int64))
     _assert_reservoirs(tr, jr)
     np.testing.assert_allclose(N(tp), np.asarray(jp), **TOL)
@@ -293,7 +294,8 @@ def test_restir_passes(scenes, enabled):
     jst, jt, jpt = jrestir.temporal_reuse_pass(
         js, jst, jhp, jr, prev, pv, on, p_hat_initial=jp, return_p_hat=True)
     tst, tt_, tpt = trestir.temporal_reuse_pass(
-        ts, tst, T(hp), tr, trestir.Reservoir(*(T(x) for x in prev)), T(pv), t_on, tp)
+        ts, tst, T(hp), tr, trestir.Reservoir(*(T(x) for x in prev)), T(pv), t_on,
+        p_hat_initial=tp, return_p_hat=True)
     np.testing.assert_array_equal(N(tst), np.asarray(jst).astype(np.int64))
     _assert_reservoirs(tt_, jt)
     np.testing.assert_allclose(N(tpt), np.asarray(jpt), **TOL)

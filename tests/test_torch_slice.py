@@ -111,8 +111,8 @@ def test_path_trace_matches_jax_on_shared_inputs():
     got = pathtrace.path_trace(
         scene, view_from_numpy(vars(view), "cpu"),
         StaticConfig(width=size, height=size, num_bounces=BOUNCES),
-        torch.tensor(accumulation), None,
-        torch_bvh.make_closest_hit(port_tree), torch_bvh.make_any_hit(port_tree))
+        torch.tensor(accumulation), closest_hit=torch_bvh.make_closest_hit(port_tree),
+        any_hit=torch_bvh.make_any_hit(port_tree))
     assert float(got.rays_traced) == float(want.rays_traced)
     diff = np.abs(got.output.numpy() - np.asarray(want.output))
     assert (diff.max(axis=-1) <= 1e-3).mean() >= 0.99
@@ -170,8 +170,8 @@ def test_furnace_test_matches_jax():
         got = pathtrace.path_trace(
             scene, view_from_numpy(vars(view), "cpu"),
             StaticConfig(width=size, height=size, num_bounces=2, furnace_test=furnace),
-            torch.tensor(accumulation), None, torch_bvh.make_closest_hit(tree),
-            torch_bvh.make_any_hit(tree))
+            torch.tensor(accumulation), closest_hit=torch_bvh.make_closest_hit(tree),
+            any_hit=torch_bvh.make_any_hit(tree))
         img, ref = got.output.numpy(), np.asarray(want.output)
         assert float(got.rays_traced) == float(want.rays_traced)
         diff = np.abs(img - ref)
