@@ -82,7 +82,14 @@ one nvcc per source, started together; then:
    1, which captures the environment, apart), per-pass times of one more
    frame; run_on_device(2), eager (the shadow pass bins on the host) with
    its reason, against a host frame;
-15. MINIMAL main path: the same at 1920x1080;
+15. MINIMAL main path: the same at 1920x1080; then the pass uniforms
+   (`uniforms_phase`): the RASTERIZED (marching cubes on) and MINIMAL
+   frames at 1920x1080 with the builders' uniforms against the same frames
+   with each value a literal copied to the card in the pass body, built in
+   the same run (bit-equal, launches a frame), a frame after the SSAO
+   radius and FXAA threshold changed between builds against a graph built
+   with them, host-to-device copies of a steady frame of each form
+   (torch.profiler), frame ms of the two in turns;
 16. K4 against its plain version on the 4 cascades of the default scene at
    4096^2 (bit for bit), with its work plan (items, the longest item's
    rows), the (row, pixel) box pairs it tests and the share of (tile,
@@ -130,16 +137,19 @@ one nvcc per source, started together; then:
    `tiles_phase`), every rank a process of its own and all of them on the
    one card (not a scaling figure): the PT Application's first 2 frames at
    1920x1080, flagship_step over their views from the same zero state and
-   render_flagship_tiled over a one-rank NCCL group (bit-equal; each
-   against the Application's frames, printed); then 2 and 4 gloo ranks
+   render_flagship_tiled over a one-rank NCCL group (bit-equal, and each
+   bit-equal to the Application's frames); then 2 and 4 gloo ranks
    over CUDA tensors (rank 0's gathered output and spatial Y against one
-   rank: Y bit-equal, output within 2e-5; per rank the frame ms, 6 + 5 K1
+   rank: bit-equal; per rank the frame ms, 6 + 5 K1
    and 5 seed launches a frame, 2 x 16 B x H x W gathered a frame, the time
    of a gather); on the 2 ranks the PT, RASTERIZED (marching cubes on) and
    MINIMAL Applications with row-sharded graphs, gathered against one rank
-   (PT within 2e-5, raster within 3e-5), with per-rank frame ms and
-   launches. The kernels are built before the ranks start; each
-   rank loads them.
+   (bit-equal), with per-rank frame ms and
+   launches, and the row-sharded PT app's run_on_device on each gloo rank
+   (eager, bit-equal to its host loop); on the one-rank NCCL group, the
+   row-sharded PT app's device loop captured with its collectives and
+   bit-equal to 4 host frames, with replay ms. The kernels are built
+   before the ranks start; each rank loads them.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after. Every failed check raises. The last log line gives
@@ -460,10 +470,11 @@ def pass_times(label: str, app) -> dict:
     app._build_graph()
     events, outputs = [], {}
     for p in app.graph.passes:
-        def timed(res, scene, view, fn=p.fn, name=p.name):
+        # *u: the uniforms, where the pass was built with a body that takes them.
+        def timed(res, scene, view, *u, fn=p.fn, name=p.name):
             start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             start.record()
-            outputs[name] = fn(res, scene, view)
+            outputs[name] = fn(res, scene, view, *u)
             stop.record()
             events.append((name, start, stop))
             return outputs[name]
@@ -865,7 +876,7 @@ def nested_shells(device, traversal, bvh_ops):
         e = rng.normal(0.0, s / 20, (DEEP_PER, 2, 3))
         tris.append(np.stack([c, c + e[:, 0], c + e[:, 1]], 1))
     pos = np.concatenate(tris).reshape(-1, 3).astype(np.float32)
-    bvh = bvh_ops.build_bvh(pos, np.arange(len(pos)).reshape(-1, 3), device)
+    bvh = bvh_ops.build_bvh(pos, np.arange(len(pos)).reshape(-1, 3), device=device)
     n = WIDTH * HEIGHT
     s = DEEP_SIZE * DEEP_RATIO ** rng.integers(0, DEEP_LEVELS - 3, n)
     o = s[:, None] * rng.uniform(-0.5, 1.5, (n, 3))
@@ -1477,7 +1488,7 @@ def raster_gbuffer_planes(app, Graph, setup_gbuffer_pass, size: int, method=None
     clip = raster.transform_vertices(app.scene.positions, view.projection @ view.view)
     vis = raster.rasterize(clip, app.scene.indices, size, size, method=method or "auto")
     if method is None:
-        g = Graph(app.device)
+        g = Graph(device=app.device)
         setup_gbuffer_pass(g, None, size, size, use_raycast=False)
         planes = g.render(app.scene, app.view)
     else:
@@ -1506,7 +1517,7 @@ def raster_gbuffer_phase(Application, StaticConfig, Graph, setup_gbuffer_pass, l
     app._refresh_view()
     ms = {}
     for raycast in (False, True):
-        g = Graph(app.device)
+        g = Graph(device=app.device)
         setup_gbuffer_pass(g, app.scene_bvh, WIDTH, HEIGHT, use_raycast=raycast)
         g.render(app.scene, app.view)  # warm-up
         launches.reset()
@@ -1567,6 +1578,177 @@ def raster_gbuffer_phase(Application, StaticConfig, Graph, setup_gbuffer_pass, l
         raise AssertionError("raster gbuffer parity: card and CPU planes disagree")
 
 
+# -- pass uniforms ---------------------------------------------------------------
+
+# Frames compared and turns timed a mode; frames in the profiled window (a
+# host and device trace of a 1080p raster frame takes ~8 s to process).
+UNIFORM_FRAMES, UNIFORM_TURNS, UNIFORM_PROFILED = 3, 6, 1
+UNIFORM_WANT = {"RASTERIZED": Launches.frame_want(2, 1, 4, 1, seed=1),
+                "MINIMAL": Launches.frame_want(1, 0, 4, 0)}
+# The values changed between builds (the defaults: radius 0.3, threshold 0.45).
+UNIFORM_CHANGED = {"radius": 1.5, "fxaa_threshold": 2.0}
+
+
+def literal_builder(graph, copies: list):
+    """`graph.add_pass` that records a pass in the form before uniforms: each
+    uniform value written as a literal that a 3-argument body copies to the
+    card every frame (`torch.as_tensor`, one host-to-device copy a value,
+    each appended to `copies`), the 4-argument body called with those
+    tensors."""
+    from rust_renderer_tpu_torch.graph import _NARROW, PassBuilder, _takes_uniforms
+
+    class Literal(PassBuilder):
+        def build(self):
+            values = {k: np.array(v, _NARROW.get(np.asarray(v).dtype, np.asarray(v).dtype))
+                      for k, v in self._uniforms.items()}
+            if values and _takes_uniforms(self._fn):
+                def literal(res, scene, view, *, fn=self._fn, values=values):
+                    dev = view.view.device
+                    copies.extend(values)
+                    return fn(res, scene, view,
+                              {k: torch.as_tensor(v, device=dev) for k, v in values.items()})
+                self._fn, self._uniforms = literal, {}
+            super().build()
+
+    return lambda name: Literal(graph, name)
+
+
+def uniform_app(Application, mode, literal: bool = False):
+    """An Application of the default scene at 1920x1080 in `mode`
+    (RASTERIZED with the marching-cubes draw), the clock pinned; with
+    `literal`, its passes in the form before uniforms (`literal_builder`).
+    `app.copies` lists the uniform copies its frames make: the uniform
+    form's arena uploads (one a build), the literal form's values."""
+    from rust_renderer_tpu_torch.settings import RenderGraphMode
+
+    mode = getattr(RenderGraphMode, mode)
+    app = Application(WIDTH, HEIGHT, mode, device="cuda")
+    app.fps_timer.elapsed_seconds = lambda: PARITY_TIME
+    app.view = app.view.replace(
+        marching_cubes_enabled=np.int32(mode == RenderGraphMode.RASTERIZED))
+    app.copies = []
+    if literal:
+        app.graph.add_pass = literal_builder(app.graph, app.copies)
+    else:
+        store = app.graph._uniforms
+        upload = store.upload
+
+        def counted_upload():
+            app.copies.extend("upload" for a in store.arenas if a.dirty)
+            upload()
+
+        store.upload = counted_upload
+    app.create_scene()
+    return app
+
+
+def with_values(app, values: dict):
+    """app.render_frame() with the SSAO radius and FXAA threshold of
+    `values`."""
+    import rust_renderer_tpu_torch.renderers as builders
+    from rust_renderer_tpu_torch.renderers import passes
+
+    saved = builders.setup_ssao_pass, builders.setup_present_pass
+    builders.setup_ssao_pass = functools.partial(passes.setup_ssao_pass,
+                                                 radius=values["radius"])
+    builders.setup_present_pass = functools.partial(
+        passes.setup_present_pass, fxaa_threshold=values["fxaa_threshold"])
+    try:
+        return app.render_frame()
+    finally:
+        builders.setup_ssao_pass, builders.setup_present_pass = saved
+
+
+def htod_copies(app, frames: int) -> tuple[float, dict, float]:
+    """`frames` steady frames of `app` in one torch.profiler window (host
+    and device activity): the host-to-device copies a frame (`Memcpy HtoD`
+    events), their kinds (over all the frames), and the uniform copies a
+    frame by the app's own count (`uniform_app`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    app.copies.clear()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            app.render_frame()
+        torch.cuda.synchronize()
+    kinds = collections.Counter(e.name for e in prof.events() if "Memcpy HtoD" in e.name)
+    return sum(kinds.values()) / frames, dict(kinds), len(app.copies) / frames
+
+
+def uniforms_phase(Application, launches, counted) -> None:
+    """The RASTERIZED (marching cubes on) and MINIMAL frames at 1920x1080
+    with the builders' uniforms (device buffers of the graph, one copy a
+    build) against the same frames with each value a literal that the body
+    copies every frame (`literal_builder`), built in this run:
+    1. UNIFORM_FRAMES frames of each, bit-equal, launches a frame as the
+       main path's (counted);
+    2. the SSAO radius and FXAA threshold changed between builds
+       (UNIFORM_CHANGED): the next frame equals the same frame of an app
+       built with those values from the start, and differs from the
+       frame before the change;
+    3. host-to-device copies of a steady frame of each form: the uniform
+       copies by the app's own count (the uniform form must make one, from
+       the pinned staging buffer, for all its values; the literal form one
+       a value) and all of a frame's copies by torch.profiler (`Memcpy
+       HtoD`; the view's fields are copied in both);
+    4. frame ms of the two forms in turns (no gain is claimed: the raster
+       frame is host-bound)."""
+    for mode, want in UNIFORM_WANT.items():
+        uniform, literal = (uniform_app(Application, mode, literal=f) for f in (False, True))
+        for k in range(UNIFORM_FRAMES):
+            launches.reset()
+            got = uniform.render_frame()["present_output"]
+            moved = launches.read()
+            if moved != want:
+                raise AssertionError(f"uniforms {mode}: launches {moved}, expected {want}")
+            counted.update(moved)
+            ref = literal.render_frame()["present_output"]
+            if not torch.equal(got, ref):
+                raise AssertionError(f"uniforms {mode}: frame {k + 1} differs from the literal "
+                                     f"form's (max |diff| {float((got - ref).abs().max()):.3e})")
+        check_image(f"uniforms {mode}", got)
+        n_values = sum(len(p.uniforms) for p in uniform.graph.passes)
+        if n_values == 0 or any(p.uniforms for p in literal.graph.passes):
+            raise AssertionError(f"uniforms {mode}: {n_values} uniforms in the uniform form")
+        before = got
+        launches.reset()
+        got = with_values(uniform, UNIFORM_CHANGED)["present_output"]
+        counted.update(launches.read())
+        fresh = uniform_app(Application, mode)
+        launches.reset()
+        for _ in range(UNIFORM_FRAMES + 1):
+            ref = with_values(fresh, UNIFORM_CHANGED)["present_output"]
+        counted.update(launches.read())
+        if not torch.equal(got, ref) or torch.equal(got, before):
+            raise AssertionError(f"uniforms {mode}: the frame after the values changed is not "
+                                 "the frame of a graph built with them")
+        del fresh
+        copies = {name: htod_copies(app, UNIFORM_PROFILED)
+                  for name, app in (("uniform", uniform), ("literal", literal))}
+        staging = [a.staging for a in uniform.graph._uniforms.arenas]
+        if (not staging or not all(b.is_pinned() for b in staging)
+                or copies["uniform"][2] != 1 or copies["literal"][2] != n_values):
+            raise AssertionError(f"uniforms {mode}: uniform copies a frame {copies}, "
+                                 f"expected 1 (pinned) and {n_values}")
+        log(f"uniforms {mode}: {UNIFORM_FRAMES} frames bit-equal to the literal form's; after "
+            f"{UNIFORM_CHANGED} changed between builds, the frame equals a graph built with "
+            f"them ({n_values} uniform values a frame); uniform copies a frame: uniform form "
+            f"{copies['uniform'][2]:g} (from {len(staging)} pinned staging buffer), literal "
+            f"form {copies['literal'][2]:g}; all host-to-device copies a frame "
+            f"(torch.profiler, {UNIFORM_PROFILED} steady frame): uniform form "
+            f"{copies['uniform'][0]:.2f} {copies['uniform'][1]}, literal form "
+            f"{copies['literal'][0]:.2f} {copies['literal'][1]}")
+        ms = in_turns({"uniform": lambda: uniform.render_frame(),
+                       "literal": lambda: literal.render_frame()}, UNIFORM_TURNS)
+        launches.reset()
+        log(f"uniforms {mode}: frame ms in {UNIFORM_TURNS} turns (host clock around a frame "
+            f"and a synchronize; the frames are host-bound): " + ", ".join(
+                f"{k} median {v[0]:.1f} of {[round(x, 1) for x in v[1]]}" for k, v in ms.items()))
+        del uniform, literal
+        torch.cuda.empty_cache()
+
+
 # -- the device loop, the bench's other scenes, the golden gates -----------------
 
 
@@ -1577,25 +1759,29 @@ def host_frames(app, n: int) -> tuple:
     return out["present_output"], ms / n
 
 
-def twin_apps(Application, cfg, builder, mode, size=None, view=None, n: int = 2) -> list:
+def twin_apps(Application, cfg, builder, mode, size=None, view=None, n: int = 2,
+              group=None) -> list:
     """`n` Applications of one configuration and scene (at `size`, else
     WIDTH x HEIGHT), the clock pinned (view.time seeds every random
-    stream), the view's fields `view` set: one for the host loop, one for
-    run_on_device."""
+    stream), the view's fields `view` set, the graph row-sharded over
+    `group` where given: one for the host loop, one for run_on_device."""
     apps = []
     for _ in range(n):
         app = Application(*(size or (WIDTH, HEIGHT)), mode, cfg=cfg, device="cuda")
         app.fps_timer.elapsed_seconds = lambda: PARITY_TIME
         app.view = app.view.replace(**(view or {}))
+        if group is not None:
+            app.graph.shard_image_rows(group, *(size or (WIDTH, HEIGHT))[::-1])
         app.create_scene(builder)
         apps.append(app)
     return apps
 
 
-def compare_loop(label: str, host, loop, host_img, loop_img) -> None:
+def compare_loop(label: str, host, loop, host_img, loop_img, exact_only: bool = False) -> None:
     """The loop's state (accumulation, reservoirs, pt_rays) and last image
     against the host loop's: bit-equal, or within LOOP_ATOL (no float
-    atomic is on the path, so any difference is a fault to name)."""
+    atomic is on the path, so any difference is a fault to name); with
+    `exact_only`, bit-equal."""
     if set(host.graph.state) != set(loop.graph.state):
         raise AssertionError(f"{label}: the loop's state holds other resources")
     pairs = {name: (host.graph.state[name], loop.graph.state[name]) for name in host.graph.state}
@@ -1605,7 +1791,7 @@ def compare_loop(label: str, host, loop, host_img, loop_img) -> None:
     worst = max(diff, key=diff.get)
     log(f"{label}: state and image {'bit-equal' if exact else 'not bit-equal'} to the host "
         f"loop's ({len(pairs)} tensors; max |diff| {diff[worst]:.3e} in {worst})")
-    if diff[worst] > LOOP_ATOL:
+    if diff[worst] > LOOP_ATOL or (exact_only and not exact):
         raise AssertionError(f"{label}: the loop's {worst} differs from the host loop's")
 
 
@@ -1638,7 +1824,7 @@ def share(x: float | None) -> str:
 
 
 def loop_phase(label, Application, mode, cfg, builder, launches, counted, want: dict,
-               view=None) -> None:
+               view=None, group=None, busy_windows: bool = True) -> None:
     """PT at 1920x1080 through `run_on_device`, held to the host loop from one
     starting state: LOOP_FRAMES host frames against run_on_device(LOOP_FRAMES)
     (frame 1 eagerly, the capture, replays), then LOOP_FRAMES more of each
@@ -1648,8 +1834,11 @@ def loop_phase(label, Application, mode, cfg, builder, launches, counted, want: 
     the eager frame's. Then ms per frame of each and the device's busy share
     of one profiled window of each. `view`: view fields set on both apps.
     The peak device memory of the first call is read with both apps'
-    tensors resident."""
-    host, loop = twin_apps(Application, cfg, builder, mode, view=view)
+    tensors resident. With `group` (an NCCL group), both apps' graphs are
+    row-sharded over it: the captured body holds the collectives, and the
+    loop must equal the host loop bit for bit. busy_windows=False skips the
+    profiled windows (their traces take ~30 s to process)."""
+    host, loop = twin_apps(Application, cfg, builder, mode, view=view, group=group)
     ms = {}
     for call in ("first call", "replay"):
         launches.reset()
@@ -1674,17 +1863,21 @@ def loop_phase(label, Application, mode, cfg, builder, launches, counted, want: 
         if host.total_samples != loop.total_samples:
             raise AssertionError(f"{label}: total_samples {loop.total_samples} after the "
                                  f"loop, {host.total_samples} after the host frames")
-        compare_loop(f"{label} {call} ({LOOP_FRAMES} frames)", host, loop, host_img, loop_img)
-    busy = {"host": busy_share(lambda: host_frames(host, PROFILED_FRAMES)),
-            "loop": busy_share(lambda: loop.run_on_device(PROFILED_FRAMES, tstep=0.0))}
+        compare_loop(f"{label} {call} ({LOOP_FRAMES} frames)", host, loop, host_img, loop_img,
+                     exact_only=group is not None)
+    busy = {"host": None, "loop": None}
+    if busy_windows:
+        busy = {"host": busy_share(lambda: host_frames(host, PROFILED_FRAMES)),
+                "loop": busy_share(lambda: loop.run_on_device(PROFILED_FRAMES, tstep=0.0))}
     if loop.graph.captures != 1:
         raise AssertionError(f"{label}: the profiled window captured anew")
     log(f"{label}: form {loop.graph.last_loop_form}; ms per frame (CUDA events around "
         f"each call / {LOOP_FRAMES}): " + ", ".join(f"{k} {v:.2f}" for k, v in ms.items())
         + f"; replay / host {ms['loop replay'] / ms['host replay']:.3f}; peak device memory "
         f"of the first call {peak:.2f} GiB (both apps resident); device busy share "
-        f"(one torch.profiler window of {PROFILED_FRAMES} frames, host clock): host loop "
-        f"{share(busy['host'])}, captured loop {share(busy['loop'])}; launches a frame "
+        + (f"(one torch.profiler window of {PROFILED_FRAMES} frames, host clock): host loop "
+           f"{share(busy['host'])}, captured loop {share(busy['loop'])}" if busy_windows
+           else "not measured in this phase") + "; launches a frame "
         f"{ {k: v for k, v in want.items() if v} } (a captured frame's are the eager "
         f"frame's: replays move no counter)")
 
@@ -2165,7 +2358,9 @@ def app_phase(Application, StaticConfig, RenderGraphMode, create_scene, launches
 # graphs' (PT; RASTERIZED with the marching-cubes draw; MINIMAL) and the
 # largest |diff| of their gathered frames from one rank's.
 TILES_RANKS, TILES_FRAMES = (2, 4), 2
-TILES_ATOL, TILES_RASTER_ATOL = 2e-5, 3e-5
+# The gathered bands equal one rank's bit for bit (0 in every card run so
+# far, as claimed): any difference fails.
+TILES_ATOL = TILES_RASTER_ATOL = 0.0
 FLAGSHIP_WANT = Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0, seed=BOUNCES)
 TILES_GRAPHS = {"PATH_TRACED": (FLAGSHIP_WANT, TILES_ATOL),
                 "RASTERIZED": (Launches.frame_want(2, 1, 4, 1, seed=1), TILES_RASTER_ATOL),
@@ -2196,7 +2391,7 @@ def flagship_frames(app, views, group=None) -> tuple:
 
     closest, any_hit = flagship_inputs(app, bvh_ops)
     accum = torch.zeros((HEIGHT, WIDTH, 3), device="cuda")
-    res = Reservoir.empty((HEIGHT, WIDTH), "cuda")
+    res = Reservoir.empty((HEIGHT, WIDTH), device="cuda")
     if group is not None:
         accum, res = shard_flagship_inputs(group, accum, res)
     frames, ms, gathered = [], [], []
@@ -2288,6 +2483,17 @@ def tiles_rank(rank: int, n: int, view_fields: list, graphs: bool) -> dict:
             if index == 0:
                 out[mode] = whole.cpu()
             del app, imgs
+        # The row-sharded PT app through run_on_device: eager over gloo.
+        host, loop = (tiles_app(Application, StaticConfig, "PATH_TRACED", group)
+                      for _ in range(2))
+        host_img = [host.render_frame() for _ in range(TILES_FRAMES)][-1]["present_output"]
+        launches.reset()
+        loop_img, t = timed(lambda: loop.run_on_device(TILES_FRAMES, tstep=0.0))
+        pairs = [(a, loop.graph.state.get(n)) for n, a in host.graph.state.items()]
+        out.update(loop_launches=launches.read(), loop_form=loop.graph.last_loop_form,
+                   loop_ms=t / TILES_FRAMES, loop_exact=(
+                       set(host.graph.state) == set(loop.graph.state)
+                       and all(torch.equal(a, b) for a, b in pairs + [(host_img, loop_img)])))
     return out
 
 
@@ -2302,21 +2508,29 @@ def tiles_phase(Application, StaticConfig, launches, card: str) -> collections.C
        bit-equal, and flagship_step bit-equal to the Application's frames
        (output and spatial Y).
     2. 2 and 4 gloo ranks over CUDA tensors, the same frames: rank 0's
-       gathered output and spatial Y against step 1's (Y bit-equal, output
-       within TILES_ATOL); per rank the frame ms, the K1 and seed launches
+       gathered output and spatial Y against step 1's (both bit-equal); per
+       rank the frame ms, the K1 and seed launches
        (6 + 5 and 5 a frame), the bytes gathered a frame (2 x 16 B x H x W)
        and the time of one gather of the 4 planes.
     3. On the 2 ranks, PT, RASTERIZED (marching cubes on) and MINIMAL
        Applications whose graph is row-sharded (Graph.shard_image_rows):
        the gathered present_output of the last frame against the one-rank
-       frame (PT within TILES_ATOL, raster within TILES_RASTER_ATOL),
-       per-rank frame ms and launches.
+       frame (bit-equal),
+       per-rank frame ms and launches; then the row-sharded PT app's
+       run_on_device(TILES_FRAMES) against its twin's host frames: eager
+       (gloo collectives cannot be captured), bit-equal, its launches.
+    4. On the one-rank NCCL group, the row-sharded PT app's device loop
+       (`loop_phase` with the group): captured once, the collectives in
+       the CUDA graph, bit-equal to the host loop, replay ms against the
+       host loop's.
     Returns every launch of the phase (the ranks' included)."""
     import tempfile
 
     import torch.distributed as dist
 
+    from rust_renderer_tpu_torch.models import create_scene
     from rust_renderer_tpu_torch.parallel import make_tile_group, spawn_ranks
+    from rust_renderer_tpu_torch.settings import RenderGraphMode
 
     counted = collections.Counter()
     app = tiles_app(Application, StaticConfig, "PATH_TRACED")
@@ -2345,6 +2559,9 @@ def tiles_phase(Application, StaticConfig, launches, card: str) -> collections.C
             launches.reset()
             nccl, nccl_ms, nccl_bytes = flagship_frames(app, device_views, group)
             counted.update(launches.read())
+            loop_phase("tiles: row-sharded PT device loop, one-rank NCCL group", Application,
+                       RenderGraphMode.PATH_TRACED, StaticConfig(num_bounces=BOUNCES), create_scene,
+                       launches, counted, FLAGSHIP_WANT, group=group, busy_windows=False)
         finally:
             dist.destroy_process_group()
     for k, ((img, acc, sp), (n_img, n_acc, n_sp), (a_img, a_y)) in enumerate(
@@ -2417,6 +2634,19 @@ def tiles_phase(Application, StaticConfig, launches, card: str) -> collections.C
                 f"|diff| {diff:.3e}")
             if diff > atol:
                 raise AssertionError(f"tiles: {mode} row-sharded frame differs from one rank")
+        for rank in ranks:
+            if "loop_form" not in rank:
+                continue
+            want_ = {k: v * TILES_FRAMES for k, v in FLAGSHIP_WANT.items()}
+            log(f"tiles: {n} gloo ranks, rank {rank['index']}: row-sharded PT "
+                f"run_on_device({TILES_FRAMES}) form {rank['loop_form']!r}, "
+                f"{'bit-equal' if rank['loop_exact'] else 'NOT bit-equal'} to the host loop, "
+                f"{rank['loop_ms']:.1f} ms a frame, launches "
+                f"{ {k: v for k, v in rank['loop_launches'].items() if v} }")
+            if (not rank["loop_form"].startswith("eager: gloo collectives cannot be captured")
+                    or not rank["loop_exact"] or rank["loop_launches"] != want_):
+                raise AssertionError(f"tiles: the gloo rank's sharded device loop is wrong")
+            counted.update(rank["loop_launches"])
     log(f"tiles phase launches { {k: v for k, v in counted.items() if v} } ({card})")
     return counted
 
@@ -2600,6 +2830,7 @@ def main() -> int:
     pass_times("MINIMAL", app)
     raster_loop("MINIMAL", app, launches, counted)
     del app
+    uniforms_phase(Application, launches, counted)
     raster_parity_phase(Application, StaticConfig, RenderGraphMode)
     raster_gbuffer_phase(Application, StaticConfig, Graph, setup_gbuffer_pass, launches, counted)
     scene_phase(Application, StaticConfig, RenderGraphMode, models, launches, counted)

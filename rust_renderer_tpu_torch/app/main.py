@@ -96,6 +96,7 @@ class Application:
         mode: RenderGraphMode = RenderGraphMode.PATH_TRACED,
         cfg: StaticConfig | None = None,
         sanitize: bool = False,
+        *,
         device="cuda",
     ):
         self.device = init_device(device)
@@ -106,7 +107,7 @@ class Application:
             fov_degrees=60.0, aspect_ratio=width / height,
             z_near=0.01, z_far=1000.0, speed=0.2,
         )
-        self.graph = Graph(self.device, sanitize=sanitize)
+        self.graph = Graph(device=self.device, sanitize=sanitize)
         self.input = Input()
         self.ui = Ui()
         # view.time is the wall clock since start (main.rs:465); it seeds
@@ -133,7 +134,7 @@ class Application:
         """Pack the scene tensors and (re)build the BVH (raytracing.rs:89-111)."""
         self.renderer.ensure_mc_material()
         with PROFILER.scope("pack_scene"):
-            self.scene = self.renderer.pack(self.device)
+            self.scene = self.renderer.pack(device=self.device)
         with PROFILER.scope("build_bvh"):
             self.scene_bvh = bvh_ops.build_scene_bvh(self.scene)
 
@@ -201,7 +202,7 @@ class Application:
         if needs_env and self.renderer.need_environment_map_update:
             with PROFILER.scope("environment_update"):
                 self.graph.state.update(
-                    compute_environment(self.cfg, self.sun_dir, self.device))
+                    compute_environment(self.cfg, self.sun_dir, device=self.device))
             self.renderer.need_environment_map_update = False
 
     def _build_graph(self) -> None:

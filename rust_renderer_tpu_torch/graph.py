@@ -23,6 +23,12 @@ resources cached by name; `render` runs the passes in order, and
 - `shard_image_rows(group, height, width)` splits the image over the ranks
   of a torch.distributed group: image-space resources hold this rank's row
   band, and the passes read `Graph.band` (parallel/tiles.py::RowBand).
+- Pass uniforms (graph.rs:307-340; the JAX package's traced pytree argument):
+  `PassBuilder.uniforms(name, value)` writes the value into a device buffer
+  that the graph keeps per (pass, name, shape, dtype) across rebuilds, and a
+  body `fn(resources, scene, view, uniforms)` reads it there. A frame's
+  values travel in one host-to-device copy (`prepare`), and a captured loop
+  replays with new values as long as the structure stays the same.
 """
 
 from __future__ import annotations
@@ -34,16 +40,21 @@ import importlib
 import inspect
 import logging
 import sys
+import types
 from collections.abc import Mapping
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed
 
 from rust_renderer_tpu_torch.settings import RenderSettings, to_tensor
 
 log = logging.getLogger(__name__)
 PACKAGE = __name__.rpartition(".")[0]
+
+TextureId = str
+BufferId = str
 
 
 @dataclasses.dataclass
@@ -60,20 +71,27 @@ class ResourceDesc:
     sanitize: bool = True
     image: bool = False  # image-space: row-banded in a sharded graph
 
-    def allocate(self, device) -> torch.Tensor:
+    def allocate(self, *, device) -> torch.Tensor:
         return torch.full(self.shape, self.clear, dtype=self.dtype, device=device)
 
 
 @dataclasses.dataclass
 class RenderPass:
-    """One recorded pass (pass.rs:14-30)."""
+    """One recorded pass (pass.rs:14-30). `uniforms` maps each uniform's name
+    to the graph's device buffer that holds its value (read-only)."""
 
     name: str
     reads: list[str]
     writes: list[str]
-    fn: Callable  # fn(resources, scene, view) -> dict of writes
+    uniforms: Mapping[str, torch.Tensor]
+    fn: Callable  # fn(resources, scene, view[, uniforms]) -> dict of writes
     isolated: bool = False  # see PassBuilder.isolate
     host_sync: str | None = None  # see PassBuilder.host_sync
+    # Whether fn takes the uniforms: decided once, from fn's parameters.
+    takes_uniforms: bool = dataclasses.field(init=False)
+
+    def __post_init__(self) -> None:
+        self.takes_uniforms = _takes_uniforms(self.fn)
 
 
 class PassBuilder:
@@ -84,6 +102,7 @@ class PassBuilder:
         self._name = name
         self._reads: list[str] = []
         self._writes: list[str] = []
+        self._uniforms: dict[str, Any] = {}
         self._fn: Callable | None = None
         self._isolated = False
         self._host_sync: str | None = None
@@ -112,18 +131,45 @@ class PassBuilder:
         self._writes.append(resource)
         return self
 
+    # The reference's write kinds (graph.rs:146-208) are one write here.
+    image_write = write
+    write_buffer = write
+    load_write = write
+
+    def read_buffer(self, resource: str) -> "PassBuilder":
+        return self.read(resource)
+
+    def uniforms(self, name: str, value) -> "PassBuilder":
+        """Per-pass uniform data (graph.rs:307-340): a number, a numpy array
+        or a tensor (float64 and int64 values become float32 and int32, as
+        in the JAX package). `build` writes it into the graph's device
+        buffer for (pass, name, shape, dtype); the body reads that buffer."""
+        self._uniforms[name] = value
+        return self
+
     def render(self, fn: Callable) -> "PassBuilder":
-        """The pass body: fn(resources, scene, view) -> {written_name: tensor}."""
+        """The pass body: fn(resources, scene, view, uniforms) (the JAX
+        package's form) or fn(resources, scene, view) -> {written_name:
+        tensor}."""
         self._fn = fn
+        return self
+
+    dispatch = render
+    trace_rays = render
+
+    def presentation_pass(self, *_args, **_kw) -> "PassBuilder":
         return self
 
     def build(self) -> None:
         """Record into the graph (graph.rs:342-415)."""
         if self._fn is None:
             raise ValueError(f"pass '{self._name}' has no render fn")
+        uniforms = {name: self._graph._uniforms.write(self._name, name, value)
+                    for name, value in self._uniforms.items()}
         self._graph.passes.append(
-            RenderPass(self._name, list(self._reads), list(self._writes), self._fn,
-                       self._isolated, self._host_sync))
+            RenderPass(self._name, list(self._reads), list(self._writes),
+                       types.MappingProxyType(uniforms), self._fn, self._isolated,
+                       self._host_sync))
 
 
 class _PassResources(Mapping):
@@ -146,7 +192,7 @@ class _PassResources(Mapping):
                 raise ValueError(
                     f"pass '{self._pass.name}' reads resource '{name}', which "
                     "no create_texture/create_buffer declared")
-            self._resources[name] = desc.allocate(self._graph.device)
+            self._resources[name] = desc.allocate(device=self._graph.device)
         return self._resources[name]
 
     def __iter__(self):
@@ -159,13 +205,15 @@ class _PassResources(Mapping):
 class Graph:
     """The frame graph (graph.rs:99-106 + 440-1065) on one device."""
 
-    def __init__(self, device="cuda", sanitize: bool = False,
-                 suppress: tuple[str, ...] = ()) -> None:
+    def __init__(self, sanitize: bool = False, suppress: tuple[str, ...] = (), *,
+                 device="cuda") -> None:
         """sanitize=True counts the non-finite values of the passes' floating
         outputs and logs the nonzero counts by (pass, resource), except for
         the passes named in `suppress` (the analog of the reference's
-        suppressed validation message, vulkan_base.rs:55-58)."""
+        suppressed validation message, vulkan_base.rs:55-58). The resources
+        and uniforms live on `device`."""
         self.device = torch.device(device)
+        self._uniforms = _UniformStore(self.device)
         self.sanitize = bool(sanitize)
         self.suppress = tuple(suppress)
         self.last_sanitizer_report: dict[str, int] = {}
@@ -173,7 +221,7 @@ class Graph:
         # the function of the last frame it ran in without fault and the
         # generation then.
         self._generation = 0
-        self._last_good: dict[str, tuple[Callable, int]] = {}
+        self._last_good: dict[str, tuple[Callable, bool, int]] = {}
         self.passes: list[RenderPass] = []
         self.descs: dict[str, ResourceDesc] = {}
         self.persist: set[str] = set()
@@ -207,8 +255,9 @@ class Graph:
         per-pixel passes compute their band's rows in image coordinates,
         SSAO and FXAA gather the plane they shift to full height for the
         rows beyond the band's edges, and the rasterized draws rasterize the
-        whole frame and keep their band. A sharded graph does not run
-        `render_loop` (`device_loop_unsupported_reason`)."""
+        whole frame and keep their band. `render_loop` runs a sharded graph
+        too, its collectives in every frame: captured over NCCL, eagerly
+        over other backends (`capture_unsupported_reason`)."""
         from rust_renderer_tpu_torch.parallel.tiles import RowBand
 
         if axis != "rows":
@@ -269,11 +318,21 @@ class Graph:
         if persistent:
             self.persist.add(name)
             if name not in self.state:
-                self.state[name] = desc.allocate(self.device)
+                self.state[name] = desc.allocate(device=self.device)
         return name
 
     def add_pass(self, name: str) -> PassBuilder:
         return PassBuilder(self, name)
+
+    def prepare(self) -> None:
+        """Allocate any missing persistent resources on the graph's device
+        (the lazy part of graph.rs:637-671), and copy the uniform values that
+        the passes built since the last call wrote to the device in one
+        copy. `render` and `render_loop` call it first."""
+        for name in self.persist:
+            if name not in self.state:
+                self.state[name] = self.descs[name].allocate(device=self.device)
+        self._uniforms.upload()
 
     # -- hot reload (graph.rs:673-701) ----------------------------------------
 
@@ -323,14 +382,16 @@ class Graph:
         good frame instead, and its name is added to the set."""
         for p in passes:
             try:
-                outs = p.fn(_PassResources(self, resources, p), scene, view)
+                outs = _call(p.fn, p.takes_uniforms, _PassResources(self, resources, p),
+                             scene, view, p.uniforms)
             except Exception:
                 old = self._last_good.get(p.name)
-                if fell_back is None or old is None or old[1] == self._generation:
+                if fell_back is None or old is None or old[2] == self._generation:
                     raise  # no reload since the pass last ran: a fault to surface
                 log.exception("pass '%s' failed after a hot reload; running its "
                               "function of the last good frame", p.name)
-                outs = old[0](_PassResources(self, resources, p), scene, view)
+                outs = _call(old[0], old[1], _PassResources(self, resources, p), scene,
+                             view, p.uniforms)
                 fell_back.add(p.name)
             for wname, arr in (outs or {}).items():
                 if wname not in p.writes:
@@ -348,6 +409,7 @@ class Graph:
         are kept in `state` for the next frame. With sanitize, every floating
         output whose resource is not exempt is checked, its non-finite count
         made on the device, and the counts of the frame read with one copy."""
+        self.prepare()
         if isinstance(view, RenderSettings):
             view = view.to(self.device)
         checks: dict[str, torch.Tensor] = {}
@@ -360,8 +422,8 @@ class Graph:
         fell_back: set[str] = set()
         resources = self._run_passes(self.passes, dict(self.state), scene, view,
                                      count if self.sanitize else None, fell_back)
-        self._last_good.update({p.name: (p.fn, self._generation) for p in self.passes
-                                if p.name not in fell_back})
+        self._last_good.update({p.name: (p.fn, p.takes_uniforms, self._generation)
+                                for p in self.passes if p.name not in fell_back})
         self.state.update({n: resources[n] for n in self.persist if n in resources})
         if checks:
             self._report(checks)
@@ -400,10 +462,8 @@ class Graph:
     def device_loop_unsupported_reason(self) -> str | None:
         """Why `render_loop` cannot run the current pass list as the host
         loop would (None: it can). The one rule behind render_loop's
-        ValueError and Application.run_on_device's host loop."""
-        if self.band is not None:
-            return ("the graph is row-sharded (shard_image_rows): its passes call "
-                    "collectives every frame, which the device loop does not run")
+        ValueError and Application.run_on_device's host loop. A row-sharded
+        graph runs: its collectives are part of every frame's body."""
         prefix, main = self._split_prefix()
         if any(p.isolated for p in main):
             return ("isolated pass after a non-isolated pass: only a leading "
@@ -423,8 +483,15 @@ class Graph:
 
     def capture_unsupported_reason(self) -> str | None:
         """Why `render_loop` cannot capture its body (the passes after the
-        isolated prefix) into a CUDA graph, naming the first pass marked
+        isolated prefix) into a CUDA graph: a row-sharded graph whose group
+        is not NCCL's (a CUDA graph holds NCCL collectives, not gloo's,
+        which move the tensors through the host), or the first pass marked
         with `PassBuilder.host_sync`; None where it can."""
+        if self.band is not None:
+            backend = torch.distributed.get_backend(self.band.group)
+            if backend != "nccl":
+                return (f"{backend} collectives cannot be captured (the graph is "
+                        f"row-sharded over a {backend} group)")
         for p in self._split_prefix()[1]:
             if p.host_sync is not None:
                 return f"pass '{p.name}' {p.host_sync}"
@@ -459,6 +526,12 @@ class Graph:
         - Eagerly, the same body N times: on CPU tensors, and on CUDA where
           `capture_unsupported_reason` gives a reason. `last_loop_form`
           says which.
+        - The passes' uniforms are read from the graph's device buffers,
+          which keep their identity across rebuilds of the same structure:
+          a replay reads the values of the last build.
+        - On a row-sharded graph the body runs this rank's band, its
+          collectives in every frame (in the captured graph too, over
+          NCCL); every rank of the group must call it with the same N.
         - With sanitize, the non-finite values of each declared floating
           write of the prefix and the body (`_sanitized_writes`) are summed
           over the N frames into device counters that the body adds to (in
@@ -474,6 +547,7 @@ class Graph:
             raise ValueError(f"render_loop: {reason}")
         if n_frames < 1:
             raise ValueError(f"render_loop: n_frames must be at least 1, got {n_frames}")
+        self.prepare()
         prefix, main = self._split_prefix()
         written = {w for p in main for w in p.writes}
         main_reads = {r for p in main for r in p.reads}
@@ -499,7 +573,7 @@ class Graph:
                 aux=aux, k=torch.zeros((), dtype=torch.int32, device=self.device),
                 carry={n: self.state[n].clone() for n in carry_names}, inv=inv,
                 stacked=stacked,
-                present=None if present is None else present.allocate(self.device),
+                present=None if present is None else present.allocate(device=self.device),
                 passes=main, scene=scene, view_update=view_update, key=key,
                 san={k: torch.zeros((), dtype=torch.int64, device=self.device)
                      for k in san_keys})
@@ -514,7 +588,7 @@ class Graph:
         else:
             layout = lambda d: [(n, str(t.dtype), tuple(t.shape)) for n, t in d.items()]
             key = _value_key((
-                [(p.name, p.fn, p.reads, p.writes) for p in main],
+                [(p.name, p.fn, p.reads, p.writes, dict(p.uniforms)) for p in main],
                 sorted((d.name, d.shape, str(d.dtype), d.clear, d.sanitize)
                        for d in self.descs.values()),
                 san_keys, carry_names, inv, scene, view_update, layout(vars(fresh_view)),
@@ -553,7 +627,7 @@ class Graph:
             resources = self._run_passes(prefix, dict(inv), scene, view_k,
                                          _counter(checks))
             frames.append({n: resources[n] if n in resources
-                           else self.descs[n].allocate(self.device) for n in names})
+                           else self.descs[n].allocate(device=self.device) for n in names})
         return {n: torch.stack([f[n] for f in frames]) for n in names}
 
     def _loop_body(self, loop: "_Loop") -> None:
@@ -588,7 +662,12 @@ class Graph:
             self._loop_body(loop)
         current.wait_stream(side)
         loop.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(loop.graph, stream=side):
+        # A row-sharded body holds NCCL collectives; frame 1 above has set up
+        # the communicator. Thread-local capture leaves the process group's
+        # watchdog thread free to query its events while this thread
+        # captures (in the default global mode those queries break it).
+        mode = "global" if self.band is None else "thread_local"
+        with torch.cuda.graph(loop.graph, stream=side, capture_error_mode=mode):
             self._loop_body(loop)
         self.captures += 1
 
@@ -686,3 +765,106 @@ def _value_key(x, _path=()):
         return (type(x).__qualname__,
                 tuple(_value_key(getattr(x, f.name), path) for f in dataclasses.fields(x)))
     return ("object", type(x).__qualname__, id(x))
+
+
+def _takes_uniforms(fn) -> bool:
+    """Whether a pass body takes the uniforms as its fourth argument (the
+    JAX package's form) rather than only (resources, scene, view)."""
+    try:
+        params = inspect.signature(fn).parameters.values()
+    except (TypeError, ValueError):  # no signature to read: the JAX form
+        return True
+    positional = [p for p in params if p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)]
+    return len(positional) >= 4 or any(p.kind == p.VAR_POSITIONAL for p in params)
+
+
+def _call(fn, takes_uniforms: bool, resources, scene, view, uniforms):
+    return fn(resources, scene, view, uniforms) if takes_uniforms else fn(resources, scene,
+                                                                          view)
+
+
+# Host dtypes that the JAX package narrows (64-bit types are off there).
+_NARROW = {np.dtype(np.float64): np.float32, np.dtype(np.int64): np.int32,
+           np.dtype(np.uint64): np.uint32}
+_ARENA_BYTES = 4096  # one arena holds a frame's uniforms many times over
+_ALIGN = 16
+
+
+class _Arena:
+    """A block of uniform slots: the values in host memory, the device
+    buffer that holds them, and (on CUDA) a pinned staging buffer that
+    carries them over in one non-blocking copy. The staging buffer is
+    refilled only after its last copy has finished (its event)."""
+
+    def __init__(self, device: torch.device, nbytes: int):
+        self.host = np.zeros(nbytes, np.uint8)
+        self.device_buf = torch.zeros(nbytes, dtype=torch.uint8, device=device)
+        self.used = 0
+        self.dirty = False
+        self.staging = (torch.empty(nbytes, dtype=torch.uint8).pin_memory()
+                        if device.type == "cuda" else None)
+        self.event = None  # recorded after the last copy from `staging`
+
+    def take(self, nbytes: int) -> int | None:
+        """The offset of `nbytes` new bytes in this arena, or None if full."""
+        start = -(-self.used // _ALIGN) * _ALIGN
+        if start + nbytes > self.host.size:
+            return None
+        self.used = start + nbytes
+        return start
+
+    def upload(self) -> None:
+        n = self.used
+        if self.staging is None:
+            self.device_buf[:n].copy_(torch.from_numpy(self.host[:n]))
+        else:
+            if self.event is not None:
+                self.event.synchronize()
+            self.staging.numpy()[:n] = self.host[:n]
+            self.device_buf[:n].copy_(self.staging[:n], non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record()
+        self.dirty = False
+
+
+class _UniformStore:
+    """The graph's uniform buffers: one device tensor per (pass, name,
+    shape, dtype), a view of an arena's device buffer, kept for the graph's
+    life, so that a rebuild with new values hands the passes the same
+    tensors (a captured loop holds their pointers). `write` stages a value
+    in host memory; `upload` copies what changed, one copy per arena (one a
+    frame: a frame's uniforms take a few hundred bytes)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.arenas: list[_Arena] = []
+        self.slots: dict[tuple, tuple[_Arena, int, torch.Tensor]] = {}
+
+    def write(self, pass_name: str, name: str, value) -> torch.Tensor:
+        """The device tensor of (pass, name, value's shape and dtype), the
+        value staged for the next `upload` (a tensor is read to the host
+        first)."""
+        if isinstance(value, torch.Tensor):
+            value = value.detach().cpu().numpy()
+        value = np.asarray(value)
+        value = np.array(value, _NARROW.get(value.dtype, value.dtype), order="C")
+        dtype = torch.from_numpy(value.reshape(-1)[:0]).dtype
+        key = (pass_name, name, value.shape, dtype)
+        if key not in self.slots:
+            arena = self.arenas[-1] if self.arenas else None
+            offset = None if arena is None else arena.take(max(value.nbytes, 1))
+            if offset is None:
+                arena = _Arena(self.device, max(_ARENA_BYTES, value.nbytes + _ALIGN))
+                self.arenas.append(arena)
+                offset = arena.take(max(value.nbytes, 1))
+            tensor = arena.device_buf[offset:offset + value.nbytes].view(dtype).view(value.shape)
+            self.slots[key] = (arena, offset, tensor)
+        arena, offset, tensor = self.slots[key]
+        arena.host[offset:offset + value.nbytes] = value.reshape(-1).view(np.uint8)
+        arena.dirty = True
+        return tensor
+
+    def upload(self) -> None:
+        for arena in self.arenas:
+            if arena.dirty:
+                arena.upload()

@@ -20,10 +20,13 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import subprocess
 
 import numpy as np
+
+log = logging.getLogger(__name__)
 
 PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 REPO_DIR = os.path.dirname(PACKAGE_DIR)
@@ -90,6 +93,18 @@ def _bvh_lib() -> ctypes.CDLL:
             ctypes.POINTER(ctypes.c_int32), ctypes.POINTER(ctypes.c_int32),
         ]
     return lib
+
+
+def have_native() -> bool:
+    """Whether the native BVH builder builds and loads here (g++ and the
+    JAX package's source are there). The port has no other builder, so
+    `ops/bvh.py::build_bvh` raises where this is False."""
+    try:
+        _bvh_lib()
+    except (OSError, RuntimeError, subprocess.SubprocessError):
+        log.exception("native bvh_builder unavailable")
+        return False
+    return True
 
 
 def build_bvh_sah(positions: np.ndarray, indices: np.ndarray, leaf_size: int):

@@ -44,6 +44,12 @@ def _sphere_intersection(ray_start, ray_dir, center, radius):
     return torch.where(miss, -1.0, t0), torch.where(miss, -1.0, t1)
 
 
+def planet_intersection(ray_start, ray_dir):
+    return _sphere_intersection(ray_start, ray_dir,
+                                device_constant(_PLANET_CENTER, ray_start.device),
+                                PLANET_RADIUS)
+
+
 def atmosphere_intersection(ray_start, ray_dir):
     return _sphere_intersection(ray_start, ray_dir,
                                 device_constant(_PLANET_CENTER, ray_start.device),

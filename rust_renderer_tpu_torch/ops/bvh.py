@@ -43,6 +43,7 @@ import torch
 
 from rust_renderer_tpu_torch import native
 from rust_renderer_tpu_torch.ops import compaction, traversal
+from rust_renderer_tpu_torch.utils import require_port_values
 from rust_renderer_tpu_torch.ops.intersect import (
     HIT_NONE,
     HIT_SPHERE,
@@ -86,6 +87,11 @@ class BVH(NamedTuple):
     @property
     def device(self) -> torch.device:
         return self.node_packed.device
+
+    @property
+    def num_nodes(self) -> int:
+        """Nodes of the binary tree."""
+        return self.node_packed.shape[0]
 
 
 def _collapse_wide(node_min, node_max, miss, node_leaf, width: int = WIDE_WIDTH):
@@ -441,18 +447,29 @@ def build_bvh_numpy(positions: np.ndarray, indices: np.ndarray) -> dict:
                      node_leaf, leaf_tris)
 
 
-def build_bvh(positions: np.ndarray, indices: np.ndarray, device="cuda") -> BVH:
-    """Build from (V,3) float32 world positions and (T,3) int indices; the
-    tables land on `device`."""
+def build_bvh(positions: np.ndarray, indices: np.ndarray, leaf_size: int = LEAF_SIZE,
+              use_native: bool = True, presplit_ratio: float = 1.0, reinsert_passes: int = 0,
+              reinsert_child_order: str = "keep", *, device="cuda") -> BVH:
+    """Build from (V,3) float32 world positions and (T,3) int indices with
+    the binned-SAH builder; the tables land on `device`. The JAX options
+    take only the port's values: its tables and kernels hold 12-slot leaves,
+    the numpy fallback builder, reference presplitting and reinsertion
+    (`ops/bvh_opt.py`) are not ported."""
     from rust_renderer_tpu_torch.convert import bvh_from_numpy
 
+    require_port_values(
+        "build_bvh", "the port builds 12-slot leaves with the native SAH builder only",
+        leaf_size=(leaf_size, LEAF_SIZE), use_native=(use_native, True),
+        presplit_ratio=(presplit_ratio, 1.0), reinsert_passes=(reinsert_passes, 0),
+        reinsert_child_order=(reinsert_child_order, "keep"))
     return bvh_from_numpy(build_bvh_numpy(positions, indices), device)
 
 
-def build_scene_bvh(scene) -> BVH:
-    """Build over a PackedScene's world-space pools, on the scene's device."""
+def build_scene_bvh(scene, leaf_size: int | None = None) -> BVH:
+    """Build over a PackedScene's world-space pools, on the scene's device.
+    leaf_size: None (the JAX package picks by backend) or 12, the port's."""
     return build_bvh(scene.positions.cpu().numpy(), scene.indices.cpu().numpy(),
-                     scene.device)
+                     LEAF_SIZE if leaf_size is None else leaf_size, device=scene.device)
 
 
 # -- occluder seeds --------------------------------------------------------------
@@ -581,10 +598,14 @@ def _traversal(compact_window: int, compact_order: str):
     return traversal.traverse
 
 
-def make_closest_hit(bvh: BVH, wide: bool = True, ordered: bool = False,
+_MOSAIC = "it schedules Pallas work on the TPU; the port's walks give the same hits"
+
+
+def make_closest_hit(bvh: BVH, packet: bool = True, sort: bool = False,
+                     wide: bool = True, ordered: bool = False,
                      compact_window: int = 0, steady_drain: int = 3,
                      compact_order: str = "morton", row_cursors: int = 8,
-                     q32: bool = False):
+                     row_expand: int = 2, q32: bool = False, skip_drain: bool = True):
     """closest_hit(scene, o, d, t_min, t_max) -> Hit over the BVH's triangles
     plus the scene's analytic spheres.
 
@@ -594,10 +615,11 @@ def make_closest_hit(bvh: BVH, wide: bool = True, ordered: bool = False,
     it; the defaults launch K1. `compact_window` > 1 walks the rays within
     compaction windows of that many ray blocks, live lanes first and, with
     `compact_order="morton"`, by their origins' Morton code
-    (``ops/compaction.py``); the hits are the same. Options that only
-    schedule Mosaic work (`packet`, `sort`, `row_expand`, `skip_drain`,
-    `skip_expand`, `cursor_kill`, `dma_leaf`) are not taken: no caller of
-    the port passes them."""
+    (``ops/compaction.py``); the hits are the same. The options that only
+    schedule Pallas work (`packet`, `sort`, `row_expand`, `skip_drain`) take
+    only their JAX defaults (`utils.require_port_values`)."""
+    require_port_values("make_closest_hit", _MOSAIC, packet=(packet, True), sort=(sort, False),
+                        row_expand=(row_expand, 2), skip_drain=(skip_drain, True))
     options = dict(wide=wide, ordered=ordered, dual=steady_drain > 0,
                    steady_drain=steady_drain, row_cursors=row_cursors, q32=q32)
     trav = _traversal(compact_window, compact_order)
@@ -616,10 +638,12 @@ def make_closest_hit(bvh: BVH, wide: bool = True, ordered: bool = False,
     return closest_hit
 
 
-def make_any_hit(bvh: BVH, wide: bool = True, ordered: bool = False,
+def make_any_hit(bvh: BVH, packet: bool = True, sort: bool = False,
+                 wide: bool = True, ordered: bool = False,
                  compact_window: int = 0, steady_drain: int = 3,
                  compact_order: str = "morton", seed_rows: int = 0,
-                 row_cursors: int = 8, q32: bool = False):
+                 row_cursors: int = 8, row_expand: int = 2, q32: bool = False,
+                 skip_drain: bool = True, skip_expand: bool = True):
     """any_hit(scene, o, d, t_min, t_max) -> bool occlusion over the BVH's
     triangles plus the scene's analytic spheres. Options as
     `make_closest_hit`; any-hit walks are `dual` and, with a steady drain,
@@ -628,6 +652,9 @@ def make_any_hit(bvh: BVH, wide: bool = True, ordered: bool = False,
     seeded ray gets a zero direction, so the walk retires it on entry (and
     compaction moves it out of the live lanes), and its verdict is ORed in
     (``ops/bvh.py:1501-1511``)."""
+    require_port_values("make_any_hit", _MOSAIC, packet=(packet, True), sort=(sort, False),
+                        row_expand=(row_expand, 2), skip_drain=(skip_drain, True),
+                        skip_expand=(skip_expand, True))
     options = dict(wide=wide, ordered=ordered, dual=True,
                    steady_drain=steady_drain, drain_first=steady_drain > 0,
                    row_cursors=row_cursors, q32=q32)

@@ -21,7 +21,7 @@ _FACE_UP = ((0.0, -1.0, 0.0), (0.0, -1.0, 0.0), (0.0, 0.0, 1.0),
             (0.0, 0.0, -1.0), (0.0, -1.0, 0.0), (0.0, -1.0, 0.0))
 
 
-def face_directions(face: int, size: int, device) -> torch.Tensor:
+def face_directions(face: int, size: int, *, device) -> torch.Tensor:
     """(S, S, 3) unit directions through the texel centers of one face."""
     ts = (torch.arange(size, dtype=torch.float32, device=device) + 0.5) / size * 2.0 - 1.0
     v, u = torch.meshgrid(ts, ts, indexing="ij")
@@ -33,7 +33,7 @@ def face_directions(face: int, size: int, device) -> torch.Tensor:
 
 def cube_directions(size: int, device) -> torch.Tensor:
     """(6, S, S, 3): face_directions of all six faces."""
-    return torch.stack([face_directions(f, size, device) for f in range(6)])
+    return torch.stack([face_directions(f, size, device=device) for f in range(6)])
 
 
 def direction_to_face_uv(d: torch.Tensor):

@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from rust_renderer_tpu_torch.ops.colors import luminance
+from rust_renderer_tpu_torch.ops.constants import device_constant
 from rust_renderer_tpu_torch.ops.ssao import shifted
 
 EDGE_THRESHOLD_MIN = 0.0312
@@ -120,8 +121,9 @@ def fxaa(color: torch.Tensor, threshold: float = 0.45, enabled=1, debug=0,
                            torch.where(s3, shc(0, 1), shc(0, -1)))
     f3 = final_offset[..., None]
     aa = (1.0 - f3) * color + f3 * neighbor
-    edge_dir_color = torch.where(is_horizontal[..., None], color.new_tensor([1.0, 0.0, 0.0]),
-                                 color.new_tensor([0.0, 1.0, 0.0]))
+    edge_dir_color = torch.where(is_horizontal[..., None],
+                                 device_constant((1.0, 0.0, 0.0), color.device),
+                                 device_constant((0.0, 1.0, 0.0), color.device))
     aa = torch.where(torch.as_tensor(debug, device=color.device) == 1, edge_dir_color, aa)
     use_aa = ~no_edge & (torch.as_tensor(enabled, device=color.device) == 1)
     return torch.where(use_aa[..., None], aa, color)

@@ -139,7 +139,7 @@ def brdf_lut(size: int = 512, num_samples: int = 1024, *, device) -> torch.Tenso
     return torch.stack([a, b], dim=-1) / num_samples
 
 
-def compute_environment(cfg, sun_dir, device="cuda", lut_samples: int = 256) -> dict:
+def compute_environment(cfg, sun_dir, lut_samples: int = 256, *, device="cuda") -> dict:
     """The whole environment pipeline, as the persistent resources the render
     graphs read: env_cubemap_mip{m}, specular_map_mip{m}, irradiance_map,
     brdf_lut."""

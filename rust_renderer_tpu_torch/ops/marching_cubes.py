@@ -79,7 +79,7 @@ class MarchingCubesResult(NamedTuple):
 
 
 def marching_cubes(density_fn=default_density, grid: int = 32, voxel_size: float = 1.0,
-                   iso_level: float = 0.0, time=0.0, flat_normals: bool = False,
+                   iso_level: float = 0.0, time=0.0, flat_normals: bool = False, *,
                    device=None) -> MarchingCubesResult:
     """Extract the isosurface: grid^3 * MAX_TRIS_PER_VOXEL slots, slot-major
     (all voxels' first triangle, then all second ones, ...), on the device of

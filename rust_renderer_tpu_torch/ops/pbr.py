@@ -13,6 +13,7 @@ from typing import NamedTuple
 import torch
 
 from rust_renderer_tpu_torch.ops import brdf
+from rust_renderer_tpu_torch.ops.constants import device_constant
 from rust_renderer_tpu_torch.ops.cubemap import sample_cubemap, sample_cubemap_lod
 from rust_renderer_tpu_torch.ops.rays import dot
 
@@ -37,9 +38,11 @@ def _unit(v: torch.Tensor) -> torch.Tensor:
 
 
 def surface_shading(pixel: PixelParams, light_color, light_pos, light_dir,
-                    light_type: float, light_att, light_spot, eye_pos) -> torch.Tensor:
+                    light_type: float, light_att, light_spot, eye_pos,
+                    light_color_factor=1.0) -> torch.Tensor:
     """One light's Cook-Torrance contribution (pbr_lighting.glsl:20-79).
-    light_type: 0 directional, 1 point, 2 spot."""
+    light_type: 0 directional, 1 point, 2 spot; the light's radiance is
+    scaled by `light_color_factor` (a number or a tensor)."""
     n = pixel.normal
     v = _unit(eye_pos - pixel.position)
     f0 = 0.04 + (pixel.base_color - 0.04) * pixel.metallic[..., None]
@@ -47,7 +50,7 @@ def surface_shading(pixel: PixelParams, light_color, light_pos, light_dir,
     pos_to_light = light_pos - pixel.position
     d = _norm(pos_to_light)
     l_point = pos_to_light / torch.clamp_min(d, 1e-9)[..., None]
-    l_directional = _unit(light_dir * light_dir.new_tensor([-1.0, 1.0, -1.0]))
+    l_directional = _unit(light_dir * device_constant((-1.0, 1.0, -1.0), light_dir.device))
     att_point = 1.0 / torch.clamp_min(
         light_att[..., 0] + light_att[..., 1] * d + light_att[..., 2] * d * d, 1e-9)
     spot_factor = torch.pow(torch.clamp_min(dot(l_point, _unit(light_dir)), 0.0), light_spot)
@@ -59,6 +62,8 @@ def surface_shading(pixel: PixelParams, light_color, light_pos, light_dir,
                               torch.where(is_spot, spot_factor * att_point, att_point))
     h = _unit(l + v)
     radiance = light_color[..., :3] * attenuation[..., None]
+    if not (isinstance(light_color_factor, (int, float)) and light_color_factor == 1.0):
+        radiance = radiance * light_color_factor
 
     ndf = brdf.distribution_ggx(n, h, pixel.roughness)
     g = brdf.geometry_smith(n, v, l, pixel.roughness)
@@ -70,15 +75,20 @@ def surface_shading(pixel: PixelParams, light_color, light_pos, light_dir,
     return (kd * pixel.base_color / brdf.PI + specular) * radiance * ndotl[..., None]
 
 
-def shade_all_lights(pixel: PixelParams, scene, view) -> torch.Tensor:
+def shade_all_lights(pixel: PixelParams, scene, view, max_lights: int | None = None
+                     ) -> torch.Tensor:
     """The sun (directional, white) plus the first view.num_lights scene
-    lights (deferred.frag:73-80)."""
+    lights (deferred.frag:73-80), of at most the first `max_lights` of the
+    scene's light slots."""
     dev = pixel.position.device
     ones = torch.ones(3, dtype=torch.float32, device=dev)
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     out = surface_shading(pixel, ones, torch.zeros(3, device=dev), view.sun_dir,
                           zero, ones, zero, view.eye_pos)
-    for i in range(scene.light_pos.shape[0]):
+    n_lights = scene.light_pos.shape[0]
+    if max_lights is not None:
+        n_lights = min(n_lights, max_lights)
+    for i in range(n_lights):
         contrib = surface_shading(
             pixel, scene.light_color[i], scene.light_pos[i], scene.light_dir[i],
             scene.light_type[i], scene.light_att[i], scene.light_spot[i], view.eye_pos)

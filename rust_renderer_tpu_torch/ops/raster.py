@@ -28,6 +28,8 @@ from typing import NamedTuple
 
 import torch
 
+from rust_renderer_tpu_torch.ops.constants import device_constant
+
 _CHUNK = 64
 # (triangle, pixel) pairs evaluated at once by the brute path.
 _PAIR_BUDGET = 1 << 21
@@ -86,7 +88,7 @@ def clip_triangles_near(clip: torch.Tensor, indices: torch.Tensor):
     t_count = indices.shape[0]
     p = clip[indices.to(torch.int64)]  # (T, 3, 4)
     inside = p[..., 2] >= 0.0
-    bary0 = torch.tensor([[0.0, 0.0], [1.0, 0.0], [0.0, 1.0]], device=dev)
+    bary0 = device_constant(((0.0, 0.0), (1.0, 0.0), (0.0, 1.0)), dev)
     bary = bary0.expand(t_count, 3, 2)
 
     def isect(a_pos, a_bar, b_pos, b_bar):
@@ -254,22 +256,23 @@ def _binned(device, method: str) -> bool:
     return device.type == "cuda" or method == "binned"
 
 
-def rasterize(clip, indices, width: int, height: int,
+def rasterize(clip, indices, width: int, height: int, chunk: int = _CHUNK,
               init: VisibilityBuffer | None = None, method: str = "auto") -> VisibilityBuffer:
     """Rasterize triangles into a visibility buffer.
 
     clip: (V,4) clip-space vertices; indices: (T,3). `init` is a previous
     buffer to depth-test against (the LOAD-op path). CUDA tensors launch
-    K5; CPU tensors take the brute path, or K5's plain version with
+    K5; CPU tensors take the brute path (its triangles folded `chunk` at a
+    time, as in the JAX package), or K5's plain version with
     method="binned"."""
     if _binned(clip.device, method):
         from rust_renderer_tpu_torch.ops.raster_binned import rasterize_binned
 
         return rasterize_binned(clip, indices, width, height, init=init)
-    return rasterize_brute(clip, indices, width, height, init=init)
+    return rasterize_brute(clip, indices, width, height, init=init, chunk=chunk)
 
 
-def rasterize_depth(clip, indices, width: int, height: int,
+def rasterize_depth(clip, indices, width: int, height: int, chunk: int = _CHUNK,
                     method: str = "auto") -> torch.Tensor:
     """Depth-only rasterization (shadow cascades, shadow.rs:111-131): min z,
     clear 1.0. CUDA tensors launch K4; CPU tensors take the brute path, or
@@ -278,7 +281,7 @@ def rasterize_depth(clip, indices, width: int, height: int,
         from rust_renderer_tpu_torch.ops.raster_binned import rasterize_depth_binned
 
         return rasterize_depth_binned(clip, indices, width, height)
-    return rasterize_brute(clip, indices, width, height).depth
+    return rasterize_brute(clip, indices, width, height, chunk=chunk).depth
 
 
 def interpolate(vis: VisibilityBuffer, indices, attr, fill: float = 0.0) -> torch.Tensor:

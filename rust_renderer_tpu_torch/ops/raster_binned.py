@@ -463,13 +463,25 @@ def vis_binned_plain(bins: Bins, width: int, height: int) -> VisibilityBuffer:
 # -- drop-ins for ops/raster.py -----------------------------------------------
 
 
-def rasterize_depth_binned(clip, indices, width: int, height: int) -> torch.Tensor:
+def _check_interpret(interpret, dev: torch.device) -> None:
+    """The JAX wrappers' `interpret` (None: by backend; True: the Pallas
+    kernel interpreted) maps to the port's choice by device: the plain
+    version on CPU tensors (interpret=True), the kernel on CUDA tensors
+    (interpret=False). A value that asks for the other raises."""
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"no rasterizer for device {dev}")
+    if interpret is not None and bool(interpret) != (dev.type == "cpu"):
+        raise ValueError(f"interpret={interpret!r} with {dev.type} tensors: the port runs "
+                         "the plain version on CPU tensors and the kernel on CUDA tensors")
+
+
+def rasterize_depth_binned(clip, indices, width: int, height: int,
+                           interpret: bool | None = None) -> torch.Tensor:
     """Depth-only binned rasterization (raster_binned.py:504-527): min z,
     clear 1.0, both windings, near-clipped. K4 on CUDA tensors, the plain
     version on CPU tensors."""
     dev = clip.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no rasterizer for device {dev}")
+    _check_interpret(interpret, dev)
     if indices.shape[0] == 0:
         return torch.ones((height, width), dtype=torch.float32, device=dev)
     bins = bin_triangles(tri_rows(clip, indices, width, height), width, height)
@@ -479,13 +491,13 @@ def rasterize_depth_binned(clip, indices, width: int, height: int) -> torch.Tens
 
 
 def rasterize_binned(clip, indices, width: int, height: int,
+                     interpret: bool | None = None,
                      init: VisibilityBuffer | None = None) -> VisibilityBuffer:
     """Visibility-buffer binned rasterization (raster_binned.py:414-466);
     `init` is a previous buffer to depth-test against (the LOAD op). K5 on
     CUDA tensors, the plain version on CPU tensors."""
     dev = clip.device
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"no rasterizer for device {dev}")
+    _check_interpret(interpret, dev)
     if indices.shape[0] == 0:
         return init if init is not None else clear_visibility(height, width, dev)
     bins = bin_triangles(tri_rows(clip, indices, width, height, vis=True), width, height)

@@ -31,7 +31,7 @@ class Reservoir(NamedTuple):
     M: torch.Tensor  # (...,) i32 sample count
 
     @staticmethod
-    def empty(shape, device) -> "Reservoir":
+    def empty(shape, *, device) -> "Reservoir":
         return Reservoir(
             Y=torch.full(shape, -1, dtype=torch.int32, device=device),
             W_sum=torch.zeros(shape, dtype=torch.float32, device=device),
@@ -132,7 +132,7 @@ def _resample_phat(scene, state, hit_position, num_lights, max_num_lights_used,
     (restir_sampling.glsl:96-130). Returns (state, reservoir, p_hat of the
     selected sample)."""
     shape = state.shape
-    res = Reservoir.empty(shape, state.device)
+    res = Reservoir.empty(shape, device=state.device)
     p_sel = torch.zeros(shape, dtype=torch.float32, device=state.device)
     m_i = 1.0 / num_candidates
     one = torch.ones(shape, dtype=torch.int32, device=state.device)
@@ -166,7 +166,7 @@ def initial_ris_pass(scene, state, hit_position, num_lights, max_num_lights_used
     return_p_hat=True also p_hat of its sample, for the next pass."""
     state, r, p_sel = _resample_phat(scene, state, hit_position, num_lights,
                                      max_num_lights_used, num_candidates)
-    new = Reservoir.empty(state.shape, state.device)
+    new = Reservoir.empty(state.shape, device=state.device)
     state, new = update_reservoir(state, new, r.Y, r.W_sum * r.M.to(torch.float32), r.M)
     p_hat = torch.where(new.Y == r.Y, p_sel, 0.0)  # new.Y is r.Y or -1
     new = finalize_resampling(new, p_hat)
@@ -191,7 +191,7 @@ def temporal_reuse_pass(scene, state, hit_position, initial: Reservoir,
     h, w = initial.Y.shape
     fh = h if full_height is None else full_height
 
-    new = Reservoir.empty((h, w), state.device)
+    new = Reservoir.empty((h, w), device=state.device)
     p_hat = (target_function(scene, initial.Y, hit_position) if p_hat_initial is None
              else p_hat_initial)
     initial_weight = p_hat * initial.W_X * initial.M.to(torch.float32)
@@ -211,7 +211,7 @@ def temporal_reuse_pass(scene, state, hit_position, initial: Reservoir,
     px = (u * w + 0.5).to(torch.int32).clamp(0, w - 1)
     py = (v * fh + 0.5).to(torch.int32).clamp(0, fh - 1)
     fetched = _gather_reservoir_rows(_pack_reservoir_rows(prev_frame), py, px, w)
-    prev = fetched.where(in_bounds, Reservoir.empty((h, w), state.device))
+    prev = fetched.where(in_bounds, Reservoir.empty((h, w), device=state.device))
 
     # p_hat reweighting for target-distribution mismatch + 20x M clamp
     # (temporal_reuse.rgen:100-115).
@@ -248,7 +248,7 @@ def spatial_reuse_pass(scene, state, hit_position, temporal: Reservoir, enabled,
     dev = state.device
     src = temporal if temporal_full is None else temporal_full
     fh = src.Y.shape[0]
-    new = Reservoir.empty((h, w), dev)
+    new = Reservoir.empty((h, w), device=dev)
     p_hat = (target_function(scene, temporal.Y, hit_position) if p_hat_temporal is None
              else p_hat_temporal)
     state, new = update_reservoir(

@@ -59,6 +59,49 @@ def random_vec2(state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return state, torch.stack([a, b], dim=-1)
 
 
+def random_vec3(state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    state, a = random_float(state)
+    state, b = random_float(state)
+    state, c = random_float(state)
+    return state, torch.stack([a, b, c], dim=-1)
+
+
+# Rounds of the rejection samplers; a lane still outside after them gets the
+# origin (the JAX package's cap; p_fail < 1e-10).
+REJECTION_ROUNDS = 32
+
+
+def _rejection(state: torch.Tensor, draw, dims: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """random.glsl:36-58: candidates uniform in [-1, 1]^dims until one lies
+    inside the unit ball, each lane masked once it has accepted (its state
+    stops advancing), for at most REJECTION_ROUNDS rounds."""
+    searching = torch.ones(state.shape, dtype=torch.bool, device=state.device)
+    point = torch.zeros(state.shape + (dims,), dtype=torch.float32, device=state.device)
+    for _ in range(REJECTION_ROUNDS):
+        if not bool(searching.any()):
+            break
+        new_state, cand = draw(state)
+        cand = cand * 2.0 - 1.0
+        r2 = cand[..., 0] * cand[..., 0]
+        for k in range(1, dims):
+            r2 = r2 + cand[..., k] * cand[..., k]
+        inside = r2 < 1.0
+        point = torch.where((searching & inside)[..., None], cand, point)
+        state = torch.where(searching, new_state, state)
+        searching = searching & ~inside
+    return state, torch.where(searching[..., None], 0.0, point)
+
+
+def random_in_unit_sphere(state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rejection sampling in the unit sphere (random.glsl:36-47)."""
+    return _rejection(state, random_vec3, 3)
+
+
+def random_in_unit_disk(state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rejection sampling in the unit disk (random.glsl:49-58)."""
+    return _rejection(state, random_vec2, 2)
+
+
 def random_in_unit_sphere_fast(state: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Loop-free uniform point in the unit ball: an isotropic Gaussian
     direction (Box-Muller) scaled by cbrt(u) — the JAX package's draw

@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from rust_renderer_tpu_torch.ops.constants import device_constant
 from rust_renderer_tpu_torch.ops.rays import apply_rows
 from rust_renderer_tpu_torch.utils import math3d
 
@@ -123,5 +124,5 @@ def calculate_shadow(position, view_matrix, shadow_map, cascade_view_proj,
 
 def cascade_debug_color(cascade: torch.Tensor) -> torch.Tensor:
     """shadow_mapping.glsl:56-68: one tint per cascade, (..., 3)."""
-    colors = torch.tensor(_DEBUG_COLORS, dtype=torch.float32, device=cascade.device)
+    colors = device_constant(_DEBUG_COLORS, cascade.device)
     return colors[cascade.clamp(0, 3)]

@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from rust_renderer_tpu_torch.ops.constants import device_constant
 from rust_renderer_tpu_torch.ops.rays import apply_rows, cross, dot
 
 KERNEL_SIZE = 32
@@ -74,7 +75,7 @@ def _view_frame(gbuffer_position, gbuffer_normal, view_matrix):
     normal_view = apply_rows(gbuffer_normal[..., :3], normal_matrix[:3, :3])
     normal_view = normal_view / torch.clamp_min(
         torch.linalg.vector_norm(normal_view, dim=-1, keepdim=True), 1e-9)
-    random_vec = pos_world.new_tensor([1.0, 1.0, 0.0])
+    random_vec = device_constant((1.0, 1.0, 0.0), pos_world.device)
     t = random_vec - normal_view * dot(random_vec, normal_view)[..., None]
     t = t / torch.clamp_min(torch.linalg.vector_norm(t, dim=-1, keepdim=True), 1e-9)
     b = cross(t, normal_view)

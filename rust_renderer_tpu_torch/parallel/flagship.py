@@ -95,11 +95,12 @@ def flagship_step(scene, view, cfg, accum: torch.Tensor, prev_spatial: restir_op
 
 def render_flagship_tiled(scene, view, cfg, accum: torch.Tensor,
                           prev_spatial: restir_ops.Reservoir, closest_hit, any_hit,
-                          group=None, sky_fn=None):
+                          group=None, sky_fn=None, axis: str = "tiles"):
     """The flagship frame with the image's rows split over `group` (the
     world group by default): accum (band, W, 3) and prev_spatial's planes
     (band, W) are this rank's bands (`shard_flagship_inputs`). Returns
     this rank's (output, accumulation, spatial) bands."""
+    tiles.check_axis("render_flagship_tiled", axis)
     group = group if group is not None else torch.distributed.group.WORLD
     _, n = tiles.group_rank(group)
     rows, width = accum.shape[:2]
@@ -107,8 +108,10 @@ def render_flagship_tiled(scene, view, cfg, accum: torch.Tensor,
                          sky_fn=sky_fn, group=group, full_size=(rows * n, width))
 
 
-def shard_flagship_inputs(group, accum: torch.Tensor, reservoirs: restir_ops.Reservoir):
+def shard_flagship_inputs(group, accum: torch.Tensor, reservoirs: restir_ops.Reservoir,
+                          axis: str = "tiles"):
     """This rank's band of the whole-frame state: accum (H, W, 3) and the
     reservoir planes (H, W), H divisible by the group's size."""
+    tiles.check_axis("shard_flagship_inputs", axis)
     return (tiles.shard_rows(accum, group),
             restir_ops.Reservoir(*(tiles.shard_rows(p, group) for p in reservoirs)))

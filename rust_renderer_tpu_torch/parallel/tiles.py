@@ -26,6 +26,7 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 from rust_renderer_tpu_torch.ops import pathtrace
+from rust_renderer_tpu_torch.utils import require_port_values
 
 # Bytes that gather_rows has assembled in this process (the whole gathered
 # tensors'), for the caller to read and zero like the kernels' counters.
@@ -131,12 +132,21 @@ def make_tile_group(n_ranks: int | None = None, backend: str | None = None,
     return group, dist.get_rank(group)
 
 
+def check_axis(where: str, axis: str) -> None:
+    """The JAX mesh's axis name: a group has no axes, and the bands split
+    the rows, the JAX default axis "tiles"."""
+    require_port_values(where, "a torch.distributed group has no named axes; the bands "
+                        "split the rows", axis=(axis, "tiles"))
+
+
 def render_tiled(scene, view, cfg, accumulation: torch.Tensor, group=None,
-                 reservoirs=None, closest_hit=None) -> pathtrace.PathTraceResult:
+                 reservoirs=None, closest_hit=None, axis: str = "tiles"
+                 ) -> pathtrace.PathTraceResult:
     """This rank's band of one path-traced frame (the JAX package's
     `render_tiled`). accumulation: this rank's (H / n, W, 3) band;
     reservoirs: its band of the spatial planes, or None. Returns the band's
     PathTraceResult; rays_traced is summed over the group."""
+    check_axis("render_tiled", axis)
     index, n = group_rank(group)
     rows, width = accumulation.shape[:2]
     kwargs = {} if closest_hit is None else {"closest_hit": closest_hit}

@@ -2,7 +2,7 @@
 
 The port of ``rust_renderer_tpu/renderer.py`` (the reference's
 utopian/src/renderer.rs + bindless.rs). Models register meshes, materials and
-textures and get integer handles; `Renderer.pack(device)` concatenates the
+textures and get integer handles; `Renderer.pack(device=...)` concatenates the
 world-space vertex pools and the struct-of-array material and light tables
 into a `PackedScene` of tensors on one device.
 
@@ -23,6 +23,10 @@ from rust_renderer_tpu_torch.scene.gltf_loader import DEFAULT_TEXTURE_MAP, Model
 from rust_renderer_tpu_torch.utils import math3d
 
 log = logging.getLogger(__name__)
+
+MAX_NUM_GPU_MATERIALS = 1024
+MAX_NUM_GPU_MESHES = 1024
+MAX_NUM_GPU_LIGHTS = 1024
 
 # Texture-array tile size: every bindless texture is resampled to this square.
 TEXTURE_TILE = 512
@@ -332,7 +336,7 @@ class Renderer:
             sphere_material=col(spheres, "material", np.int32),
         )
 
-    def pack(self, device="cuda") -> PackedScene:
+    def pack(self, *, device="cuda") -> PackedScene:
         """Build the scene tensors on `device`: host numpy concat + one copy
         per field."""
         log.info(

@@ -259,7 +259,7 @@ def build_path_tracing_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_di
 
         # 2. reset_reservoirs (restir/reset_reservoirs.comp).
         def reset(res, scene, view):
-            empty = restir_ops.Reservoir.empty((rows, w), view.time.device)
+            empty = restir_ops.Reservoir.empty((rows, w), device=view.time.device)
             out = _write_reservoir("initial_ris_reservoirs", empty)
             out.update(_write_reservoir("temporal_reuse_reservoirs", empty))
             return out

@@ -1,8 +1,11 @@
 """Per-effect pass setup (rebuild of utopian/src/renderers/*.rs; the port of
 ``rust_renderer_tpu/renderers/passes.py``). Each `setup_*` records one pass
 into the Graph; resource names are the reference's (gbuffer_position,
-shadow_map, ssao_output, ...). Per-frame host values (cascade matrices,
-pass settings) are captured by the pass body.
+shadow_map, ssao_output, ...). The values the JAX package passes as uniforms
+(cascade matrices and splits, SSAO radius and bias, the marching-cubes
+colour, the FXAA threshold) are uniforms here too: the bodies read them from
+the graph's device buffers (`PassBuilder.uniforms`), and no body copies host
+data.
 
 In a row-sharded graph (`Graph.shard_image_rows`) each pass computes this
 rank's band (`graph.band`) of the image: per-pixel passes by image
@@ -32,6 +35,7 @@ from rust_renderer_tpu_torch.ops import rays as rayops
 from rust_renderer_tpu_torch.ops import shadow as shadow_ops
 from rust_renderer_tpu_torch.ops import ssao as ssao_ops
 from rust_renderer_tpu_torch.ops.colors import linear_to_srgb
+from rust_renderer_tpu_torch.ops.constants import device_constant
 from rust_renderer_tpu_torch.ops.cubemap import sample_cubemap
 from rust_renderer_tpu_torch.ops.raster import VisibilityBuffer
 
@@ -171,17 +175,18 @@ def setup_shadow_pass(graph: Graph, camera, sun_dir, enabled: bool, size: int = 
         camera.get_view(), camera.get_projection(), camera.get_near_plane(),
         camera.get_far_plane(), np.asarray(sun_dir, np.float32), cascade_count)
 
-    def render(res, scene, view):
-        dev = view.view.device
+    def render(res, scene, view, u):
         if not enabled:
-            return {"shadow_map": torch.ones((cascade_count, size, size), device=dev)}
-        vp = torch.as_tensor(matrices, device=dev)
+            return {"shadow_map": torch.ones((cascade_count, size, size),
+                                             device=view.view.device)}
+        vp = u["cascade_vp"]
         layers = [raster_ops.rasterize_depth(
             raster_ops.transform_vertices(scene.positions, vp[i]), scene.indices, size, size,
             method=method) for i in range(cascade_count)]
         return {"shadow_map": torch.stack(layers)}
 
-    builder = graph.add_pass("shadow").write("shadow_map").render(render)
+    builder = (graph.add_pass("shadow").write("shadow_map")
+               .uniforms("cascade_vp", matrices).render(render))
     if enabled:
         builder.host_sync(BINS_SYNC)
     builder.build()
@@ -196,13 +201,15 @@ def setup_ssao_pass(graph: Graph, width: int, height: int, radius: float = 0.3,
     graph.create_texture("ssao_output", width, height, 1, clear=1.0)
     band = graph.band
 
-    def render(res, scene, view):
+    def render(res, scene, view, u):
         occ = ssao_ops.ssao_stencil(res["gbuffer_position"], res["gbuffer_normal"],
-                                    view.view, view.projection, radius, bias, band=band)
+                                    view.view, view.projection, u["radius"], u["bias"],
+                                    band=band)
         return {"ssao_output": torch.where(_on(view.ssao_enabled), occ, 1.0)}
 
     (graph.add_pass("ssao").read("gbuffer_position").read("gbuffer_normal")
-     .write("ssao_output").render(render).build())
+     .write("ssao_output").uniforms("radius", np.float32(radius))
+     .uniforms("bias", np.float32(bias)).render(render).build())
 
 
 # -- environment / IBL (renderers/ibl.rs) -------------------------------------
@@ -216,7 +223,7 @@ def setup_environment_passes(graph: Graph, cfg, sun_dir) -> None:
     declare_env_resources(graph, cfg)
 
     def render(res, scene, view):
-        return ibl_ops.compute_environment(cfg, view.sun_dir, view.sun_dir.device)
+        return ibl_ops.compute_environment(cfg, view.sun_dir, device=view.sun_dir.device)
 
     builder = graph.add_pass("environment")
     for name in env_resource_names(cfg):
@@ -273,7 +280,7 @@ def setup_rt_reflections_pass(graph: Graph, scene_bvh, cfg, width: int, height: 
             roughness=gb.pbr[..., 1], occlusion=gb.pbr[..., 2])
         shaded = pbr_ops.image_based_lighting(pixel, view.eye_pos, *_ibl_inputs(res, cfg))
         sky = atmosphere_ops.sky_radiance(
-            origin, torch.where(is_metal, rdir, rdir.new_tensor([0.0, 1.0, 0.0])),
+            origin, torch.where(is_metal, rdir, device_constant((0.0, 1.0, 0.0), rdir.device)),
             _unit(view.sun_dir), view.sky_enabled)
         color = torch.where(hit.is_hit[..., None], shaded, sky)
         color = torch.where(is_metal, color, 0.0)
@@ -305,8 +312,7 @@ def setup_deferred_pass(graph: Graph, cfg, width: int, height: int,
                         cascade_matrices, cascade_splits) -> None:
     graph.create_texture("deferred_output", width, height, 4, clear=0.0)
 
-    def render(res, scene, view):
-        dev = view.view.device
+    def render(res, scene, view, u):
         gb_pos, gb_pbr = res["gbuffer_position"], res["gbuffer_pbr"]
         pixel = _material_pixel(scene, gb_pos[..., :3], res["gbuffer_normal"][..., :3],
                                 res["gbuffer_albedo"][..., :3], gb_pbr)
@@ -323,9 +329,8 @@ def setup_deferred_pass(graph: Graph, cfg, width: int, height: int,
 
         # CSM when enabled, else RT shadows (deferred.frag:97-111).
         csm, cascade = shadow_ops.calculate_shadow(
-            gb_pos[..., :3], view.view, res["shadow_map"],
-            torch.as_tensor(cascade_matrices, device=dev),
-            torch.as_tensor(cascade_splits, device=dev))
+            gb_pos[..., :3], view.view, res["shadow_map"], u["cascade_vp"],
+            u["cascade_splits"])
         rt_sh = torch.clamp_min(res["rt_shadows"], 0.3)
         shadow = torch.where(_on(view.shadows_enabled), csm,
                              torch.where(_on(view.raytracing_supported), rt_sh, 1.0))
@@ -340,7 +345,9 @@ def setup_deferred_pass(graph: Graph, cfg, width: int, height: int,
     for name in (*GBUFFER_PLANES[:4], "shadow_map", "rt_shadows", "rt_reflections",
                  "ssao_output"):
         builder.read(name)
-    _read_ibl(builder, cfg).write("deferred_output").render(render).build()
+    (_read_ibl(builder, cfg).write("deferred_output")
+     .uniforms("cascade_vp", cascade_matrices).uniforms("cascade_splits", cascade_splits)
+     .render(render).build())
 
 
 # -- atmosphere / sky (renderers/atmosphere.rs) --------------------------------
@@ -372,21 +379,24 @@ def setup_atmosphere_pass(graph: Graph, cfg, width: int, height: int,
 
 
 def setup_marching_cubes_pass(graph: Graph, cfg, width: int, height: int,
-                              target: str = "deferred_output",
-                              color=(0.0, 1.0, 0.0, 1.0)) -> None:
+                              target: str = "deferred_output", voxel_size: float | None = None,
+                              color=(0.0, 1.0, 0.0, 1.0), flat_normals: bool = False) -> None:
     """The isosurface extracted every frame and drawn forward with a depth
     test against the scene (marching_cubes.rs:63-135). The indirect draw is
     every triangle slot rasterized (K5 on the card), degenerate slots
-    covering nothing, over the gbuffer depth; lit with the pass color. The
-    domain is the reference's [0,32]^3 at any cfg.mc_grid."""
+    covering nothing, over the gbuffer depth; lit with the pass color (a
+    uniform). voxel_size defaults to 32 / cfg.mc_grid, so that the domain is
+    the reference's [0,32]^3 at any mc_grid; flat_normals gives each
+    triangle its face normal."""
     graph.create_buffer("marching_cubes_draw_count", (1,), dtype=torch.int32)
-    voxel_size = 32.0 / cfg.mc_grid
+    if voxel_size is None:
+        voxel_size = 32.0 / cfg.mc_grid
     band = graph.band
 
-    def render(res, scene, view):
+    def render(res, scene, view, u):
         dev = view.view.device
         result = mc_ops.marching_cubes(grid=cfg.mc_grid, voxel_size=voxel_size,
-                                       time=view.time)
+                                       time=view.time, flat_normals=flat_normals)
         t = result.positions.shape[0]
         clip = raster_ops.transform_vertices(result.positions.reshape(-1, 3),
                                              view.projection @ view.view)
@@ -405,7 +415,7 @@ def setup_marching_cubes_pass(graph: Graph, cfg, width: int, height: int,
         normals = normals / torch.clamp_min(
             torch.linalg.vector_norm(normals, dim=-1, keepdim=True), 1e-9)
         ndotl = torch.clamp_min(rayops.dot(normals, _unit(view.sun_dir)), 0.0)
-        shaded = torch.tensor(color[:3], device=dev) * (0.2 + 0.8 * ndotl[..., None])
+        shaded = u["color"][:3] * (0.2 + 0.8 * ndotl[..., None])
         drawn = covered & _on(view.marching_cubes_enabled)
         shaded4 = torch.cat([shaded, torch.ones_like(ndotl)[..., None]], -1)
         return {
@@ -416,7 +426,8 @@ def setup_marching_cubes_pass(graph: Graph, cfg, width: int, height: int,
 
     (graph.add_pass("marching_cubes").read("gbuffer_depth").read(target)
      .write(target).write("gbuffer_depth").write("marching_cubes_draw_count")
-     .render(render).host_sync(BINS_SYNC).build())
+     .uniforms("color", np.asarray(color, np.float32)).render(render)
+     .host_sync(BINS_SYNC).build())
 
 
 # -- present (renderers/present.rs) --------------------------------------------
@@ -428,12 +439,13 @@ def setup_present_pass(graph: Graph, width: int, height: int,
     graph.create_texture("present_output", width, height, 3, clear=0.0)
     band = graph.band
 
-    def render(res, scene, view):
+    def render(res, scene, view, u):
         color = linear_to_srgb(torch.clamp_min(res[source][..., :3], 0.0))
-        return {"present_output": fxaa_ops.fxaa(color, fxaa_threshold, view.fxaa_enabled,
+        return {"present_output": fxaa_ops.fxaa(color, u["threshold"], view.fxaa_enabled,
                                                 view.fxaa_debug, band=band)}
 
-    graph.add_pass("present").read(source).write("present_output").render(render).build()
+    (graph.add_pass("present").read(source).write("present_output")
+     .uniforms("threshold", np.float32(fxaa_threshold)).render(render).build())
 
 
 # -- forward (renderers/forward.rs, minimal mode) ------------------------------
@@ -451,8 +463,7 @@ def setup_forward_pass(graph: Graph, cfg, width: int, height: int, cascade_matri
     closest = None if scene_bvh is None else bvh_ops.make_closest_hit(scene_bvh)
     band = graph.band
 
-    def render(res, scene, view):
-        dev = view.view.device
+    def render(res, scene, view, u):
         if closest is None:
             vis = _band_of(_raster_visibility(scene, view, width, height, cfg.raster_method),
                            band)
@@ -469,16 +480,16 @@ def setup_forward_pass(graph: Graph, cfg, width: int, height: int, cascade_matri
         lo = pbr_ops.shade_all_lights(pixel, scene, view)
         color = 0.03 * pixel.base_color * pixel.occlusion[..., None] + lo
         csm, _ = shadow_ops.calculate_shadow(
-            gb.position[..., :3], view.view, res["shadow_map"],
-            torch.as_tensor(cascade_matrices, device=dev),
-            torch.as_tensor(cascade_splits, device=dev))
+            gb.position[..., :3], view.view, res["shadow_map"], u["cascade_vp"],
+            u["cascade_splits"])
         color = color * torch.where(_on(view.shadows_enabled), csm, 1.0)[..., None]
         color = torch.where(covered[..., None], color, 0.0)
         return {"forward_output": torch.cat([color, torch.ones_like(color[..., :1])], -1),
                 "gbuffer_depth": gb.depth}
 
     builder = (graph.add_pass("forward").read("shadow_map").write("forward_output")
-               .write("gbuffer_depth").render(render))
+               .write("gbuffer_depth").uniforms("cascade_vp", cascade_matrices)
+               .uniforms("cascade_splits", cascade_splits).render(render))
     if closest is None:
         builder.host_sync(BINS_SYNC)
     builder.build()

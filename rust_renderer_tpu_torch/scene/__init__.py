@@ -1,7 +1,7 @@
 """Scene assets: primitives, materials, glTF loading and procedural models
 (host numpy)."""
 
-from rust_renderer_tpu_torch.scene.primitive import Primitive
+from rust_renderer_tpu_torch.scene.primitive import Primitive, Vertex
 from rust_renderer_tpu_torch.scene.gltf_loader import (
     DEFAULT_TEXTURE_MAP,
     Material,
@@ -14,6 +14,7 @@ from rust_renderer_tpu_torch.scene.model_loader import ModelLoader
 
 __all__ = [
     "Primitive",
+    "Vertex",
     "Material",
     "MaterialType",
     "Mesh",

@@ -24,6 +24,15 @@ def _soa(verts: list[tuple], indices: list[int]) -> Primitive:
 
 class ModelLoader:
     @staticmethod
+    def load_triangle() -> Model:
+        """model_loader.rs:38-65."""
+        prim = _soa([(1.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 1.0),
+                     (-1.0, 1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 1.0),
+                     (1.0, -1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 1.0)], [0, 1, 2])
+        return Model(meshes=[Mesh(primitive=prim, material=Material())],
+                     transforms=[np.eye(4, dtype=np.float32)])
+
+    @staticmethod
     def load_cube() -> Model:
         """Hand-built 24-vertex cube (model_loader.rs:67-155). Winding and the
         intentionally flipped top/bottom normals of the reference are kept."""

@@ -1,4 +1,4 @@
-"""Primitive: host-side geometry container.
+"""Vertex / Primitive: host-side geometry containers.
 
 Mirrors utopian/src/primitive.rs (per-vertex pos, normal, uv, color,
 tangent) as struct-of-arrays numpy, packed later into device pools by the
@@ -11,6 +11,23 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+
+@dataclasses.dataclass
+class Vertex:
+    """Scalar convenience constructor (primitive.rs:27-37)."""
+
+    pos: np.ndarray
+    normal: np.ndarray
+    uv: np.ndarray
+    color: np.ndarray
+    tangent: np.ndarray
+
+    @staticmethod
+    def new(x: float, y: float, z: float) -> "Vertex":
+        return Vertex(pos=np.array([x, y, z], np.float32), normal=np.zeros(3, np.float32),
+                      uv=np.zeros(2, np.float32), color=np.ones(4, np.float32),
+                      tangent=np.zeros(4, np.float32))
 
 
 @dataclasses.dataclass
@@ -43,3 +60,11 @@ class Primitive:
     @property
     def num_triangles(self) -> int:
         return self.indices.size // 3
+
+    @staticmethod
+    def from_vertices(indices, vertices: list[Vertex]) -> "Primitive":
+        stack = lambda field, n: np.stack(
+            [getattr(v, field)[:n] for v in vertices]).astype(np.float32)
+        return Primitive(positions=stack("pos", 3), normals=stack("normal", 3),
+                         uvs=stack("uv", 2), colors=stack("color", 4),
+                         tangents=stack("tangent", 4), indices=np.asarray(indices, np.uint32))

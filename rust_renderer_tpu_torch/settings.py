@@ -66,15 +66,16 @@ class StaticConfig:
     # energy-conservation diagnostic (a furnace-lit lambertian scene
     # converges to its albedo). Static, like the reference's #ifdef.
     furnace_test: bool = False
-    # Rasterizer of CPU tensors (ops/raster.py): "auto" takes the brute
-    # path as the JAX package does on its CPU, "binned" the plain versions
-    # of K4 / K5. CUDA tensors always launch K4 / K5.
-    raster_method: str = "auto"
     compact_window: int = 64
     compact_window_any: int = 128
     compact_order: str = "morton"
     seed_rows: int = 4
     split_pt_program: bool = False
+    # Port-only, after the JAX fields so that their positions hold.
+    # Rasterizer of CPU tensors (ops/raster.py): "auto" takes the brute
+    # path as the JAX package does on its CPU, "binned" the plain versions
+    # of K4 / K5. CUDA tensors always launch K4 / K5.
+    raster_method: str = "auto"
 
     def replace(self, **kw: Any) -> "StaticConfig":
         return dataclasses.replace(self, **kw)

@@ -67,9 +67,9 @@ def _builder_frame(package, mode):
         graph, settings = jax_rt.Graph(), JaxRenderSettings
     else:
         _tiny_scene(ModelLoader, math3d)(renderer, cam)
-        scene = renderer.pack("cpu")
+        scene = renderer.pack(device="cpu")
         bvh = torch_bvh.build_scene_bvh(scene)
-        graph, settings = torch_rt.Graph("cpu"), RenderSettings
+        graph, settings = torch_rt.Graph(device="cpu"), RenderSettings
     sun = np.array([0.0, 0.90631, 0.42262], np.float32)
     view = settings.default(sun_dir=sun).with_camera(cam, W, H).replace(
         total_samples=np.uint32(1), time=np.float32(CLOCK),

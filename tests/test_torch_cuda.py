@@ -71,7 +71,7 @@ def _soup_tree(device, n=3000, seed=11):
     base = rng.uniform(-5, 5, (n, 3)).astype(np.float32)
     e = rng.uniform(-0.8, 0.8, (n, 2, 3)).astype(np.float32)
     pos = np.concatenate([base, base + e[:, 0], base + e[:, 1]], 1).reshape(-1, 3)
-    return torch_bvh.build_bvh(pos, np.arange(n * 3).reshape(-1, 3), device)
+    return torch_bvh.build_bvh(pos, np.arange(n * 3).reshape(-1, 3), device=device)
 
 
 def _rays(device, n, seed=12):
@@ -126,7 +126,7 @@ def _tie_soup(device, n=2000, seed=31):
     e[: n // 2, :, 2] = 0.0
     tris = np.concatenate([base, base + e[:, 0], base + e[:, 1]], 1).reshape(n, 3, 3)
     pos = np.concatenate([tris, tris[::-1]]).reshape(-1, 3)
-    return torch_bvh.build_bvh(pos, np.arange(len(pos)).reshape(-1, 3), device)
+    return torch_bvh.build_bvh(pos, np.arange(len(pos)).reshape(-1, 3), device=device)
 
 
 def _default_fronts(device, size=256, seed=5):
@@ -359,7 +359,7 @@ def test_k2_takes_a_tree_k1_refuses(cuda_device):
         e = rng.normal(0.0, s / 20, (200, 2, 3))
         tris.append(np.stack([c, c + e[:, 0], c + e[:, 1]], 1))
     pos = np.concatenate(tris).reshape(-1, 3).astype(np.float32)
-    tree = torch_bvh.build_bvh(pos, np.arange(len(pos)).reshape(-1, 3), cuda_device)
+    tree = torch_bvh.build_bvh(pos, np.arange(len(pos)).reshape(-1, 3), device=cuda_device)
     assert tree.wide_depth > 14
     n = 50000
     s = 1e4 * 0.3 ** rng.integers(0, 17, n)
@@ -895,7 +895,7 @@ def test_raster_gbuffer_pass_on_card_matches_cpu(cuda_device):
     vis = raster.rasterize(clip, cpu.scene.indices, size, size, method="binned")
     want = dict(zip(GBUFFER_PLANES, gbuffer.from_visibility(cpu.scene, vis)))
     card = apps[str(cuda_device)]
-    g = Graph(cuda_device)
+    g = Graph(device=cuda_device)
     setup_gbuffer_pass(g, None, size, size, use_raycast=False)
     raster_binned.K5_LAUNCHES = 0
     got = {k: v.cpu() for k, v in g.render(card.scene, card.view).items()}
@@ -912,7 +912,7 @@ def test_captured_loop_sanitizer_counts_on_card(cuda_device):
     reports N for an N-frame call, on the capture's call and on a replay
     (the counts are device tensors the captured body adds to, zeroed before
     each call), and the loop stays captured."""
-    g = Graph(cuda_device, sanitize=True)
+    g = Graph(device=cuda_device, sanitize=True)
     g.create_texture("present_output", 8, 8, 3)
 
     def bad(res, scene, view):
@@ -1031,7 +1031,7 @@ def _flagship_frames_on(device, group=None) -> dict:
     create_cube_scene(r, cam)
     for i in range(4):
         r.add_light([float(i) * 4.0, 3.0, float(i % 2) * 4.0], [1.0, 1.0, 1.0])
-    scene = r.pack(device)
+    scene = r.pack(device=device)
     bvh = torch_bvh.build_scene_bvh(scene)
     cfg = StaticConfig(width=size, height=size, num_bounces=2)
     closest = torch_bvh.make_closest_hit(bvh, compact_window=cfg.compact_window,
@@ -1040,7 +1040,7 @@ def _flagship_frames_on(device, group=None) -> dict:
                                      compact_order=cfg.compact_order, seed_rows=cfg.seed_rows)
     view = RenderSettings.default(num_lights=4).with_camera(cam, size, size)
     accum = torch.zeros((size, size, 3), device=device)
-    res = Reservoir.empty((size, size), device)
+    res = Reservoir.empty((size, size), device=device)
     if group is not None:
         accum, res = shard_flagship_inputs(group, accum, res)
     traversal.K1_LAUNCHES.clear()

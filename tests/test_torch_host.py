@@ -169,7 +169,7 @@ def test_empty_bvh_has_one_empty_leaf():
 
 
 def _graph_with_pass(fn, reads=("a",), writes=("b",)):
-    g = Graph("cpu")
+    g = Graph(device="cpu")
     g.create_buffer("a", (2,), clear=3.0)
     g.create_buffer("b", (2,))
     g.create_buffer("c", (2,), persistent=True)

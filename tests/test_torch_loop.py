@@ -148,7 +148,7 @@ def _img_pass(res, scene, view):
 
 
 def test_device_loop_rejects_an_all_isolated_graph():
-    g = Graph("cpu")
+    g = Graph(device="cpu")
     g.create_texture("present_output", 8, 8, 3)
     g.add_pass("only").write("present_output").render(_img_pass).isolate().build()
     assert "isolated" in g.device_loop_unsupported_reason()
@@ -157,7 +157,7 @@ def test_device_loop_rejects_an_all_isolated_graph():
 
 
 def test_device_loop_rejects_an_isolated_pass_after_the_body():
-    g = Graph("cpu")
+    g = Graph(device="cpu")
     g.create_texture("present_output", 8, 8, 3)
     g.add_pass("m").write("present_output").render(_img_pass).build()
     g.add_pass("late").write("present_output").render(_img_pass).isolate().build()
@@ -165,7 +165,7 @@ def test_device_loop_rejects_an_isolated_pass_after_the_body():
 
 
 def test_device_loop_rejects_persistent_prefix_chain():
-    g = Graph("cpu")
+    g = Graph(device="cpu")
     g.create_buffer("acc", (4,), persistent=True)
     g.create_texture("present_output", 8, 8, 3)
 
@@ -184,7 +184,7 @@ def _prefix_graph() -> Graph:
     """An isolated prefix writing a per-frame table (persistent, so it ends
     the loop at its last frame's value) that the body reads into a carried
     accumulation."""
-    g = Graph("cpu")
+    g = Graph(device="cpu")
     g.create_buffer("table", (4,), persistent=True)
     g.create_buffer("acc", (4,), persistent=True)
     g.create_texture("present_output", 2, 2, 3)

@@ -98,7 +98,7 @@ def _flagship_frames(scene, bvh, views, cfg, group=None):
     bytes the chain gathered a frame are recorded."""
     closest, any_hit = torch_bvh.make_closest_hit(bvh), torch_bvh.make_any_hit(bvh)
     accum = torch.zeros((SIZE, SIZE, 3))
-    res = restir.Reservoir.empty((SIZE, SIZE), "cpu")
+    res = restir.Reservoir.empty((SIZE, SIZE), device="cpu")
     if group is not None:
         accum, res = shard_flagship_inputs(group, accum, res)
     out, gathered = [], []
@@ -123,7 +123,7 @@ def _pt_graph_frames(scene, bvh, views, cfg, num_lights, group=None):
     from rust_renderer_tpu_torch.graph import Graph
     from rust_renderer_tpu_torch.renderers import build_path_tracing_render_graph
 
-    g = Graph("cpu")
+    g = Graph(device="cpu")
     if group is not None:
         g.shard_image_rows(group, SIZE, SIZE)
     whole = (lambda t: t) if group is None else (lambda t: tiles.gather_rows(t, group))

@@ -40,7 +40,7 @@ SQUARE_CFG = dict(shadow_map_size=64, cubemap_size=16, cubemap_mips=2, irradianc
                   brdf_lut_size=SQUARE, num_bounces=1)
 
 
-def _setup(package, *pack_args):
+def _setup(package, **pack_args):
     """test_parallel_raster.py's scene (two cubes and a light), camera and
     view, built by `package` (the JAX package or the port)."""
     r = package.Renderer()
@@ -51,7 +51,7 @@ def _setup(package, *pack_args):
     r.add_model(package.scene.ModelLoader.load_cube(),
                 package.utils.math3d.scale([20.0, 0.1, 20.0]))
     r.add_light([2.0, 3.0, 2.0], [1.0, 1.0, 1.0], 1.0)
-    scene = r.pack(*pack_args)
+    scene = r.pack(**pack_args)
     view = package.RenderSettings.default(num_lights=r.get_num_lights()).with_camera(
         cam, W, H).replace(total_samples=np.uint32(1))
     return cam, scene, view
@@ -97,11 +97,11 @@ def _port_frames(group=None) -> dict:
     import rust_renderer_tpu_torch.utils.math3d  # noqa: F401
     from rust_renderer_tpu_torch.ops.bvh import build_scene_bvh
 
-    cam, scene, view = _setup(port, "cpu")
+    cam, scene, view = _setup(port, device="cpu")
     bvh = build_scene_bvh(scene)
     out = {}
     for name, builder in _builders().items():
-        g = port.Graph("cpu")
+        g = port.Graph(device="cpu")
         if group is not None:
             g.shard_image_rows(group, H, W)
         cfg = port.StaticConfig(**CFG, mc_grid=8)
@@ -117,6 +117,7 @@ def _port_frames(group=None) -> dict:
             "shapes": {k: tuple(res[k].shape) for k in IMAGE if k in res},
             "shadow_map": res["shadow_map"].numpy() if "shadow_map" in res else None,
             "reason": g.device_loop_unsupported_reason(),
+            "capture": g.capture_unsupported_reason(),
         }
     return out
 
@@ -205,9 +206,14 @@ def test_shadow_map_is_whole_and_equal_on_every_rank(sharded, one_rank):
 
 
 def test_sharded_graph_refuses_the_device_loop(sharded, one_rank):
+    """The device loop takes a row-sharded graph (its collectives run in
+    every frame); over gloo it refuses only the capture, naming the
+    backend."""
     assert one_rank["MINIMAL"]["reason"] is None
     for rank in sharded:
-        assert "row-sharded" in rank["frames"]["MINIMAL"]["reason"]
+        assert rank["frames"]["MINIMAL"]["reason"] is None
+        assert rank["frames"]["MINIMAL"]["capture"].startswith(
+            "gloo collectives cannot be captured")
         assert not rank["imported_jax"]
 
 
@@ -232,7 +238,7 @@ def test_shard_image_rows_takes_rows_only():
     import rust_renderer_tpu_torch as port
 
     with pytest.raises(ValueError, match="rows only"):
-        port.Graph("cpu").shard_image_rows(None, H, W, axis="cols")
+        port.Graph(device="cpu").shard_image_rows(None, H, W, axis="cols")
 
 
 @pytest.mark.parametrize("name", ["RASTERIZED", "MINIMAL"])

@@ -141,7 +141,7 @@ def _chain(seed, size=16, levels=4):
 
 def case_cubemap():
     for f in range(6):
-        _close(cubemap.face_directions(f, 8, "cpu"), jax_cubemap.face_directions(f, 8))
+        _close(cubemap.face_directions(f, 8, device="cpu"), jax_cubemap.face_directions(f, 8))
     d = _unit(_rng(3).normal(size=(2000, 3)))
     face, u, v = cubemap.direction_to_face_uv(torch.tensor(d))
     jface, ju, jv = jax_cubemap.direction_to_face_uv(jnp.asarray(d))
@@ -170,7 +170,106 @@ def case_ibl():
            jax_ibl.irradiance_convolution(chain[2], 8), rtol=1e-4, atol=1e-6)
     for a, b in zip(ibl.specular_prefilter(tchain, 4), jax_ibl.specular_prefilter(chain, 4)):
         _close(a, b, rtol=0, atol=2e-3)
-    _close(ibl.brdf_lut(16, 64, device="cpu"), jax_ibl.brdf_lut(16, 64), rtol=1e-4, atol=1e-5)
+    _assert_lut_close(ibl.brdf_lut(16, 64, device="cpu"), jax_ibl.brdf_lut(16, 64), 64)
+
+
+LUT_SIZE, LUT_SAMPLES = 16, 64
+
+
+def _lut_setup(size: int, num_samples: int):
+    """The LUT's rows' roughness, its columns' NdotV, and per sample the
+    Hammersley point and the GGX phi as ops/ibl.py::brdf_lut makes them
+    (float32), as float64 arrays."""
+    xi = brdf.hammersley2d(torch.arange(num_samples), num_samples).double().numpy()
+    jitter = brdf._glsl_random(torch.zeros(()), torch.ones(())) * 0.1
+    phi = (2.0 * brdf.PI * torch.tensor(xi[:, 0], dtype=torch.float32) + jitter).double()
+    grid = (np.arange(size) + 0.5) / size
+    return grid.astype(np.float32).astype(np.float64), grid, xi, phi.numpy()
+
+
+def _cos_theta64(rough, xi1):
+    """importance_sample_ggx's cos_theta in float64, (rows, samples)."""
+    a2 = (rough ** 2)[:, None] ** 2
+    return np.sqrt((1.0 - xi1[None]) / (1.0 + (a2 - 1.0) * xi1[None]))
+
+
+def _lut_terms64(cos_t, phi, rough, nv):
+    """brdf_lut's two summands ((1 - Fc) G_vis, Fc G_vis) of one sample in
+    float64, for cos_theta `cos_t` and phi `phi` at roughness `rough`, over
+    the columns' NdotV `nv`."""
+    sin_t = np.sqrt(max(1.0 - cos_t * cos_t, 0.0))
+    n, up = np.array([0.0, 0.0, 1.0]), np.array([1.0, 0.0, 0.0])
+    tx = np.cross(up, n)
+    ty = np.cross(n, tx)
+    h = tx * sin_t * np.cos(phi) + ty * sin_t * np.sin(phi) + n * cos_t
+    h = h / np.linalg.norm(h)
+    v = np.stack([np.sqrt(1.0 - nv * nv), np.zeros_like(nv), nv], -1)
+    vdh = v @ h
+    l = 2.0 * vdh[:, None] * h - v
+    ndotl, ndoth, vdoth = np.clip(l[:, 2], 0, 1), np.clip(h[2], 0, 1), np.clip(vdh, 0, 1)
+    k = rough * rough / 2.0
+    g1v, g1l = nv / (nv * (1 - k) + k), ndotl / (ndotl * (1 - k) + k)
+    g_vis = g1v * g1l * vdoth / np.maximum(ndoth * nv, 1e-6)
+    fc = (1.0 - vdoth) ** 5
+    return np.stack([np.where(ndotl > 0, (1 - fc) * g_vis, 0.0),
+                     np.where(ndotl > 0, fc * g_vis, 0.0)], -1)
+
+
+def _lut_conditioning(size: int, num_samples: int) -> np.ndarray:
+    """(size, size, 2): how far each LUT entry may move with the float32
+    rounding of cos_theta where that rounding is ill-conditioned.
+
+    importance_sample_ggx computes cos_theta = sqrt((1 - xi2) / (1 + (a^2 -
+    1) xi2)) and sin_theta = sqrt(1 - cos_theta^2). Where cos_theta lies
+    within 2 float32 ulp (2^-23) of 1, one ulp (2^-24) moves sin_theta by up
+    to sqrt(2 * 2^-24) = 3.45e-4, against ~1e-7 elsewhere: the half vector h
+    turns by that much, and two correct float32 evaluations (this port's
+    rounds to the nearest float32, XLA's CPU code may land one ulp lower)
+    give different h. The sample's summand (1 - Fc) G_vis (and Fc G_vis)
+    then moves by its spread over the float32 values of cos_theta within 2
+    ulp of the float64 value, weighted like every sample by 1 / num_samples.
+    That spread, computed here in float64 with the LUT's own arithmetic, is
+    the bound such an entry is held to beyond the 1e-4 tolerance; the
+    entries of rows with no such sample get 0. Sample 0 (xi2 = 0) gives
+    cos_theta exactly 1 in any IEEE evaluation and is not counted."""
+    rough, nv, xi, phi = _lut_setup(size, num_samples)
+    cos64 = _cos_theta64(rough, xi[:, 1])
+    bound = np.zeros((size, size, 2))
+    for row, s in zip(*np.nonzero((1.0 - cos64 <= 2.0 ** -23) & (cos64 < 1.0))):
+        ulps = np.float32(1.0) - np.arange(3, dtype=np.float32) * np.float32(2.0 ** -24)
+        near = [float(c) for c in ulps if abs(float(c) - cos64[row, s]) <= 2.0 ** -23]
+        terms = np.stack([_lut_terms64(c, phi[s], rough[row], nv) for c in near])
+        bound[row] += (terms.max(0) - terms.min(0)) / num_samples
+    return bound
+
+
+def _assert_lut_close(got, want, num_samples: int) -> None:
+    """The LUT within rtol 1e-4 / atol 1e-5, plus `_lut_conditioning` on the
+    entries whose samples round ill-conditioned."""
+    got, want = got.numpy(), np.asarray(want)
+    extra = _lut_conditioning(got.shape[0], num_samples)
+    assert set(np.nonzero(extra.max(axis=(1, 2)))[0]) <= {0}  # only roughness 1/32
+    np.testing.assert_array_less(np.abs(got - want), 1e-5 + 1e-4 * np.abs(want) + extra)
+
+
+def test_brdf_lut_sample_near_the_normal_rounds_correctly():
+    """The cause of the LUT's ill-conditioned entries: at roughness 1/32
+    (row 0 of a 16-entry LUT) and Hammersley sample 48 of 64, cos_theta is
+    0.99999998 in float64. The port's is its correctly rounded float32
+    (1.0, so h is the normal itself); the JAX package's is at most one ulp
+    away."""
+    rough, _, xi, _ = _lut_setup(LUT_SIZE, LUT_SAMPLES)
+    cos64 = _cos_theta64(rough[:1], xi[48:49, 1])[0, 0]
+    assert 1.0 - 2.0 ** -24 < cos64 < 1.0
+    n = torch.tensor([0.0, 0.0, 1.0])
+    xi32 = brdf.hammersley2d(torch.tensor([48]), LUT_SAMPLES)
+    h = brdf.importance_sample_ggx(xi32, torch.tensor([1.0 / 32.0]), n[None])[0].numpy()
+    assert h[2] == np.float32(cos64) == 1.0
+    assert np.all(h[:2] == 0.0)
+    jh = np.asarray(jax_brdf.importance_sample_ggx(jnp.asarray(xi32.numpy()),
+                                                   jnp.asarray([1.0 / 32.0], jnp.float32),
+                                                   jnp.asarray(n.numpy())[None]))[0]
+    assert abs(float(jh[2]) - float(np.float32(cos64))) <= 2.0 ** -24
 
 
 def _lit_scene():

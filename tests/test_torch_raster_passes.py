@@ -78,7 +78,7 @@ def test_raster_gbuffer_pass_matches_jax(inputs):
     jg = JaxGraph()
     jax_gbuffer_pass(jg, None, SIZE, SIZE, use_raycast=False)
     want = jg.render(scene, view)
-    g = Graph("cpu")
+    g = Graph(device="cpu")
     setup_gbuffer_pass(g, None, SIZE, SIZE, use_raycast=False)
     assert g.passes[0].host_sync == BINS_SYNC
     got = g.render(port_scene, port_view)
@@ -96,7 +96,7 @@ def test_raster_minimal_forward_matches_jax(inputs):
     jg = JaxGraph()
     jax_minimal(jg, JaxStaticConfig(**SMALL), jcam, None, SUN)
     want = jg.render(scene, view)
-    g = Graph("cpu")
+    g = Graph(device="cpu")
     build_minimal_forward_render_graph(g, StaticConfig(**SMALL), cam, None, SUN)
     assert [p.host_sync == BINS_SYNC for p in g.passes] == [True, True, False]
     got = g.render(port_scene, port_view)

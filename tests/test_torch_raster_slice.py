@@ -104,10 +104,10 @@ def test_environment_pass_writes_what_compute_environment_makes():
     does) are the same resources."""
     cfg = StaticConfig(**SMALL)
     view = RenderSettings.default()
-    graph = Graph("cpu")
+    graph = Graph(device="cpu")
     setup_environment_passes(graph, cfg, view.sun_dir)
     got = graph.render(None, view)
-    want = compute_environment(cfg, view.sun_dir, "cpu")
+    want = compute_environment(cfg, view.sun_dir, device="cpu")
     assert sorted(want) == sorted(name for name in got if name in graph.persist)
     for name, value in want.items():
         assert torch.equal(got[name], value), name

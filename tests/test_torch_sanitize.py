@@ -58,7 +58,7 @@ def _poisoned(package):
         zeros, ints = jnp.zeros, lambda shape: jnp.full(shape, -1, jnp.int32)
         wrap = lambda fn: lambda res, s, v, u: fn()
     else:
-        g, clean = Graph("cpu", sanitize=True), Graph("cpu", sanitize=True)
+        g, clean = Graph(device="cpu", sanitize=True), Graph(device="cpu", sanitize=True)
         nan = lambda shape: torch.full(shape, float("nan"))
         zeros, ints = torch.zeros, lambda shape: torch.full(shape, -1, dtype=torch.int32)
         wrap = lambda fn: lambda res, s, v: fn()
@@ -93,7 +93,7 @@ def test_exempt_resource_and_suppress(caplog):
     reports, logged = {}, {}
     for package in ("jax", "torch"):
         g = (jax_rt.Graph(sanitize=True, suppress=("quiet",)) if package == "jax"
-             else Graph("cpu", sanitize=True, suppress=("quiet",)))
+             else Graph(device="cpu", sanitize=True, suppress=("quiet",)))
         nan = (lambda: jnp.full((2, 2), jnp.nan)) if package == "jax" else (
             lambda: torch.full((2, 2), float("nan")))
         wrap = ((lambda fn: lambda res, s, v, u: fn()) if package == "jax"
@@ -129,7 +129,7 @@ def _loop_graph(package, prefix: bool):
         def pre(res, scene, view, u):
             return {"table": jnp.zeros((4,), jnp.float32).at[1].set(jnp.inf)}
     else:
-        g = Graph("cpu", sanitize=True)
+        g = Graph(device="cpu", sanitize=True)
 
         def bad(res, scene, view):
             img = torch.zeros((8, 8, 3))
@@ -246,7 +246,7 @@ def test_recompile_shader_reloads_and_keeps_last_good(hot_module, caplog):
     falls back to its function of the last good frame and logs it; a pass
     that fails with no reload since its last good frame raises."""
     tmp_path, mod = hot_module
-    g = Graph("cpu")
+    g = Graph(device="cpu")
     _record(g, mod)
     assert g.render(None, RenderSettings.default())["out"].tolist() == [1.0, 1.0]
     _write_module(tmp_path, "import torch\n\ndef body(res, scene, view):\n"
@@ -261,7 +261,7 @@ def test_recompile_shader_reloads_and_keeps_last_good(hot_module, caplog):
         out = g.render(None, RenderSettings.default())["out"]
     assert out.tolist() == [2.0, 2.0]
     assert any("failed after a hot reload" in r.getMessage() for r in caplog.records)
-    g2 = Graph("cpu")
+    g2 = Graph(device="cpu")
     _record(g2, mod)
     with pytest.raises(RuntimeError, match="bad"):
         g2.render(None, RenderSettings.default())
@@ -270,7 +270,7 @@ def test_recompile_shader_reloads_and_keeps_last_good(hot_module, caplog):
 
 def test_failed_reload_keeps_the_old_module(hot_module):
     tmp_path, mod = hot_module
-    g = Graph("cpu")
+    g = Graph(device="cpu")
     _write_module(tmp_path, "def body(:\n")
     assert not g.recompile_shader("hot_pass_mod")
     assert g._generation == 0
@@ -285,7 +285,7 @@ def test_reloaded_pass_changes_the_capture_key(hot_module):
     before = _value_key(mod.body)
     _write_module(tmp_path, "import torch\n\ndef body(res, scene, view):\n"
                             "    return {'out': torch.full((2,), 3.0)}\n")
-    g = Graph("cpu")
+    g = Graph(device="cpu")
     g._loop = object()
     assert g.recompile_shader("hot_pass_mod")
     assert g._loop is None and g._generation == 1
@@ -307,7 +307,7 @@ def test_recompile_all_shaders_reloads_the_ops():
         "from rust_renderer_tpu_torch.graph import Graph; "
         "from rust_renderer_tpu_torch.ops import colors; "
         "from rust_renderer_tpu_torch.renderers import passes; "
-        "old, old_pass = colors.linear_to_srgb, passes.setup_ssao_pass; g = Graph('cpu'); "
+        "old, old_pass = colors.linear_to_srgb, passes.setup_ssao_pass; g = Graph(device='cpu'); "
         "g.recompile_all_shaders(); "
         "assert colors.linear_to_srgb is not old and passes.setup_ssao_pass is not old_pass; "
         "assert g._generation == 1; print('ok')")
@@ -339,6 +339,6 @@ def test_traversal_reload_rebinds_its_library():
         "from rust_renderer_tpu_torch.ops import traversal; "
         "from rust_renderer_tpu_torch.graph import Graph; "
         "old = traversal.library; "
-        "assert Graph('cpu').recompile_shader(traversal.__name__); "
+        "assert Graph(device='cpu').recompile_shader(traversal.__name__); "
         "assert traversal.library is not old and traversal.library.cache_info().currsize == 0; "
         "print('ok')")

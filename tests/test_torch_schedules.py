@@ -278,7 +278,7 @@ def test_window_forward_map_matches_jax():
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_compacted_walk_equals_the_walk(method, order, any_hit):
     pos, idx = _soup(3000, 31)
-    tree = torch_bvh.build_bvh(pos, idx, "cpu")
+    tree = torch_bvh.build_bvh(pos, idx, device="cpu")
     o, d = (torch.tensor(x) for x in _rays(2048, seed=32))
     d[::3] = 0.0
     t_max = torch.tensor(np.random.default_rng(6).uniform(2, 20, 2048).astype(np.float32))
@@ -315,7 +315,7 @@ def seed_cases(jax_sah):
     """The JAX seed test's soup (tests/test_pallas_traversal.py::
     test_seed_occlusion_matches) and the default scene, with rays."""
     pos, idx = _soup(400, 41)
-    soup = (jax_bvh.build_bvh(pos, idx, leaf_size=12), torch_bvh.build_bvh(pos, idx, "cpu"),
+    soup = (jax_bvh.build_bvh(pos, idx, leaf_size=12), torch_bvh.build_bvh(pos, idx, device="cpu"),
             *_rays(2048, seed=42))
     jr = JaxRenderer()
     jax_create_scene(jr, JaxCamera([0, 0, 0], [0, 0, -1]))
@@ -327,7 +327,7 @@ def seed_cases(jax_sah):
     d = rng.normal(size=(2048, 3)).astype(np.float32)
     d /= np.linalg.norm(d, axis=-1, keepdims=True)
     default = (jax_bvh.build_bvh(positions, indices, leaf_size=12),
-               torch_bvh.build_bvh(positions, indices, "cpu"), o.astype(np.float32), d)
+               torch_bvh.build_bvh(positions, indices, device="cpu"), o.astype(np.float32), d)
     return {"soup": soup, "default": default}
 
 
@@ -414,7 +414,7 @@ def test_seeded_any_hit_is_the_plain_any_hit(compact_window, seed_cases):
     r = Renderer()
     create_scene(r, Camera([0, 0, 0], [0, 0, -1]))
     r.ensure_mc_material()
-    scene = r.pack("cpu")
+    scene = r.pack(device="cpu")
     o, d = torch.tensor(o), torch.tensor(d)
     want = torch_bvh.make_any_hit(tree)(scene, o, d)
     got = torch_bvh.make_any_hit(tree, seed_rows=4, compact_window=compact_window)(
@@ -435,7 +435,7 @@ def test_k1_diagnostic_outputs_on_cpu_tensors(any_hit):
     walk's hits and a fifth value None (K1 never clamps); stats and
     phase_stats at once raise."""
     pos, idx = _soup(200, 3)
-    tree = torch_bvh.build_bvh(pos, idx, "cpu")
+    tree = torch_bvh.build_bvh(pos, idx, device="cpu")
     o, d = (torch.tensor(x) for x in _rays(256, 4))
     with pytest.raises(ValueError, match="stats"):
         traversal.traverse(tree, o, d, any_hit=any_hit, phase_stats=True)

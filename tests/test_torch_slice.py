@@ -153,8 +153,8 @@ def test_furnace_test_matches_jax():
     jax_tree = jax_bvh.build_bvh(np.asarray(jax_scene.positions),
                                  np.asarray(jax_scene.indices), leaf_size=12)
     renderer, _ = _sphere_scene(torch_rt)
-    scene = renderer.pack("cpu")
-    tree = torch_bvh.build_bvh(scene.positions.numpy(), scene.indices.numpy(), "cpu")
+    scene = renderer.pack(device="cpu")
+    tree = torch_bvh.build_bvh(scene.positions.numpy(), scene.indices.numpy(), device="cpu")
     np.testing.assert_array_equal(scene.sphere_center.numpy(),
                                   np.asarray(jax_scene.sphere_center))
     view = JaxRenderSettings.default(num_lights=0).with_camera(jax_camera, size, size).replace(

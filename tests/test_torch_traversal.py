@@ -137,7 +137,7 @@ def test_hit_queries_merge_spheres():
     jax_scene, fields = _sphere_scene()
     scene = packed_scene_from_numpy(fields, "cpu")
     jax_tree = jax_bvh.build_bvh(fields["positions"], fields["indices"], leaf_size=12)
-    tree = torch_bvh.build_bvh(fields["positions"], fields["indices"], "cpu")
+    tree = torch_bvh.build_bvh(fields["positions"], fields["indices"], device="cpu")
     rng = np.random.default_rng(9)
     o = np.zeros((700, 3), np.float32) + rng.uniform(-0.3, 0.3, (700, 3)).astype(np.float32)
     d = np.stack([rng.uniform(-0.7, 0.7, 700), rng.uniform(-0.7, 0.7, 700),
@@ -189,7 +189,7 @@ def test_bruteforce_matches_jax_and_bvh_query():
     np.testing.assert_array_equal(got.prim.numpy()[tri], np.asarray(want.prim)[tri])
     np.testing.assert_allclose(got.t.numpy()[tri], np.asarray(want.t)[tri], rtol=1e-6)
     # The BVH query finds the same nearest surfaces.
-    tree = torch_bvh.build_bvh(fields["positions"], fields["indices"], "cpu")
+    tree = torch_bvh.build_bvh(fields["positions"], fields["indices"], device="cpu")
     bvh_hit = torch_bvh.make_closest_hit(tree)(scene, torch.tensor(o), torch.tensor(d))
     np.testing.assert_array_equal(bvh_hit.kind.numpy(), kind)
     np.testing.assert_allclose(bvh_hit.t.numpy(), got.t.numpy(), rtol=1e-6)

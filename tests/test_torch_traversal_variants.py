@@ -389,7 +389,7 @@ def _nested_rays(n=1024, levels=17, ratio=0.3, size=1e4, seed=5):
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_deep_tree_walk_matches_jax(deep_trees, any_hit):
     pos, idx, jax_tree, _ = deep_trees
-    tree = torch_bvh.build_bvh(pos, idx, "cpu")
+    tree = torch_bvh.build_bvh(pos, idx, device="cpu")
     assert tree.wide_depth > 14
     o, d, t_min, t_max = _nested_rays()
     got = [x.numpy() for x in traversal.traverse(
@@ -456,7 +456,7 @@ _VARIANTS = [
 def test_port_matches_jax_kernel_option(kernel, options, any_hit, jax_sah):
     pos, idx = _soup(48, seed=len(kernel) + 3 * any_hit)
     jax_tree = jax_bvh.build_bvh(pos, idx, leaf_size=12)
-    tree = torch_bvh.build_bvh(pos, idx, "cpu")
+    tree = torch_bvh.build_bvh(pos, idx, device="cpu")
     o, d, t_max = _aimed_rays(pos, seed=7 + any_hit)
     port_options = {k: v for k, v in options.items() if k != "drain_first"}
     assert traversal.select_kernel(tree, any_hit, **port_options) == kernel
@@ -469,7 +469,7 @@ def test_port_matches_jax_kernel_option(kernel, options, any_hit, jax_sah):
 
 def test_stats_need_a_kernel():
     pos, idx = _soup(24, seed=9)
-    tree = torch_bvh.build_bvh(pos, idx, "cpu")
+    tree = torch_bvh.build_bvh(pos, idx, device="cpu")
     o, d, t_max = _rays(n=64, seed=10)
     with pytest.raises(ValueError, match="plain walk"):
         traversal.traverse(tree, torch.tensor(o), torch.tensor(d), stats=True)
@@ -482,7 +482,7 @@ def test_hit_queries_take_the_kernel_options(make, monkeypatch):
     """make_closest_hit / make_any_hit pass their options to traverse, with
     dual and drain_first derived as in the JAX package."""
     pos, idx = _soup(24, seed=11)
-    tree = torch_bvh.build_bvh(pos, idx, "cpu")
+    tree = torch_bvh.build_bvh(pos, idx, device="cpu")
     seen = []
     real = traversal.traverse
 
@@ -494,7 +494,7 @@ def test_hit_queries_take_the_kernel_options(make, monkeypatch):
     r = Renderer()
     r.add_model(ModelLoader.load_cube(), np.eye(4, dtype=np.float32))
     r.ensure_mc_material()
-    packed = r.pack("cpu")
+    packed = r.pack(device="cpu")
     o = torch.zeros((4, 3))
     d = torch.tensor([[0.0, 0.0, -1.0]]).expand(4, 3).contiguous()
     if make == "closest":
