@@ -4,6 +4,7 @@
     python3 chip_smoke.py --k5    # K5's times alone (`k5_alone`)
     python3 chip_smoke.py --app   # the app phase alone (`app_alone`)
     python3 chip_smoke.py --tiles # the tiles phase alone (`tiles_alone`)
+    python3 chip_smoke.py --raster # the raster apps' host frames and passes alone
 
 Builds the traversal kernels (rust_renderer_tpu_torch/csrc/traverse_wide.cu:
 K1 and K3's wide forms; traverse_q32.cu: K1q; traverse_drain.cu: K2;
@@ -80,9 +81,13 @@ one nvcc per source, started together; then:
    StaticConfig (4 shadow cascades of 4096^2, 512^2 cubemap; RT shadows
    seeded), marching cubes on, 4 frames; launch counts, frame times (frame
    1, which captures the environment, apart), per-pass times of one more
-   frame; run_on_device(2), eager (the shadow pass bins on the host) with
-   its reason, against a host frame;
-15. MINIMAL main path: the same at 1920x1080; then the pass uniforms
+   frame; then its device loop (`raster_loop`): run_on_device(4) captured
+   once (the binning in static shapes, no host read) against a host frame,
+   a call of pure replay under torch.cuda.set_sync_debug_mode("error"),
+   launches (first call two frames' worth, replay none), the host loop's
+   and the replay's ms per frame in turns, and the busy share of each;
+15. MINIMAL main path: the same at 1920x1080, its device loop as
+   RASTERIZED's; then the pass uniforms
    (`uniforms_phase`): the RASTERIZED (marching cubes on) and MINIMAL
    frames at 1920x1080 with the builders' uniforms against the same frames
    with each value a literal copied to the card in the pass body, built in
@@ -96,7 +101,9 @@ one nvcc per source, started together; then:
    global row) pairs the boxes cull; and K5 on the marching-cubes front at
    1920x1080 over the gbuffer depth, with its plan and box pairs; times on
    the device alone and by events, global-list lengths, longest segments
-   and bounds;
+   and bounds; the binning of each cascade and of the marching-cubes front
+   (`tri_rows` + `bin_triangles`) on the device alone and by events, and
+   the bytes of the static tables it makes a call;
 17. raster parity: one small RASTERIZED frame with marching cubes on the CPU
    (brute rasterizer, plain walk) and on the card (K4, K5, K1, the seed
    kernel);
@@ -146,10 +153,11 @@ one nvcc per source, started together; then:
    MINIMAL Applications with row-sharded graphs, gathered against one rank
    (bit-equal), with per-rank frame ms and
    launches, and the row-sharded PT app's run_on_device on each gloo rank
-   (eager, bit-equal to its host loop); on the one-rank NCCL group, the
-   row-sharded PT app's device loop captured with its collectives and
-   bit-equal to 4 host frames, with replay ms. The kernels are built
-   before the ranks start; each rank loads them.
+   (eager, bit-equal to its host loop), and the row-sharded RASTERIZED
+   (marching cubes on) app's the same; on the one-rank NCCL group, the
+   row-sharded PT and RASTERIZED apps' device loops captured with their
+   collectives and bit-equal to 4 host frames, with replay ms. The kernels
+   are built before the ranks start; each rank loads them.
 
 Each main path is driven with every launch count set to 0 just before it
 and read just after. Every failed check raises. The last log line gives
@@ -268,6 +276,8 @@ TIMING_ROUNDS, TIMING_REPS = 3, 5
 # that passes (0 is expected: no float atomic is on the PT path). The golden
 # gates' frames and bounces (tests/test_pathtrace_golden.py).
 LOOP_FRAMES, LOOP_ATOL = 4, 1e-6
+# Turns of the raster apps' host loop against their replay (`raster_loop`).
+RASTER_TURNS = 3
 # Frames in the window whose device busy share is read: LOOP_FRAMES, since a
 # graph with an isolated prefix (config 5) stacks its tables over the N
 # frames of a call, so another N captures anew.
@@ -462,9 +472,10 @@ def pt_schedules(label, app, launches, counted) -> None:
         f"(seed_rows 4 vs 0: ratio {med['on'] / med['seed_off']:.3f})")
 
 
-def pass_times(label: str, app) -> dict:
+def pass_times(label: str, app, times: dict | None = None) -> dict:
     """One more frame with CUDA events around every pass body; returns each
-    pass's outputs."""
+    pass's outputs, and appends each pass's ms to times[name] where
+    `times` is given."""
     app._refresh_view()
     app._ensure_environment()
     app._build_graph()
@@ -483,6 +494,9 @@ def pass_times(label: str, app) -> dict:
     torch.cuda.synchronize()
     log(f"{label} per-pass ms: " + ", ".join(
         f"{name} {a.elapsed_time(b):.2f}" for name, a, b in events))
+    for name, a, b in events:
+        if times is not None:
+            times.setdefault(name, []).append(a.elapsed_time(b))
     return outputs
 
 
@@ -1098,12 +1112,14 @@ def raster_bound(raster_binned, bins, width: int, height: int, pair_ops: int,
     data needs — each row on the pixels of its triangle's box widened by one
     pixel, inside its tile for a segment row, as the plain version
     enumerates them and K4 tests them — at `pair_ops` operations each,
-    against the bytes of the table, the tile lists and the output, each
-    once."""
+    against the bytes of the table's live rows (the segments and the global
+    list: the rows a walk reads, not the static table's empty slots), the
+    tile lists and the output, each once."""
     x0, x1, y0, y1 = raster_binned.row_boxes(bins)
     pairs = int(((x1 - x0 + 1).clamp_min(0) * (y1 - y0 + 1).clamp_min(0)).sum())
-    nbytes = (bins.table.numel() * 4 + bins.starts.numel() * 4 + bins.counts.numel() * 4
-              + width * height * out_bytes)
+    live = int(bins.counts.sum()) + int(bins.g_count)
+    nbytes = (live * bins.table.shape[1] * 4 + bins.starts.numel() * 4
+              + bins.counts.numel() * 4 + width * height * out_bytes)
     ops_ms, bytes_ms = pairs * pair_ops / F32_OPS * 1e3, nbytes / HBM_BYTES_S * 1e3
     return {"bound_ms": max(ops_ms, bytes_ms), "pairs": pairs, "ops_ms": ops_ms,
             "bytes_ms": bytes_ms, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
@@ -1122,16 +1138,45 @@ def k4_plan_stats(raster_binned, bins) -> dict:
     live = (x1 >= x0) & (y1 >= y0)
     tiles = torch.where(live, (x1 // raster_binned.TILE_W - x0 // raster_binned.TILE_W + 1)
                         * (y1 // raster_binned.TILE_H - y0 // raster_binned.TILE_H + 1), 0)
-    pairs = bins.g_count * bins.nx * bins.ny
+    pairs = int(bins.g_count) * bins.nx * bins.ny
     return {"items": rows.numel(), "longest_item": int(rows.max()) if rows.numel() else 0,
             "global_culled": 1.0 - int(tiles.sum()) / pairs if pairs else 0.0}
+
+
+def binning_stats(raster_binned, clip, indices, width: int, height: int, vis: bool) -> dict:
+    """The binning of one raster call as `rasterize_depth_binned` /
+    `rasterize_binned` run it before K4 / K5 (`tri_rows`, then
+    `bin_triangles`: static shapes, no host read): its ms on the device
+    alone and by events, and the bytes of the tables it makes (the table,
+    the rows' tiles and pixel boxes, the tile lists), with the table's
+    slots beside the rows the walks read. A call is ~250 launches, so the
+    device time is the median of TIMING_ROUNDS single calls behind the
+    spin: several calls' launches overflow the stream's queue of pending
+    launches, and the host then waits for the spin."""
+    call = lambda: raster_binned.bin_triangles(
+        raster_binned.tri_rows(clip, indices, width, height, vis=vis), width, height)
+    bins = call()
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (bins.table, bins.row_tile, *bins.row_box, bins.starts, bins.counts))
+    alone = sorted(device_ms(call, 1) for _ in range(TIMING_ROUNDS))
+    return {"ms": alone[len(alone) // 2], "events_ms": cuda_ms(call, TIMING_REPS),
+            "bytes": nbytes, "table_bytes": bins.table.numel() * 4,
+            "slots": bins.table.shape[0], "live": int(bins.counts.sum()) + int(bins.g_count)}
+
+
+def binning_line(stats: dict) -> str:
+    return (f"binning (tri_rows + bin_triangles) {stats['ms']:.4f} ms on the device alone "
+            f"(events {stats['events_ms']:.4f}), tables {stats['bytes'] / 1e6:.1f} MB a call "
+            f"(the table {stats['table_bytes'] / 1e6:.1f} MB), {stats['slots']} slots of which "
+            f"{stats['live']} live")
 
 
 def k4_phase(app, raster, raster_binned, shadow) -> dict:
     """K4 against its plain version on the default scene's cascades: bit for
     bit, its plan, its time on the device alone (its wrapper's clear and
     plan included) and by events around back-to-back calls (the host's
-    enqueueing included), the plain version's by events."""
+    enqueueing included), the plain version's by events; the binning's
+    device ms and table bytes beside it (`binning_stats`)."""
     cfg, scene = app.cfg, app.scene
     size = cfg.shadow_map_size
     matrices, _ = shadow.cascade_matrices(
@@ -1159,8 +1204,10 @@ def k4_phase(app, raster, raster_binned, shadow) -> dict:
         if not k4_ms[-1] < plain_ms[-1]:
             raise AssertionError(f"K4 cascade {i}: {k4_ms[-1]:.4f} ms, not faster than its plain "
                                  f"version ({plain_ms[-1]:.3f} ms)")
-        log(f"kernel K4 cascade={i} {size}x{size} rows={bins.table.shape[0]} "
-            f"global={bins.g_count} longest_segment={int(bins.counts.max())} "
+        log(f"cascade {i}: " + binning_line(
+            binning_stats(raster_binned, clip, scene.indices, size, size, vis=False)))
+        log(f"kernel K4 cascade={i} {size}x{size} slots={bins.table.shape[0]} "
+            f"global={int(bins.g_count)} longest_segment={int(bins.counts.max())} "
             f"items={plan['items']} longest_item={plan['longest_item']} rows "
             f"box_pairs={bounds[-1]['pairs']} global_culled_by_box={plan['global_culled']:.4f} "
             f"covered={float((got < 1).float().mean()):.4f} bit_equal=True "
@@ -1177,7 +1224,8 @@ def k4_phase(app, raster, raster_binned, shadow) -> dict:
 
 def mc_bins(app, raster, raster_binned, marching_cubes):
     """The marching-cubes draw's front at WIDTH x HEIGHT: the surface of
-    the app's view, its visibility bins, and its slot count."""
+    the app's view, its visibility bins, its slot count, and the (clip,
+    indices) it was binned from."""
     dev = app.device
     view = app.view.to(dev)
     result = marching_cubes.marching_cubes(grid=app.cfg.mc_grid,
@@ -1188,7 +1236,7 @@ def mc_bins(app, raster, raster_binned, marching_cubes):
     idx = torch.arange(3 * t, dtype=torch.int32, device=dev).reshape(-1, 3)
     bins = raster_binned.bin_triangles(
         raster_binned.tri_rows(clip, idx, WIDTH, HEIGHT, vis=True), WIDTH, HEIGHT)
-    return result, bins, t
+    return result, bins, t, (clip, idx)
 
 
 def k5_times(raster_binned, bins) -> tuple[float, float]:
@@ -1209,7 +1257,9 @@ def k5_phase(app, raster, raster_binned, marching_cubes, gbuffer_depth) -> dict:
     tile lists and the 16 B per pixel of the buffer); the key plane's 8 B
     per pixel, written and read, are its design's own traffic, shown
     beside it."""
-    result, bins, t = mc_bins(app, raster, raster_binned, marching_cubes)
+    result, bins, t, (clip, idx) = mc_bins(app, raster, raster_binned, marching_cubes)
+    log("marching-cubes front: " + binning_line(
+        binning_stats(raster_binned, clip, idx, WIDTH, HEIGHT, vis=True)))
     got = raster_binned.vis_binned_cuda(bins, WIDTH, HEIGHT)
     want = raster_binned.vis_binned_plain(bins, WIDTH, HEIGHT)
     torch.cuda.synchronize()
@@ -1232,8 +1282,9 @@ def k5_phase(app, raster, raster_binned, marching_cubes, gbuffer_depth) -> dict:
     bound = raster_bound(raster_binned, bins, WIDTH, HEIGHT, K5_PAIR_OPS, 16)
     key_ms = WIDTH * HEIGHT * 8 * 2 / HBM_BYTES_S * 1e3
     plan = k4_plan_stats(raster_binned, bins)
-    log(f"kernel K5 marching-cubes front {WIDTH}x{HEIGHT} slots={t} rows={bins.table.shape[0]} "
-        f"valid={int(result.valid.sum())} global={bins.g_count} "
+    log(f"kernel K5 marching-cubes front {WIDTH}x{HEIGHT} slots={t} "
+        f"table_slots={bins.table.shape[0]} valid={int(result.valid.sum())} "
+        f"global={int(bins.g_count)} "
         f"longest_segment={int(bins.counts.max())} items={plan['items']} "
         f"longest_item={plan['longest_item']} rows box_pairs={bound['pairs']} "
         f"global_culled_by_box={plan['global_culled']:.4f} "
@@ -1260,7 +1311,7 @@ def k5_alone() -> int:
     app = Application(WIDTH, HEIGHT, RenderGraphMode.RASTERIZED, device="cuda")
     app.view = app.view.with_camera(app.camera, WIDTH, HEIGHT).replace(
         time=np.float32(PARITY_TIME), marching_cubes_enabled=np.int32(1))
-    _, bins, t = mc_bins(app, raster, raster_binned, marching_cubes)
+    _, bins, t, _ = mc_bins(app, raster, raster_binned, marching_cubes)
     for r in range(TIMING_ROUNDS):
         k5_ms, events_ms = k5_times(raster_binned, bins)
         log(f"K5 alone round {r}: marching-cubes front {WIDTH}x{HEIGHT}, {t} slots, "
@@ -1825,7 +1876,8 @@ def share(x: float | None) -> str:
 
 def loop_phase(label, Application, mode, cfg, builder, launches, counted, want: dict,
                view=None, group=None, busy_windows: bool = True) -> None:
-    """PT at 1920x1080 through `run_on_device`, held to the host loop from one
+    """An app at 1920x1080 (PT; a row-sharded RASTERIZED one in the tiles
+    phase) through `run_on_device`, held to the host loop from one
     starting state: LOOP_FRAMES host frames against run_on_device(LOOP_FRAMES)
     (frame 1 eagerly, the capture, replays), then LOOP_FRAMES more of each
     (pure replay); the body must be captured once, the state equal. Launch
@@ -1882,21 +1934,58 @@ def loop_phase(label, Application, mode, cfg, builder, launches, counted, want: 
         f"frame's: replays move no counter)")
 
 
-def raster_loop(label: str, app, launches, counted) -> None:
-    """RASTERIZED / MINIMAL through run_on_device: the shadow pass bins on the
-    host, so the loop runs eagerly and says why; its last frame equals a
-    host frame (no state is carried; the clock pinned)."""
+def raster_loop(label: str, app, launches, counted, want: dict) -> None:
+    """RASTERIZED / MINIMAL through run_on_device on the main path's app (the
+    frames carry no state; the clock pinned), against a host frame:
+    run_on_device(LOOP_FRAMES) (frame 1 eagerly, the capture, replays), then
+    a call of pure replay under torch.cuda.set_sync_debug_mode("error"), so
+    that any host sync of a steady call raises. Each: form "captured", one
+    capture, the counters moved by two frames' worth (`want` a frame) on
+    the first call and by none on the replay, the last frame within
+    LOOP_ATOL of the host frame. Then ms per frame of the host loop and of
+    the replay, RASTER_TURNS turns of LOOP_FRAMES frames each, and the
+    device's busy share of one profiled window of each."""
     app.fps_timer.elapsed_seconds = lambda: PARITY_TIME
-    launches.reset()
-    want = app.render_frame()["present_output"]
-    img, ms = timed(lambda: app.run_on_device(2, tstep=0.0))
-    counted.update(launches.read())
-    diff = float((img - want).abs().max())
-    form = app.graph.last_loop_form
-    log(f"{label} run_on_device(2): form {form!r}; last frame vs a host frame max |diff| "
-        f"{diff:.3e}; {ms / 2:.1f} ms per frame")
-    if not form.startswith("eager: pass 'shadow'") or diff > LOOP_ATOL:
-        raise AssertionError(f"{label}: the eager device loop is wrong")
+    host_img = app.render_frame()["present_output"]
+    for call, moved in (("first call", 2), ("replay", 0)):
+        launches.reset()
+        mode = torch.cuda.get_sync_debug_mode()
+        if call == "replay":
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            img = app.run_on_device(LOOP_FRAMES, tstep=0.0)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        got = launches.read()
+        counted.update(got)
+        form, captures = app.graph.last_loop_form, app.graph.captures
+        diff = float((img - host_img).abs().max())
+        log(f"{label} run_on_device({LOOP_FRAMES}) {call}"
+            f"{' under set_sync_debug_mode(error)' if call == 'replay' else ''}: form "
+            f"{form!r}, {captures} capture(s), launches moved "
+            f"{ {k: v for k, v in got.items() if v} }; last frame vs a host frame: "
+            f"{'bit-equal' if torch.equal(img, host_img) else 'not bit-equal'}, "
+            f"max |diff| {diff:.3e}")
+        if (form != "captured" or captures != 1 or diff > LOOP_ATOL
+                or got != {k: v * moved for k, v in want.items()}):
+            raise AssertionError(f"{label}: the device loop's {call} is wrong")
+    ms = {"host": [], "replay": []}
+    for _ in range(RASTER_TURNS):
+        ms["host"].append(host_frames(app, LOOP_FRAMES)[1])
+        ms["replay"].append(timed(lambda: app.run_on_device(LOOP_FRAMES, tstep=0.0))[1]
+                            / LOOP_FRAMES)
+    busy = {"host": busy_share(lambda: host_frames(app, PROFILED_FRAMES)),
+            "loop": busy_share(lambda: app.run_on_device(PROFILED_FRAMES, tstep=0.0))}
+    if app.graph.captures != 1:
+        raise AssertionError(f"{label}: the timed calls captured anew")
+    med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+    log(f"{label} device loop: ms per frame (CUDA events around {LOOP_FRAMES} frames) in "
+        f"{RASTER_TURNS} turns: host loop {[round(x, 2) for x in ms['host']]}, replay "
+        f"{[round(x, 2) for x in ms['replay']]}; medians {med['host']:.2f} / "
+        f"{med['replay']:.2f}, replay / host {med['replay'] / med['host']:.3f}; device busy "
+        f"share (one torch.profiler window of {PROFILED_FRAMES} frames, host clock): host "
+        f"loop {share(busy['host'])}, captured loop {share(busy['loop'])}; launches a frame "
+        f"{ {k: v for k, v in want.items() if v} }")
 
 
 def scene_phase(Application, StaticConfig, RenderGraphMode, models, launches, counted) -> None:
@@ -1905,8 +1994,8 @@ def scene_phase(Application, StaticConfig, RenderGraphMode, models, launches, co
     512x512 (config 2) and the 128-light scene PT at 1920x1080 (config 4).
     Each: LOOP_FRAMES host frames (median ms of frames 2-N, launches a
     frame, pt_rays) and two run_on_device(LOOP_FRAMES) calls, the second
-    timed (a captured PT loop replays and moves no counter; the raster loop
-    runs eagerly); the 128-light scene's per-pass ms of one more frame."""
+    timed (captured, the PT and raster loops alike: a replay moves no
+    counter); the 128-light scene's per-pass ms of one more frame."""
     raster_cfg = {k: v for k, v in SPONZA_CFG.items() if k not in ("num_bounces",
                                                                    "samples_per_frame")}
     pt = RenderGraphMode.PATH_TRACED
@@ -1940,9 +2029,7 @@ def scene_phase(Application, StaticConfig, RenderGraphMode, models, launches, co
         _, loop_ms = timed(lambda: loop.run_on_device(LOOP_FRAMES, tstep=0.0))
         moved = launches.read()
         counted.update(moved)
-        captured = loop.graph.last_loop_form == "captured"
-        if moved != {k: (0 if captured else v * LOOP_FRAMES) for k, v in want.items()} \
-                or captured != (mode == pt):
+        if moved != dict.fromkeys(want, 0) or loop.graph.last_loop_form != "captured":
             raise AssertionError(f"{label}: run_on_device {loop.graph.last_loop_form!r} "
                                  f"moved the counters by {moved}")
         steady = sorted(frame_ms[1:])[len(frame_ms[1:]) // 2]
@@ -2365,6 +2452,8 @@ FLAGSHIP_WANT = Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0, seed=BOUNCES)
 TILES_GRAPHS = {"PATH_TRACED": (FLAGSHIP_WANT, TILES_ATOL),
                 "RASTERIZED": (Launches.frame_want(2, 1, 4, 1, seed=1), TILES_RASTER_ATOL),
                 "MINIMAL": (Launches.frame_want(1, 0, 4, 0), TILES_RASTER_ATOL)}
+# The row-sharded apps whose device loop the tiles phase runs.
+TILES_LOOPS = ("PATH_TRACED", "RASTERIZED")
 
 
 def flagship_inputs(app, bvh_ops):
@@ -2483,17 +2572,21 @@ def tiles_rank(rank: int, n: int, view_fields: list, graphs: bool) -> dict:
             if index == 0:
                 out[mode] = whole.cpu()
             del app, imgs
-        # The row-sharded PT app through run_on_device: eager over gloo.
-        host, loop = (tiles_app(Application, StaticConfig, "PATH_TRACED", group)
-                      for _ in range(2))
-        host_img = [host.render_frame() for _ in range(TILES_FRAMES)][-1]["present_output"]
-        launches.reset()
-        loop_img, t = timed(lambda: loop.run_on_device(TILES_FRAMES, tstep=0.0))
-        pairs = [(a, loop.graph.state.get(n)) for n, a in host.graph.state.items()]
-        out.update(loop_launches=launches.read(), loop_form=loop.graph.last_loop_form,
-                   loop_ms=t / TILES_FRAMES, loop_exact=(
-                       set(host.graph.state) == set(loop.graph.state)
-                       and all(torch.equal(a, b) for a, b in pairs + [(host_img, loop_img)])))
+        # The row-sharded PT and RASTERIZED apps through run_on_device: eager
+        # over gloo.
+        for mode in TILES_LOOPS:
+            host, loop = (tiles_app(Application, StaticConfig, mode, group) for _ in range(2))
+            host_img = [host.render_frame()
+                        for _ in range(TILES_FRAMES)][-1]["present_output"]
+            launches.reset()
+            loop_img, t = timed(lambda: loop.run_on_device(TILES_FRAMES, tstep=0.0))
+            pairs = [(a, loop.graph.state.get(n)) for n, a in host.graph.state.items()]
+            out[f"{mode}_loop"] = {
+                "launches": launches.read(), "form": loop.graph.last_loop_form,
+                "ms": t / TILES_FRAMES, "exact": (
+                    set(host.graph.state) == set(loop.graph.state)
+                    and all(torch.equal(a, b) for a, b in pairs + [(host_img, loop_img)]))}
+            del host, loop
     return out
 
 
@@ -2516,13 +2609,14 @@ def tiles_phase(Application, StaticConfig, launches, card: str) -> collections.C
        Applications whose graph is row-sharded (Graph.shard_image_rows):
        the gathered present_output of the last frame against the one-rank
        frame (bit-equal),
-       per-rank frame ms and launches; then the row-sharded PT app's
-       run_on_device(TILES_FRAMES) against its twin's host frames: eager
-       (gloo collectives cannot be captured), bit-equal, its launches.
-    4. On the one-rank NCCL group, the row-sharded PT app's device loop
-       (`loop_phase` with the group): captured once, the collectives in
-       the CUDA graph, bit-equal to the host loop, replay ms against the
-       host loop's.
+       per-rank frame ms and launches; then the row-sharded PT and
+       RASTERIZED (marching cubes on) apps' run_on_device(TILES_FRAMES)
+       against their twins' host frames: eager (gloo collectives cannot be
+       captured), bit-equal, their launches.
+    4. On the one-rank NCCL group, the row-sharded PT and RASTERIZED
+       (marching cubes on) apps' device loops (`loop_phase` with the
+       group): captured once, the collectives in the CUDA graph, bit-equal
+       to the host loop, replay ms against the host loop's.
     Returns every launch of the phase (the ranks' included)."""
     import tempfile
 
@@ -2562,6 +2656,11 @@ def tiles_phase(Application, StaticConfig, launches, card: str) -> collections.C
             loop_phase("tiles: row-sharded PT device loop, one-rank NCCL group", Application,
                        RenderGraphMode.PATH_TRACED, StaticConfig(num_bounces=BOUNCES), create_scene,
                        launches, counted, FLAGSHIP_WANT, group=group, busy_windows=False)
+            loop_phase("tiles: row-sharded RASTERIZED (marching cubes on) device loop, "
+                       "one-rank NCCL group", Application, RenderGraphMode.RASTERIZED, None,
+                       create_scene, launches, counted, TILES_GRAPHS["RASTERIZED"][0],
+                       view=dict(marching_cubes_enabled=np.int32(1)), group=group,
+                       busy_windows=False)
         finally:
             dist.destroy_process_group()
     for k, ((img, acc, sp), (n_img, n_acc, n_sp), (a_img, a_y)) in enumerate(
@@ -2635,18 +2734,21 @@ def tiles_phase(Application, StaticConfig, launches, card: str) -> collections.C
             if diff > atol:
                 raise AssertionError(f"tiles: {mode} row-sharded frame differs from one rank")
         for rank in ranks:
-            if "loop_form" not in rank:
-                continue
-            want_ = {k: v * TILES_FRAMES for k, v in FLAGSHIP_WANT.items()}
-            log(f"tiles: {n} gloo ranks, rank {rank['index']}: row-sharded PT "
-                f"run_on_device({TILES_FRAMES}) form {rank['loop_form']!r}, "
-                f"{'bit-equal' if rank['loop_exact'] else 'NOT bit-equal'} to the host loop, "
-                f"{rank['loop_ms']:.1f} ms a frame, launches "
-                f"{ {k: v for k, v in rank['loop_launches'].items() if v} }")
-            if (not rank["loop_form"].startswith("eager: gloo collectives cannot be captured")
-                    or not rank["loop_exact"] or rank["loop_launches"] != want_):
-                raise AssertionError(f"tiles: the gloo rank's sharded device loop is wrong")
-            counted.update(rank["loop_launches"])
+            for mode in TILES_LOOPS:
+                got = rank.get(f"{mode}_loop")
+                if got is None:
+                    continue
+                want_ = {k: v * TILES_FRAMES for k, v in TILES_GRAPHS[mode][0].items()}
+                log(f"tiles: {n} gloo ranks, rank {rank['index']}: row-sharded {mode} "
+                    f"run_on_device({TILES_FRAMES}) form {got['form']!r}, "
+                    f"{'bit-equal' if got['exact'] else 'NOT bit-equal'} to the host loop, "
+                    f"{got['ms']:.1f} ms a frame, launches "
+                    f"{ {k: v for k, v in got['launches'].items() if v} }")
+                if (not got["form"].startswith("eager: gloo collectives cannot be captured")
+                        or not got["exact"] or got["launches"] != want_):
+                    raise AssertionError(f"tiles: the gloo rank's sharded {mode} device loop "
+                                         "is wrong")
+                counted.update(got["launches"])
     log(f"tiles phase launches { {k: v for k, v in counted.items() if v} } ({card})")
     return counted
 
@@ -2690,6 +2792,44 @@ def app_alone() -> int:
     return 0
 
 
+RASTER_ALONE_ROUNDS = 5
+
+
+def raster_alone() -> int:
+    """`--raster`: the kernels built, then the RASTERIZED (marching cubes on)
+    and MINIMAL apps of the main path at 1920x1080: FRAMES host frames
+    (launches checked, `run_frames`) and RASTER_ALONE_ROUNDS frames with
+    events around every pass (`pass_times`), with the median of each pass;
+    no device loop, no kernels line and no result line. It reads only what
+    the port has had since its uniforms slice, so a copy of this script
+    beside another checkout's package (its directory comes first on
+    sys.path) measures that checkout's frames: parent against change in one
+    call."""
+    from rust_renderer_tpu_torch import native
+    from rust_renderer_tpu_torch.app.main import Application
+    from rust_renderer_tpu_torch.ops import bvh as bvh_ops, raster_binned, traversal
+    from rust_renderer_tpu_torch.settings import RenderGraphMode
+
+    card = build_kernels(native, traversal, raster_binned)
+    launches = Launches(traversal, raster_binned, bvh_ops)
+    for label, mode, want in (
+            ("RASTERIZED", RenderGraphMode.RASTERIZED, Launches.frame_want(2, 1, 4, 1, seed=1)),
+            ("MINIMAL", RenderGraphMode.MINIMAL, Launches.frame_want(1, 0, 4, 0))):
+        app = Application(WIDTH, HEIGHT, mode, device="cuda")
+        app.view = app.view.replace(marching_cubes_enabled=np.int32(label == "RASTERIZED"))
+        app.create_scene()
+        run_frames(label, app, launches, want)
+        times = {}
+        for _ in range(RASTER_ALONE_ROUNDS):
+            pass_times(label, app, times)
+        log(f"{label} per-pass ms, medians of {RASTER_ALONE_ROUNDS} frames: " + ", ".join(
+            f"{name} {sorted(v)[len(v) // 2]:.2f}" for name, v in times.items()))
+        del app
+    log(f"chip_smoke --raster total {time.perf_counter() - START:.1f} s")
+    print(card)
+    return 0
+
+
 def tiles_alone() -> int:
     """`--tiles`: the kernels built, then the tiles phase alone (no kernels
     line and no result line)."""
@@ -2715,6 +2855,8 @@ def main() -> int:
         return app_alone()
     if sys.argv[1:] == ["--tiles"]:
         return tiles_alone()
+    if sys.argv[1:] == ["--raster"]:
+        return raster_alone()
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -2820,7 +2962,7 @@ def main() -> int:
     k4 = k4_phase(app, raster, raster_binned, shadow)
     k5 = k5_phase(app, raster, raster_binned, marching_cubes, gbuffer_depth)
     log(f"RASTERIZED peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    raster_loop("RASTERIZED", app, launches, counted)
+    raster_loop("RASTERIZED", app, launches, counted, Launches.frame_want(2, 1, 4, 1, seed=1))
     del app, gbuffer_depth
 
     # MINIMAL.
@@ -2828,7 +2970,7 @@ def main() -> int:
     app.create_scene()
     counted.update(run_frames("MINIMAL", app, launches, Launches.frame_want(1, 0, 4, 0))[0])
     pass_times("MINIMAL", app)
-    raster_loop("MINIMAL", app, launches, counted)
+    raster_loop("MINIMAL", app, launches, counted, Launches.frame_want(1, 0, 4, 0))
     del app
     uniforms_phase(Application, launches, counted)
     raster_parity_phase(Application, StaticConfig, RenderGraphMode)

@@ -9,7 +9,10 @@
 //     [A0,B0,C0, A1,B1,C1, A2,B2,C2, z0,z1,z2, inv_abs_area, ...]; K5 rows go
 //     on with [iw0,iw1,iw2, b0u,b0v,b1u,b1v,b2u,b2v, orig_id, 0].
 //   rows [g_base, g_base + g_count) are the global list, every tile's
-//   segment is rows [starts[t], starts[t] + counts[t]).
+//   segment is rows [starts[t], starts[t] + counts[t]). g_base is static
+//   (the table's shape); g_count lives on the device (Bins.g_count), and the
+//   plan kernel copies it into `gmeta` = (g_count, g_items) beside the
+//   plan, where K4 and K5 read it, so a launch needs no host read.
 //   K4: depth = min(1, least z of the rows whose three edge functions are
 //       >= 0 at the pixel center), z = (e1*z0 + e2*z1 + e0*z2) * inv_abs_area.
 //   K5: (depth, tri, u, v) from a clear of (1, -1, 0, 0); a row is taken
@@ -144,16 +147,24 @@ __device__ __forceinline__ Box tile_box(const long long* __restrict__ x0,
           static_cast<int>(min(__ldg(y1 + row), static_cast<long long>(ty0 + RB_TILE_H - 1)))};
 }
 
-// The plan of K4 and K5, one block on the device: ends[t] the items of tiles
-// 0..t (each tile g_items global items and ceil(counts[t] / K4_ITEM_ROWS)
-// segment items), then the item counter ends[n_tiles] = 0.
+// The plan of K4 and K5, one block on the device: gmeta = (g_count, g_items
+// = ceil(g_count / K4_ITEM_ROWS)), ends[t] the items of tiles 0..t (each
+// tile g_items global items and ceil(counts[t] / K4_ITEM_ROWS) segment
+// items), then the item counter ends[n_tiles] = 0.
 __global__ void __launch_bounds__(PLAN_THREADS)
-plan_kernel(const int* __restrict__ counts, int n_tiles, int g_items,
-            int* __restrict__ ends) {
+plan_kernel(const int* __restrict__ counts, const int* __restrict__ g_count, int n_tiles,
+            int* __restrict__ ends, int* __restrict__ gmeta) {
   __shared__ int warp_sums[PLAN_THREADS / 32];
-  __shared__ int carry;
+  __shared__ int carry, g_items;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  if (threadIdx.x == 0) carry = 0;
+  if (threadIdx.x == 0) {
+    const int g = __ldg(g_count);
+    carry = 0;
+    g_items = (g + K4_ITEM_ROWS - 1) / K4_ITEM_ROWS;
+    gmeta[0] = g;
+    gmeta[1] = g_items;
+  }
+  __syncthreads();
   for (int base = 0; base < n_tiles; base += PLAN_THREADS) {
     const int t = base + threadIdx.x;
     int v = t < n_tiles ? (__ldg(counts + t) + K4_ITEM_ROWS - 1) / K4_ITEM_ROWS + g_items : 0;
@@ -177,12 +188,13 @@ __global__ void __launch_bounds__(K4_THREADS)
 k4_depth_kernel(const float* __restrict__ table, const long long* __restrict__ x0,
                 const long long* __restrict__ x1, const long long* __restrict__ y0,
                 const long long* __restrict__ y1, const int* __restrict__ starts, const int* __restrict__ counts,
-                int* __restrict__ plan, int n_tiles, int nx, int g_base,
-                int g_count, int g_items, int width, float* __restrict__ out) {
+                int* __restrict__ plan, const int* __restrict__ gmeta, int n_tiles, int nx,
+                int g_base, int width, float* __restrict__ out) {
   __shared__ float depth[RB_TILE_PIX];
   __shared__ int big[K4_ITEM_ROWS];  // rows of the item for the warp path
   __shared__ int n_big, item;
   const int total = __ldg(plan + n_tiles - 1);
+  const int g_count = __ldg(gmeta), g_items = __ldg(gmeta + 1);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (;;) {
     if (threadIdx.x == 0) item = atomicAdd(plan + n_tiles, 1);
@@ -301,13 +313,13 @@ k5_key_kernel(const float* __restrict__ table, const long long* __restrict__ x0,
               const long long* __restrict__ x1, const long long* __restrict__ y0,
               const long long* __restrict__ y1,
               const int* __restrict__ starts, const int* __restrict__ counts,
-              int* __restrict__ plan, int n_tiles, int nx, int g_base,
-              int g_count, int g_items, int width,
-              unsigned long long* __restrict__ out) {
+              int* __restrict__ plan, const int* __restrict__ gmeta, int n_tiles, int nx,
+              int g_base, int width, unsigned long long* __restrict__ out) {
   extern __shared__ unsigned long long keys[];  // RB_TILE_PIX
   __shared__ int big[K4_ITEM_ROWS];
   __shared__ int n_big, item;
   const int total = __ldg(plan + n_tiles - 1);
+  const int g_count = __ldg(gmeta), g_items = __ldg(gmeta + 1);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (;;) {
     if (threadIdx.x == 0) item = atomicAdd(plan + n_tiles, 1);
@@ -382,12 +394,13 @@ k5_key_kernel(const float* __restrict__ table, const long long* __restrict__ x0,
 __global__ void __launch_bounds__(K5_DECODE_THREADS)
 k5_decode_kernel(const float* __restrict__ table,
                  const unsigned long long* __restrict__ keys,
-                 const int* __restrict__ starts, int g_base, int g_count, int nx,
-                 int width, int n_pix, float* __restrict__ depth,
+                 const int* __restrict__ starts, const int* __restrict__ gmeta, int g_base,
+                 int nx, int width, int n_pix, float* __restrict__ depth,
                  int* __restrict__ tri, float* __restrict__ u_out,
                  float* __restrict__ v_out) {
   const int i = blockIdx.x * K5_DECODE_THREADS + threadIdx.x;
   if (i >= n_pix) return;
+  const int g_count = __ldg(gmeta);
   const unsigned long long key = keys[i];
   if (key == K5_KEY_NONE) {
     depth[i] = 1.0f;
@@ -425,12 +438,13 @@ k5_decode_kernel(const float* __restrict__ table,
 #if defined(__CUDACC__)
 // The wrappers (ops/raster_binned.py) check shapes, types and limits; these
 // return cudaGetLastError() after the launches. x0, x1, y0, y1 are
-// Bins.row_box, `plan` holds n_tiles + 1 ints (raster_plan's). The kernels'
-// grids: as many blocks as stay resident on the card's SMs at once.
-extern "C" int raster_plan(const int* counts, int n_tiles, int g_items, int* plan,
-                           void* stream) {
-  plan_kernel<<<1, PLAN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(counts, n_tiles,
-                                                                         g_items, plan);
+// Bins.row_box, `plan` holds n_tiles + 1 ints and `gmeta` 2 (raster_plan's,
+// from Bins.counts and the device int Bins.g_count). The kernels' grids: as
+// many blocks as stay resident on the card's SMs at once.
+extern "C" int raster_plan(const int* counts, const int* g_count, int n_tiles, int* plan,
+                           int* gmeta, void* stream) {
+  plan_kernel<<<1, PLAN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(counts, g_count,
+                                                                         n_tiles, plan, gmeta);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -438,9 +452,9 @@ extern "C" int raster_plan(const int* counts, int n_tiles, int g_items, int* pla
 extern "C" int k4_depth_binned(const float* table, const long long* x0,
                                const long long* x1, const long long* y0,
                                const long long* y1, const int* starts,
-                               const int* counts, int* plan, int n_tiles, int nx,
-                               int g_base, int g_count, int g_items, int width,
-                               float* out, void* stream) {
+                               const int* counts, int* plan, const int* gmeta,
+                               int n_tiles, int nx, int g_base, int width, float* out,
+                               void* stream) {
   static int grid = 0;
   if (grid == 0) {
     int dev = 0, sms = 0, per_sm = 0;
@@ -456,8 +470,7 @@ extern "C" int k4_depth_binned(const float* table, const long long* x0,
     grid = sms * (per_sm > 0 ? per_sm : 1);
   }
   k4_depth_kernel<<<grid, K4_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      table, x0, x1, y0, y1, starts, counts, plan, n_tiles, nx, g_base, g_count, g_items,
-      width, out);
+      table, x0, x1, y0, y1, starts, counts, plan, gmeta, n_tiles, nx, g_base, width, out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -466,8 +479,8 @@ extern "C" int k4_depth_binned(const float* table, const long long* x0,
 extern "C" int k5_vis_binned(const float* table, const long long* x0,
                              const long long* x1, const long long* y0,
                              const long long* y1, const int* starts,
-                             const int* counts, int* plan, int n_tiles, int nx,
-                             int g_base, int g_count, int g_items, int width,
+                             const int* counts, int* plan, const int* gmeta,
+                             int n_tiles, int nx, int g_base, int width,
                              int height, unsigned long long* keys, float* depth,
                              int* tri, float* u, float* v, void* stream) {
   const int smem = RB_TILE_PIX * static_cast<int>(sizeof(unsigned long long));
@@ -492,10 +505,9 @@ extern "C" int k5_vis_binned(const float* table, const long long* x0,
   cudaError_t err = cudaMemsetAsync(keys, 0xFF, sizeof(unsigned long long) * n_pix, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   k5_key_kernel<<<grid, K5_THREADS, smem, s>>>(table, x0, x1, y0, y1, starts, counts, plan,
-                                              n_tiles, nx, g_base, g_count, g_items, width,
-                                              keys);
+                                              gmeta, n_tiles, nx, g_base, width, keys);
   k5_decode_kernel<<<(n_pix + K5_DECODE_THREADS - 1) / K5_DECODE_THREADS,
-                     K5_DECODE_THREADS, 0, s>>>(table, keys, starts, g_base, g_count, nx,
+                     K5_DECODE_THREADS, 0, s>>>(table, keys, starts, gmeta, g_base, nx,
                                                 width, n_pix, depth, tri, u, v);
   return static_cast<int>(cudaGetLastError());
 }

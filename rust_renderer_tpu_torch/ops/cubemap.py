@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from rust_renderer_tpu_torch.ops.constants import device_constant
+
 # Per-face basis: direction = normalize(forward + u*right + v*up), u, v in
 # [-1, 1], v increasing down the image.
 _FACE_FORWARD = ((1.0, 0.0, 0.0), (-1.0, 0.0, 0.0), (0.0, 1.0, 0.0),
@@ -97,7 +99,7 @@ def sample_cubemap_lod(chain: list[torch.Tensor], d: torch.Tensor, lod) -> torch
     frac = (lod - lo.to(torch.float32))[..., None]
     face, u, v = direction_to_face_uv(d)
     texels = torch.cat([c.reshape(-1, c.shape[-1]) for c in chain])
-    sizes = torch.tensor([c.shape[1] for c in chain], dtype=torch.int64, device=dev)
+    sizes = device_constant(tuple(c.shape[1] for c in chain), dev, torch.int64)
     offsets = torch.cumsum(6 * sizes * sizes, 0) - 6 * sizes * sizes
     out_lo = _bilinear(texels, offsets[lo], sizes[lo], face, u, v)
     out_hi = _bilinear(texels, offsets[hi], sizes[hi], face, u, v)

@@ -61,7 +61,9 @@ def default_density(pos: torch.Tensor, time: torch.Tensor) -> torch.Tensor:
     vec = lambda *v: device_constant(v, pos.device)
     d = torch.full(pos.shape[:-1], -1.0, dtype=torch.float32, device=pos.device)
     p = pos - vec(10.0, 20.0, 10.0)
-    q = torch.stack([_norm(p[..., [0, 2]]) - 5.0, p[..., 1]], dim=-1)
+    # (x, z) by a strided slice, copied contiguous as the list index did
+    # (a list index is copied to the device as a tensor first)
+    q = torch.stack([_norm(p[..., 0::2].contiguous()) - 5.0, p[..., 1]], dim=-1)
     d = torch.maximum(-(_norm(q) - 3.0), d)
     p = (pos - vec(10.0, 10.0, 10.0)).abs() - vec(5.0, 5.0, 5.0)
     box = _norm(torch.clamp_min(p, 0.0)) + torch.clamp_max(

@@ -8,12 +8,17 @@ and the plain PyTorch version of each (the port of
    mode NONE), and the vertex depths. Invalid triangles become dead rows
    (zero gradients, C = -1: never inside).
 2. `bin_triangles`: bin triangles to 32x256-pixel tiles by screen bounding
-   box. A triangle spanning at most SPAN_X x SPAN_Y tiles emits one
-   (tile, triangle) pair per tile it touches; a wider one goes to a global
-   list that every tile walks. Pairs are sorted by tile with a stable sort,
-   so each tile's segment lists its triangles by (span slot, triangle id).
-   The table a kernel reads is [segments | globals], rows contiguous:
-   (R, 16) f32 for depth, (R, 24) f32 for the visibility buffer.
+   box, in static shapes and with no read back to the host. Every clipped
+   triangle emits SPAN_X x SPAN_Y candidate (tile, triangle) pairs; a pair
+   the triangle does not touch, and every pair of a triangle spanning more
+   tiles (which goes to a global list that every tile walks), gets the
+   sentinel tile `nx * ny`, which sorts last. Pairs are sorted by tile with
+   a stable sort, so each tile's segment lists its triangles by (span slot,
+   triangle id). The table a kernel reads is [SPAN_X * SPAN_Y * 2T segment
+   slots | 2T global slots], rows contiguous: (R, 16) f32 for depth,
+   (R, 24) f32 for the visibility buffer. The global list's length is a
+   device int32 (`Bins.g_count`), which the plan kernel turns into the
+   kernels' `gmeta`.
 3. A tile walks the global list in triangle-id order, then its own segment.
    K4 keeps the running minimum depth from a clear of 1.0; K5 keeps
    (depth, triangle, u, v) and takes a triangle where it is inside, z <=
@@ -48,6 +53,7 @@ from typing import NamedTuple
 import torch
 
 from rust_renderer_tpu_torch import native
+from rust_renderer_tpu_torch.ops.constants import device_constant
 from rust_renderer_tpu_torch.ops.raster import (
     INT64_MAX, VisibilityBuffer, clear_visibility, clip_to_screen,
     clip_triangles_near, float_order_key, merge_visibility, pixel_box, pixel_pairs)
@@ -82,16 +88,21 @@ class TriRows(NamedTuple):
 
 
 class Bins(NamedTuple):
-    """What K4 and K5 read, and where each row lies."""
+    """What K4 and K5 read, and where each row lies. The shapes depend only
+    on the triangle count and the image size: R = (SPAN_X * SPAN_Y + 1) *
+    2T rows, of which the walks read the segments [starts[t], starts[t] +
+    counts[t]) and the global rows [g_base, g_base + g_count). Every other
+    row (a sentinel pair, a global slot past g_count) is a dead row with an
+    empty box."""
 
-    table: torch.Tensor  # (R, stride) f32: [segments | globals]
+    table: torch.Tensor  # (R, stride) f32: [segment slots | global slots]
     starts: torch.Tensor  # (ny*nx,) i32 first segment row of each tile
     counts: torch.Tensor  # (ny*nx,) i32
-    g_base: int  # first global row
-    g_count: int
+    g_base: int  # first global slot, SPAN_X * SPAN_Y * 2T
+    g_count: torch.Tensor  # () i32 on the table's device: the global list's rows
     nx: int
     ny: int
-    row_tile: torch.Tensor  # (R,) i64 tile of a segment row, -1 for globals
+    row_tile: torch.Tensor  # (R,) i64 tile of a live segment row, -1 elsewhere
     row_box: tuple  # pixel bounding box of each row's triangle, (R,) i64 x4
 
 
@@ -159,43 +170,54 @@ def tri_rows(clip, indices, width: int, height: int, vis: bool = False) -> TriRo
 
 
 def dead_row(stride: int, device) -> torch.Tensor:
-    """A row that is never inside: zero gradients, C = -1."""
-    row = torch.zeros(stride, dtype=torch.float32, device=device)
+    """A row that is never inside: zero gradients, C = -1 (a visibility row
+    also names triangle -1). One constant per (stride, device), shared:
+    made on the device once, so a frame copies nothing from the host."""
+    row = [0.0] * stride
     row[2] = row[5] = row[8] = -1.0
     if stride == VIS_STRIDE:
         row[22] = -1.0
-    return row
+    return device_constant(tuple(row), torch.device(device))
 
 
 def bin_triangles(tr: TriRows, width: int, height: int) -> Bins:
     """(tile, triangle) pairs sorted by tile, per-tile segments and the
-    global list (raster_binned.py:159-227, without the TPU's row packing).
-    Nothing is dropped: segments and the global list have no capacity."""
+    global list (raster_binned.py:159-227, without the TPU's row packing),
+    in static shapes and with no read back to the host. Nothing is dropped:
+    the table has a slot for every pair and every global triangle."""
     dev = tr.rows.device
+    t2 = tr.rows.shape[0]
     nx, ny = -(-width // TILE_W), -(-height // TILE_H)
     n_tiles = nx * ny
+    g_base = SPAN_X * SPAN_Y * t2
     binned = tr.valid & ~tr.is_global
-    tiles, tris = [], []
+    tiles = []
     for s in range(SPAN_X * SPAN_Y):
         dy, dx = divmod(s, SPAN_X)
-        take = torch.nonzero(binned & (dy < tr.span_h) & (dx < tr.span_w)).squeeze(1)
-        tiles.append((tr.ty0[take] + dy) * nx + (tr.tx0[take] + dx))
-        tris.append(take)
+        take = binned & (dy < tr.span_h) & (dx < tr.span_w)
+        tiles.append(torch.where(take, (tr.ty0 + dy) * nx + (tr.tx0 + dx), n_tiles))
+    # Pair p is (span slot p // 2T, triangle p % 2T); the stable sort keeps
+    # that order within a tile, and the sentinel pairs last.
     tile_ids, order = torch.sort(torch.cat(tiles), stable=True)
-    tri_sorted = torch.cat(tris)[order]
     grid = torch.arange(n_tiles, dtype=torch.int64, device=dev)
     starts = torch.searchsorted(tile_ids, grid, right=False)
     counts = torch.searchsorted(tile_ids, grid, right=True) - starts
-    glob = torch.nonzero(tr.is_global).squeeze(1)  # triangle-id order
-    row_tri = torch.cat([tri_sorted, glob])
-    if row_tri.numel() >= 2 ** 31:
-        raise ValueError(f"{row_tri.numel()} binned rows exceed int32 row offsets")
+    ids = torch.arange(t2, device=dev)
+    # The global triangles compacted to the front, in triangle-id order.
+    g_order = torch.argsort(torch.where(tr.is_global, ids, 2 * t2 + 1), stable=True)
+    g_count = tr.is_global.sum(dtype=torch.int32)
+    seg_live = tile_ids < n_tiles
+    live = torch.cat([seg_live, ids < g_count])
+    # A slot no walk reads takes row 2T, a dead row with an empty box.
+    src = torch.where(live, torch.cat([order % t2, g_order]), t2)
+    dead = dead_row(tr.rows.shape[1], dev)
     return Bins(
-        table=tr.rows[row_tri].contiguous(),
+        table=torch.cat([tr.rows, dead[None]])[src],
         starts=starts.to(torch.int32), counts=counts.to(torch.int32),
-        g_base=int(tri_sorted.numel()), g_count=int(glob.numel()), nx=nx, ny=ny,
-        row_tile=torch.cat([tile_ids, torch.full_like(glob, -1)]),
-        row_box=tuple(b[row_tri] for b in tr.box),
+        g_base=g_base, g_count=g_count, nx=nx, ny=ny,
+        row_tile=torch.cat([torch.where(seg_live, tile_ids, -1), ids.new_full((t2,), -1)]),
+        row_box=tuple(torch.cat([b, b.new_full((1,), empty)])[src]
+                      for b, empty in zip(tr.box, (0, -1, 0, -1))),
     )
 
 
@@ -208,12 +230,12 @@ def library() -> ctypes.CDLL:
     as `traversal.library` is: every launch asks for its library, and
     building the nvcc command resolves nvcc on PATH."""
     lib = native.load_library("k45_raster_binned", [SOURCE], nvcc_command())
-    # pointers in (the plan: counts; K4 and K5: table, the four box columns,
-    # starts, counts, plan), then ints, then the outputs (the plan: itself;
-    # K5: the key plane first) and the stream
-    for fn, n_in, n_ints, n_out in ((lib.raster_plan, 1, 2, 1),
-                                    (lib.k4_depth_binned, 8, 6, 1),
-                                    (lib.k5_vis_binned, 8, 7, 5)):
+    # pointers in (the plan: counts, g_count; K4 and K5: table, the four box
+    # columns, starts, counts, plan, gmeta), then ints, then the outputs (the
+    # plan: itself and gmeta; K5: the key plane first) and the stream
+    for fn, n_in, n_ints, n_out in ((lib.raster_plan, 2, 1, 2),
+                                    (lib.k4_depth_binned, 9, 4, 1),
+                                    (lib.k5_vis_binned, 9, 5, 5)):
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * n_in + [ctypes.c_int] * n_ints
                        + [ctypes.c_void_p] * (n_out + 1))
@@ -222,7 +244,7 @@ def library() -> ctypes.CDLL:
 
 def _check_bins(bins: Bins, width: int, height: int, kernel: str) -> None:
     """Raises on bins a K4 / K5 launch does not take (nothing is truncated)."""
-    plan_items(bins)
+    _check_plan(bins)
     if bins.nx != -(-width // TILE_W) or bins.ny != -(-height // TILE_H):
         raise ValueError("bins were made for another image size")
     if width * height >= 2 ** 31 or bins.table.shape[0] >= 2 ** 31:
@@ -234,6 +256,7 @@ def _check_bins(bins: Bins, width: int, height: int, kernel: str) -> None:
     _check("table", bins.table, torch.float32, (bins.table.shape[0], bins.table.shape[1]), dev)
     _check("starts", bins.starts, torch.int32, (n_tiles,), dev)
     _check("counts", bins.counts, torch.int32, (n_tiles,), dev)
+    _check("g_count", bins.g_count, torch.int32, (), dev)
     for name, box in zip(("x0", "x1", "y0", "y1"), bins.row_box):
         _check(f"row_box {name}", box, torch.int64, (bins.table.shape[0],), dev)
 
@@ -243,7 +266,7 @@ class DepthPlan(NamedTuple):
     tile, the global list's first, then the tile's segment."""
 
     ends: torch.Tensor  # (ny*nx + 1,) i32: cumulative items per tile, then 0
-    g_items: int  # items of the global list per tile
+    gmeta: torch.Tensor  # (2,) i32: the global list's rows (g_count), its items per tile
 
 
 def row_boxes(bins: Bins):
@@ -260,61 +283,69 @@ def row_boxes(bins: Bins):
     return x0, x1, y0, y1
 
 
-def plan_items(bins: Bins) -> int:
-    """The global list's items per tile, ceil(g_count / K4_ITEM_ROWS);
-    raises where the plan's item numbering would overflow int32."""
-    g_items = -(-bins.g_count // K4_ITEM_ROWS)
+def _check_plan(bins: Bins) -> None:
+    """Raises where the plan's item numbering could overflow int32: with
+    every one of the table's 2T global slots live (the live count stays on
+    the device), a tile has ceil(2T / K4_ITEM_ROWS) global items."""
+    g_items = -(-(bins.table.shape[0] - bins.g_base) // K4_ITEM_ROWS)
     if bins.nx * bins.ny * (g_items + 1) + bins.table.shape[0] // K4_ITEM_ROWS >= 2 ** 31:
         raise ValueError("K4's and K5's work items exceed int32 offsets")
-    return g_items
 
 
 def depth_plan_plain(bins: Bins) -> DepthPlan:
-    """The plan in tensor ops: tile t has ceil(g_count / K4_ITEM_ROWS)
-    global items and ceil(counts[t] / K4_ITEM_ROWS) segment items, and
-    `ends[t]` is the number of items of tiles 0..t; `ends[-1]` is 0, the
-    counter the kernels take items from."""
-    g_items = plan_items(bins)
+    """The plan in tensor ops, with no read back to the host: tile t has
+    g_items = ceil(g_count / K4_ITEM_ROWS) global items and
+    ceil(counts[t] / K4_ITEM_ROWS) segment items, and `ends[t]` is the
+    number of items of tiles 0..t; `ends[-1]` is 0, the counter the kernels
+    take items from."""
+    _check_plan(bins)
     n_tiles = bins.nx * bins.ny
+    g_count = bins.g_count
+    g_items = torch.div(g_count + (K4_ITEM_ROWS - 1), K4_ITEM_ROWS, rounding_mode="floor")
     per_tile = torch.div(bins.counts + (K4_ITEM_ROWS - 1), K4_ITEM_ROWS,
                          rounding_mode="floor") + g_items
     ends = torch.zeros(n_tiles + 1, dtype=torch.int32, device=bins.counts.device)
     torch.cumsum(per_tile, 0, dtype=torch.int32, out=ends[:n_tiles])
-    return DepthPlan(ends, g_items)
+    return DepthPlan(ends, torch.stack([g_count, g_items]))
 
 
 def depth_plan(bins: Bins) -> DepthPlan:
     """The plan of K4 and K5 (`depth_plan_plain`'s function): on CUDA bins
-    the plan kernel makes it on the device, with no host sync; CPU bins
-    take the plain version."""
+    the plan kernel makes it on the device from `counts` and `g_count`,
+    with no host sync; CPU bins take the plain version."""
     dev = bins.counts.device
     if dev.type == "cpu":
         return depth_plan_plain(bins)
     if dev.type != "cuda":
         raise ValueError(f"no plan for device {dev}")
-    g_items = plan_items(bins)
+    _check_plan(bins)
     n_tiles = bins.nx * bins.ny
     _check("counts", bins.counts, torch.int32, (n_tiles,), dev)
+    _check("g_count", bins.g_count, torch.int32, (), dev)
     ends = torch.empty(n_tiles + 1, dtype=torch.int32, device=dev)
-    err = library().raster_plan(bins.counts.data_ptr(), n_tiles, g_items, ends.data_ptr(),
+    gmeta = torch.empty(2, dtype=torch.int32, device=dev)
+    err = library().raster_plan(bins.counts.data_ptr(), bins.g_count.data_ptr(), n_tiles,
+                                ends.data_ptr(), gmeta.data_ptr(),
                                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"the raster plan's launch failed: cudaError {err}")
-    return DepthPlan(ends, g_items)
+    return DepthPlan(ends, gmeta)
 
 
 def depth_plan_items(bins: Bins, plan: DepthPlan):
     """The items in K4's numbering, as the kernel decodes them: (tile, first
-    row, rows) per item, (n_items,) i64 each."""
+    row, rows) per item, (n_items,) i64 each. Reads the plan's sizes back
+    to the host (for tests and measurements)."""
+    g_count, g_items = plan.gmeta.tolist()
     ends = plan.ends[:-1].to(torch.int64)
     item = torch.arange(int(ends[-1]), device=ends.device)
     tile = torch.searchsorted(ends, item, right=True)  # the first t with ends[t] > item
     k = item - torch.cat([ends.new_zeros(1), ends[:-1]])[tile]
-    glob = k < plan.g_items
-    s = (k - plan.g_items) * K4_ITEM_ROWS
+    glob = k < g_items
+    s = (k - g_items) * K4_ITEM_ROWS
     first = torch.where(glob, bins.g_base + k * K4_ITEM_ROWS,
                         bins.starts.to(torch.int64)[tile] + s)
-    rows = torch.where(glob, (bins.g_count - k * K4_ITEM_ROWS).clamp_max(K4_ITEM_ROWS),
+    rows = torch.where(glob, (g_count - k * K4_ITEM_ROWS).clamp_max(K4_ITEM_ROWS),
                        (bins.counts.to(torch.int64)[tile] - s).clamp_max(K4_ITEM_ROWS))
     return tile, first, rows
 
@@ -332,8 +363,8 @@ def depth_binned_cuda(bins: Bins, width: int, height: int) -> torch.Tensor:
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = library().k4_depth_binned(
         bins.table.data_ptr(), *(b.data_ptr() for b in bins.row_box), bins.starts.data_ptr(),
-        bins.counts.data_ptr(), plan.ends.data_ptr(), bins.nx * bins.ny, bins.nx,
-        bins.g_base, bins.g_count, plan.g_items, width, out.data_ptr(), stream)
+        bins.counts.data_ptr(), plan.ends.data_ptr(), plan.gmeta.data_ptr(), bins.nx * bins.ny,
+        bins.nx, bins.g_base, width, out.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"K4 launch failed: cudaError {err}")
     K4_LAUNCHES += 1
@@ -358,8 +389,8 @@ def vis_binned_cuda(bins: Bins, width: int, height: int) -> VisibilityBuffer:
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = library().k5_vis_binned(
         bins.table.data_ptr(), *(b.data_ptr() for b in bins.row_box), bins.starts.data_ptr(),
-        bins.counts.data_ptr(), plan.ends.data_ptr(), bins.nx * bins.ny, bins.nx,
-        bins.g_base, bins.g_count, plan.g_items, width, height, keys.data_ptr(),
+        bins.counts.data_ptr(), plan.ends.data_ptr(), plan.gmeta.data_ptr(), bins.nx * bins.ny,
+        bins.nx, bins.g_base, width, height, keys.data_ptr(),
         *(x.data_ptr() for x in out), stream)
     if err != 0:
         raise RuntimeError(f"K5 launch failed: cudaError {err}")

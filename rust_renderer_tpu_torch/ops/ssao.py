@@ -71,7 +71,9 @@ def _view_frame(gbuffer_position, gbuffer_normal, view_matrix):
     pos_world = gbuffer_position[..., :3]
     is_sky = (pos_world == 1.0).all(-1)
     pos_view = apply_rows(pos_world, view_matrix[:3])
-    normal_matrix = torch.linalg.inv(view_matrix).T
+    # inv_ex: the inverse without its singularity check, which would read
+    # back to the host.
+    normal_matrix = torch.linalg.inv_ex(view_matrix).inverse.T
     normal_view = apply_rows(gbuffer_normal[..., :3], normal_matrix[:3, :3])
     normal_view = normal_view / torch.clamp_min(
         torch.linalg.vector_norm(normal_view, dim=-1, keepdim=True), 1e-9)

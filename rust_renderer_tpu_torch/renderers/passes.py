@@ -41,9 +41,6 @@ from rust_renderer_tpu_torch.ops.raster import VisibilityBuffer
 
 GBUFFER_PLANES = ("gbuffer_position", "gbuffer_normal", "gbuffer_albedo",
                   "gbuffer_pbr", "gbuffer_depth")
-# The host sync of the passes that rasterize on the card (PassBuilder.host_sync).
-BINS_SYNC = ("reads its triangle bins back to the host "
-             "(ops/raster_binned.py::bin_triangles)")
 
 
 def _camera_rays(view, width: int, height: int, band=None):
@@ -122,8 +119,7 @@ def setup_gbuffer_pass(graph: Graph, scene_bvh, width: int, height: int,
     """MRT gbuffer from all scene meshes (gbuffer.rs:32-51). Visibility from
     one closest-hit ray through each pixel centre (K1 on the card), or with
     use_raycast=False from the rasterizer (K5 on the card, the brute path on
-    CPU tensors; its binning reads back to the host, so the pass is marked
-    host_sync).
+    CPU tensors).
 
     dynamic_fn(res, view) -> ops.mc_bvh.DynamicScene adds per-frame geometry
     (the marching-cubes isosurface) to the primary rays: its tree is walked
@@ -156,10 +152,7 @@ def setup_gbuffer_pass(graph: Graph, scene_bvh, width: int, height: int,
         builder.write(name)
     for name in dynamic_reads:
         builder.read(name)
-    builder.render(render)
-    if not use_raycast:
-        builder.host_sync(BINS_SYNC)
-    builder.build()
+    builder.render(render).build()
 
 
 # -- shadow cascades (renderers/shadow.rs) -----------------------------------
@@ -185,11 +178,8 @@ def setup_shadow_pass(graph: Graph, camera, sun_dir, enabled: bool, size: int = 
             method=method) for i in range(cascade_count)]
         return {"shadow_map": torch.stack(layers)}
 
-    builder = (graph.add_pass("shadow").write("shadow_map")
-               .uniforms("cascade_vp", matrices).render(render))
-    if enabled:
-        builder.host_sync(BINS_SYNC)
-    builder.build()
+    (graph.add_pass("shadow").write("shadow_map")
+     .uniforms("cascade_vp", matrices).render(render).build())
     return matrices, split_depths
 
 
@@ -426,8 +416,7 @@ def setup_marching_cubes_pass(graph: Graph, cfg, width: int, height: int,
 
     (graph.add_pass("marching_cubes").read("gbuffer_depth").read(target)
      .write(target).write("gbuffer_depth").write("marching_cubes_draw_count")
-     .uniforms("color", np.asarray(color, np.float32)).render(render)
-     .host_sync(BINS_SYNC).build())
+     .uniforms("color", np.asarray(color, np.float32)).render(render).build())
 
 
 # -- present (renderers/present.rs) --------------------------------------------
@@ -454,10 +443,9 @@ def setup_present_pass(graph: Graph, width: int, height: int,
 def setup_forward_pass(graph: Graph, cfg, width: int, height: int, cascade_matrices,
                        cascade_splits, scene_bvh=None) -> None:
     """Forward PBR + CSM (forward.vert/.frag). Visibility from the
-    rasterizer by cfg.raster_method (K5 on the card; the pass is then
-    marked host_sync, as its binning reads back to the host), or from one
-    closest hit per pixel centre (K1 on the card) when `scene_bvh` is
-    given: the same image."""
+    rasterizer by cfg.raster_method (K5 on the card), or from one closest
+    hit per pixel centre (K1 on the card) when `scene_bvh` is given: the
+    same image."""
     graph.create_texture("forward_output", width, height, 4, clear=0.0)
     graph.create_texture("gbuffer_depth", width, height, 1, clear=1.0)
     closest = None if scene_bvh is None else bvh_ops.make_closest_hit(scene_bvh)
@@ -487,9 +475,6 @@ def setup_forward_pass(graph: Graph, cfg, width: int, height: int, cascade_matri
         return {"forward_output": torch.cat([color, torch.ones_like(color[..., :1])], -1),
                 "gbuffer_depth": gb.depth}
 
-    builder = (graph.add_pass("forward").read("shadow_map").write("forward_output")
-               .write("gbuffer_depth").uniforms("cascade_vp", cascade_matrices)
-               .uniforms("cascade_splits", cascade_splits).render(render))
-    if closest is None:
-        builder.host_sync(BINS_SYNC)
-    builder.build()
+    (graph.add_pass("forward").read("shadow_map").write("forward_output")
+     .write("gbuffer_depth").uniforms("cascade_vp", cascade_matrices)
+     .uniforms("cascade_splits", cascade_splits).render(render).build())

@@ -93,11 +93,17 @@ _TORCH_DTYPE = {
 
 
 def to_tensor(value, device) -> torch.Tensor:
-    """One host value (numpy array or scalar) as a tensor on `device`."""
+    """One host value (numpy array or scalar) as a tensor on `device`. A
+    copy from host memory to the card is queued without waiting for the
+    stream (`non_blocking`): from pageable memory CUDA has staged the
+    bytes when the call returns, so a frame's upload holds no host sync."""
+    device = torch.device(device)
     if isinstance(value, torch.Tensor):
-        return value.to(device)
+        return value.to(device, non_blocking=value.device.type == "cpu"
+                        and device.type == "cuda")
     arr = np.asarray(value)
-    return torch.as_tensor(arr, dtype=_TORCH_DTYPE[arr.dtype], device=device)
+    host = torch.as_tensor(arr, dtype=_TORCH_DTYPE[arr.dtype])
+    return host.to(device, non_blocking=device.type == "cuda")
 
 
 @dataclasses.dataclass

@@ -35,7 +35,10 @@ in a captured loop must sum over the frames of each call, and a sanitized
 PT loop stay captured and bit-equal to the host loop; a CUDA library
 rebuilt from a changed source must run the new code once loaded again;
 after `set_instance_transform` the next loop must capture anew, free the
-old capture and stay bit-equal to the host loop. The flagship frame on 2
+old capture and stay bit-equal to the host loop. The RASTERIZED and
+MINIMAL loops must be captured under torch.cuda.set_sync_debug_mode("error")
+(their binning reads nothing back to the host) and each call's last frame
+be a host frame bit for bit. The flagship frame on 2
 gloo ranks sharing the card (``parallel/``) must match it in one process:
 spatial Y bit-equal, the output within 2e-5, each rank launching K1 and
 the seed kernel.
@@ -630,13 +633,17 @@ def test_k45_wrappers_refuse_cpu_tensors_and_oversized_grids():
         raster_binned.depth_binned_cuda(bins, w + 256, h)
     tall = 65536
     # K4's and K5's grids are persistent: their limit is the int32 numbering
-    # of their items.
+    # of their items, checked against the table's static capacity (2^25
+    # global slots here: a table that wide, as a view of one row), not
+    # against the live global count, which stays on the device.
+    def wide(b):
+        return b._replace(ny=tall, table=b.table[:1].expand(b.g_base + (1 << 25), -1))
+
     with pytest.raises(ValueError, match="work items"):
-        raster_binned.depth_binned_cuda(bins._replace(ny=tall, g_count=1 << 24), w, tall * 32)
+        raster_binned.depth_binned_cuda(wide(bins), w, tall * 32)
     vis_bins, _, _ = _raster_bins("cpu", vis=True, n=50, width=300, height=70)
     with pytest.raises(ValueError, match="work items"):
-        raster_binned.vis_binned_cuda(vis_bins._replace(ny=tall, g_count=1 << 24), w,
-                                      tall * 32)
+        raster_binned.vis_binned_cuda(wide(vis_bins), w, tall * 32)
     with pytest.raises(ValueError, match="rows of 24"):
         raster_binned.vis_binned_cuda(bins, w, h)
     with pytest.raises(ValueError, match="CUDA"):
@@ -646,7 +653,7 @@ def test_k45_wrappers_refuse_cpu_tensors_and_oversized_grids():
 @pytest.mark.cuda
 def test_k4_matches_plain_on_card(cuda_device):
     bins, w, h = _raster_bins(cuda_device, vis=False)
-    assert bins.g_count >= 1
+    assert bins.g_count.device.type == "cuda" and int(bins.g_count) >= 1
     got = raster_binned.depth_binned_cuda(bins, w, h)
     want = raster_binned.depth_binned_plain(bins, w, h)
     assert (want < 1.0).float().mean() > 0.5
@@ -673,7 +680,7 @@ def test_k4_spreads_a_crowded_tile_over_items_bit_for_bit(cuda_device):
     bins = raster_binned.bin_triangles(rows, width, height)
     plan = raster_binned.depth_plan(bins)
     per_tile = plan.ends[:-1] - torch.cat([plan.ends.new_zeros(1), plan.ends[:-2]])
-    assert bins.g_count >= 1
+    assert int(bins.g_count) >= 1
     assert int(bins.counts.max()) > 2 * raster_binned.K4_ITEM_ROWS
     assert int((per_tile > 2).sum()) >= 1
     binned = rows.valid & ~rows.is_global
@@ -698,7 +705,8 @@ def test_plan_kernel_matches_plain_on_card(cuda_device, vis):
     assert wide.nx * wide.ny > 1024
     for b in (bins, crowd, wide):
         got, want = raster_binned.depth_plan(b), raster_binned.depth_plan_plain(b)
-        assert got.g_items == want.g_items
+        assert torch.equal(got.gmeta, want.gmeta)  # (g_count, g_items), on the device
+        assert int(got.gmeta[0]) == int(b.g_count)
         assert torch.equal(got.ends, want.ends)
 
 
@@ -739,7 +747,7 @@ def test_k5_spreads_a_crowded_tile_and_keeps_the_last_of_ties(cuda_device):
     idx = torch.arange(len(v), dtype=torch.int32, device=cuda_device).reshape(-1, 3)
     bins = raster_binned.bin_triangles(
         raster_binned.tri_rows(clip, idx, width, height, vis=True), width, height)
-    assert bins.g_count >= 2
+    assert int(bins.g_count) >= 2
     assert int(bins.counts.max()) > 2 * raster_binned.K4_ITEM_ROWS
     want = raster_binned.vis_binned_plain(bins, width, height)
     assert (want.tri >= 0).float().mean() > 0.3
@@ -774,6 +782,50 @@ def test_raster_frames_on_card_match_cpu(cuda_device, mode):
     diff = np.abs(got - render("cpu"))
     assert (diff.max(axis=-1) <= 1e-3).mean() >= 0.99
     assert diff.mean() <= 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["RASTERIZED", "MINIMAL"])
+def test_raster_loop_captured_without_host_sync_on_card(cuda_device, mode):
+    """`run_on_device(4)` of the RASTERIZED (marching-cubes draw on) and
+    MINIMAL apps at 64² on the card under torch.cuda.set_sync_debug_mode(
+    "error"), so that any host sync raises: captured once (frame 1 eagerly,
+    the capture, 3 replays), then 4 frames of pure replay. The frames carry
+    no state, so each call's last frame is a host frame with the clock
+    pinned, bit for bit; the first call moves the kernels' counters by two
+    frames' worth (frame 1 and the capture's recording), the second by
+    none."""
+    size = 64
+    cfg = StaticConfig(shadow_map_size=128, cubemap_size=16, cubemap_mips=4,
+                       irradiance_size=8, brdf_lut_size=16, mc_grid=8)
+
+    def make():
+        app = Application(size, size, getattr(RenderGraphMode, mode), cfg=cfg,
+                          device=cuda_device)
+        app.fps_timer.elapsed_seconds = lambda: 0.25
+        app.view = app.view.replace(marching_cubes_enabled=np.int32(1))
+        app.create_scene()
+        app.run(1)  # the environment captured and every kernel built
+        return app
+
+    host, loop = make(), make()
+    want = host.run(1)
+    raster = mode == "RASTERIZED"
+    for moved in (2, 0):
+        raster_binned.K4_LAUNCHES = raster_binned.K5_LAUNCHES = 0
+        previous = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            img = loop.run_on_device(4, tstep=0.0)
+        finally:
+            torch.cuda.set_sync_debug_mode(previous)
+        assert loop.graph.device_loop_unsupported_reason() is None
+        assert loop.graph.last_loop_form == "captured"
+        assert loop.graph.captures == 1
+        assert (raster_binned.K4_LAUNCHES, raster_binned.K5_LAUNCHES) == (
+            4 * moved, int(raster) * moved)
+        np.testing.assert_array_equal(img.cpu().numpy(), want)
+    assert float(img.std()) > 0.01
 
 
 @pytest.mark.cuda

@@ -117,13 +117,15 @@ def test_loop_then_host_frame_continues_protocol():
 
 def test_raster_loop_matches_host_frame():
     """RASTERIZED frames carry no state: the loop's last frame equals a host
-    frame. The shadow pass bins on the host, so on the card this graph
-    loops eagerly too."""
+    frame. On CPU tensors the loop runs eagerly; on the card the same graph
+    is captured (tests/test_torch_cuda.py), its binning reading nothing back
+    to the host."""
     host = _make_app(RenderGraphMode.RASTERIZED)
     want = host.run(2)
     loop = _make_app(RenderGraphMode.RASTERIZED)
     loop.run(1)  # the environment is captured on a host frame
     img = loop.run_on_device(2, tstep=0.0)
+    assert loop.graph.last_loop_form == "eager: no CUDA graphs on cpu"
     np.testing.assert_array_equal(img.numpy(), want)
     assert img.std() > 0.01
 
@@ -222,16 +224,25 @@ def test_isolated_prefix_stacks_what_the_body_reads():
 
 @pytest.mark.parametrize("mode,sky_mode,reason", [
     ("PATH_TRACED", "exact", None), ("PATH_TRACED", "cubemap", None),
-    ("RASTERIZED", "exact", "shadow"), ("MINIMAL", "exact", "shadow")])
+    ("RASTERIZED", "exact", None), ("MINIMAL", "exact", None)])
 def test_capture_unsupported_reason_names_the_binning_pass(mode, sky_mode, reason):
+    """No pass names a host sync any more: the raster passes' binning
+    (K4's and K5's) reads nothing back to the host, so every mode's graph,
+    RASTERIZED with the marching-cubes draw included, can be captured on
+    the card; on CPU tensors the loop says it ran eagerly for want of CUDA
+    graphs."""
     app = _make_app(getattr(RenderGraphMode, mode), CFG.replace(sky_mode=sky_mode))
+    app.view = app.view.replace(marching_cubes_enabled=np.int32(mode == "RASTERIZED"))
     app._refresh_view()
     app._build_graph()
-    got = app.graph.capture_unsupported_reason()
-    if reason is None:
-        assert got is None
-    else:
-        assert got.startswith(f"pass '{reason}' ") and "bin_triangles" in got
+    assert [p.host_sync for p in app.graph.passes] == [None] * len(app.graph.passes)
+    assert "marching_cubes" in [p.name for p in app.graph.passes] or mode != "RASTERIZED"
+    assert app.graph.device_loop_unsupported_reason() is None
+    assert app.graph.capture_unsupported_reason() is reason
+    if mode != "PATH_TRACED":
+        app.run(1)  # the environment is captured on a host frame
+        app.run_on_device(1, tstep=0.0)
+        assert app.graph.last_loop_form == "eager: no CUDA graphs on cpu"
 
 
 def test_loop_key_follows_what_the_body_computes_with():

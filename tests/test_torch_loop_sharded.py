@@ -1,6 +1,7 @@
 """`Graph.render_loop` on a row-sharded graph (`Graph.shard_image_rows`):
 `Application.run_on_device` on 2 gloo ranks against the same ranks' host
-loop, and against one rank.
+loop, and against one rank, for the PT app and the RASTERIZED app with the
+marching-cubes draw (mc_grid 8).
 
 The scene and configuration are tests/test_torch_loop.py's (the cube on a
 floor, two lights, 32x32, 2 bounces, the clock pinned). Each rank renders
@@ -8,7 +9,8 @@ its band: the device loop runs the frame body, collectives included, once a
 frame, so on CPU tensors (the body eager, no capture) its state and
 presented band must equal the host loop's bit for bit. Gathered, the band
 frames hold the one-rank loop's frame within 2e-5, the bound that
-tests/test_torch_parallel.py holds the sharded PT graph to. The ranks are
+tests/test_torch_parallel.py holds the sharded PT graph to (3e-5 for the
+RASTERIZED frame, tests/test_torch_parallel_raster.py's). The ranks are
 spawned once for the module (a file store under the test's temporary
 directory, no network port); this module imports no jax, as they import it.
 """
@@ -39,8 +41,10 @@ def _scene(r, cam):
     cam.set_position_target([3, 2, 5], [0, 0.5, 0])
 
 
-def _app(group=None) -> Application:
-    app = Application(W, H, RenderGraphMode.PATH_TRACED, CFG, device="cpu")
+def _app(group=None, mode=RenderGraphMode.PATH_TRACED) -> Application:
+    raster = mode == RenderGraphMode.RASTERIZED
+    app = Application(W, H, mode, CFG.replace(mc_grid=8) if raster else CFG, device="cpu")
+    app.view = app.view.replace(marching_cubes_enabled=np.int32(raster))
     if group is not None:
         app.graph.shard_image_rows(group, H, W)
     app.create_scene(_scene)
@@ -51,23 +55,30 @@ def _app(group=None) -> Application:
 def _rank(rank, n):
     """One rank: FRAMES host frames and one FRAMES-frame device loop of the
     row-sharded PT app from the same state; the bands, the loop's form and
-    reasons, and the gathered loop frame."""
+    reasons, and the gathered loop frame; then the same of the row-sharded
+    RASTERIZED app (under "raster")."""
     group, index = make_tile_group(device="cpu")
-    host, loop = _app(group), _app(group)
-    want = host.run(FRAMES)
-    reason = loop.graph.device_loop_unsupported_reason()
-    img = loop.run_on_device(FRAMES, tstep=0.0)
-    return {
-        "index": index, "reason": reason, "form": loop.graph.last_loop_form,
-        "capture": loop.graph.capture_unsupported_reason(),
-        "host": want, "loop": img.numpy(),
-        "state_equal": {k: torch.equal(t, loop.graph.state[k])
-                        for k, t in host.graph.state.items()},
-        "state_keys": sorted(loop.graph.state) == sorted(host.graph.state),
-        "samples": (host.total_samples, loop.total_samples),
-        "whole": tiles.gather_rows(img, group).numpy(),
-        "band": tuple(img.shape),
-    }
+    out = {"index": index}
+    for key, mode in (("pt", RenderGraphMode.PATH_TRACED),
+                      ("raster", RenderGraphMode.RASTERIZED)):
+        host, loop = _app(group, mode), _app(group, mode)
+        want = host.run(FRAMES)
+        reason = loop.graph.device_loop_unsupported_reason()
+        img = loop.run_on_device(FRAMES, tstep=0.0)
+        got = {
+            "reason": reason, "form": loop.graph.last_loop_form,
+            "capture": loop.graph.capture_unsupported_reason(),
+            "host": want, "loop": img.numpy(),
+            "state_equal": {k: torch.equal(t, loop.graph.state[k])
+                            for k, t in host.graph.state.items()},
+            "state_keys": sorted(loop.graph.state) == sorted(host.graph.state),
+            "samples": (host.total_samples, loop.total_samples),
+            "whole": tiles.gather_rows(img, group).numpy(),
+            "band": tuple(img.shape),
+            "passes": [p.name for p in loop.graph.passes],
+        }
+        out.update(got if key == "pt" else {"raster": got})
+    return out
 
 
 @pytest.fixture(scope="module")
@@ -97,4 +108,30 @@ def test_sharded_device_loop_gathers_to_the_one_rank_loop(ranks):
     want = _app().run_on_device(FRAMES, tstep=0.0).numpy()
     for r in ranks:
         np.testing.assert_allclose(r["whole"], want, atol=2e-5)
+    assert np.isfinite(want).all() and want.std() > 1e-3
+
+
+def test_sharded_raster_device_loop_runs_eagerly_and_equals_the_host_loop(ranks):
+    """The row-sharded RASTERIZED app (its shadow cascades, binning and
+    marching-cubes draw included) takes the device loop: no pass asks for a
+    host sync, so over gloo the one reason to run eagerly is gloo's; the
+    loop's band equals the host loop's bit for bit."""
+    for r in ranks:
+        got = r["raster"]
+        assert "shadow" in got["passes"] and "marching_cubes" in got["passes"]
+        assert got["reason"] is None
+        assert got["form"].startswith("eager: ")
+        assert got["capture"].startswith("gloo collectives cannot be captured")
+        assert got["band"] == (H // RANKS, W, 3)
+        np.testing.assert_array_equal(got["loop"], got["host"])
+        assert got["state_keys"] and all(got["state_equal"].values()), got["state_equal"]
+        assert got["samples"] == (FRAMES, FRAMES)
+
+
+def test_sharded_raster_device_loop_gathers_to_the_one_rank_loop(ranks):
+    app = _app(mode=RenderGraphMode.RASTERIZED)
+    want = app.run_on_device(FRAMES, tstep=0.0).numpy()
+    assert app.graph.last_loop_form == "eager: no CUDA graphs on cpu"
+    for r in ranks:
+        np.testing.assert_allclose(r["raster"]["whole"], want, atol=3e-5)
     assert np.isfinite(want).all() and want.std() > 1e-3

@@ -6,7 +6,11 @@ Inputs are made with numpy from a seed and given to both packages.
 Tolerances (those of tests/test_raster_binned.py, tighter where the port
 meets them):
 - the binning tables (`starts`, `counts`, the global count) are equal, and
-  the triangle rows agree to 1e-6 (relative, floor 1e-6);
+  the triangle rows agree to 1e-6 (relative, floor 1e-6); given the same
+  triangle rows, the live rows of the two tables (each tile's segment, the
+  global list) are bit-equal and in the same order;
+- the port's binning has static shapes (they follow the triangle count and
+  the image size alone) and reads nothing back to the host;
 - depth agrees to 1e-4 where both cover a pixel, and coverage differs on
   under 0.5% of the pixels (edge-function rounding on boundary pixels);
 - the visibility buffer names the same triangle on at least 98% of the
@@ -87,14 +91,114 @@ def test_tri_rows_and_bins_match_jax(case, vis):
     np.testing.assert_array_equal(got.is_global.numpy(), np.asarray(want[6]))
     nx, ny = -(-W // jax_binned.TILE_W), -(-H // jax_binned.TILE_H)
     stride = jax_binned.VIS_STRIDE if vis else jax_binned.DEPTH_STRIDE
-    _, starts, counts, _, g_count = jax_binned._bin_pairs(*want, nx, ny, stride)
+    packed, starts, counts, g_group, g_count = jax_binned._bin_pairs(*want, nx, ny, stride)
     bins = raster_binned.bin_triangles(got, W, H)
     np.testing.assert_array_equal(bins.starts.numpy(), np.asarray(starts))
     np.testing.assert_array_equal(bins.counts.numpy(), np.asarray(counts))
-    assert bins.g_count == int(g_count)
-    assert bins.g_count >= (1 if case == "global" else 0)
-    assert bins.table.shape == (int(counts.sum()) + bins.g_count, raster_binned.DEPTH_STRIDE
-                                if not vis else raster_binned.VIS_STRIDE)
+    assert int(bins.g_count) == int(g_count)
+    assert int(bins.g_count) >= (1 if case == "global" else 0)
+    _assert_static_layout(bins, got.rows.shape[0], W, H, vis)
+
+    # JAX's rows binned by the port: the live rows bit-equal, in JAX's order.
+    same = raster_binned.bin_triangles(_port_tri_rows(want, got.box), W, H)
+    width = raster_binned.VIS_STRIDE if vis else raster_binned.DEPTH_STRIDE
+    jax_table = np.asarray(packed).reshape(-1, stride)[:, :width]
+    n_seg, g = int(np.asarray(counts).sum()), int(g_count)
+    jax_g = int(g_group) * (128 // stride)
+    assert int(same.counts.sum()) == n_seg and int(same.g_count) == g
+    np.testing.assert_array_equal(same.table[:n_seg].numpy(), jax_table[:n_seg])
+    np.testing.assert_array_equal(same.table[same.g_base:same.g_base + g].numpy(),
+                                  jax_table[jax_g:jax_g + g])
+
+
+def _port_tri_rows(want, box) -> raster_binned.TriRows:
+    """The JAX package's `_tri_rows` outputs as the port's TriRows, with
+    the port's pixel boxes `box`."""
+    rows, tx0, ty0, span_w, span_h, valid, is_global = (
+        torch.tensor(np.asarray(x)) for x in want)
+    return raster_binned.TriRows(rows, tx0.long(), ty0.long(), span_w.long(), span_h.long(),
+                                 valid, is_global, box)
+
+
+def _assert_static_layout(bins, t2, width, height, vis):
+    """The table is [SPAN_X * SPAN_Y * 2T segment slots | 2T global
+    slots]; the rows no walk reads are dead, with an empty box and no
+    tile."""
+    slots = raster_binned.SPAN_X * raster_binned.SPAN_Y * t2
+    stride = raster_binned.VIS_STRIDE if vis else raster_binned.DEPTH_STRIDE
+    assert bins.g_base == slots
+    assert bins.table.shape == (slots + t2, stride)
+    assert (bins.nx, bins.ny) == (-(-width // raster_binned.TILE_W),
+                                  -(-height // raster_binned.TILE_H))
+    assert bins.starts.shape == bins.counts.shape == (bins.nx * bins.ny,)
+    assert bins.g_count.shape == () and bins.g_count.dtype == torch.int32
+    rows = torch.arange(slots + t2)
+    live = (rows < int(bins.counts.sum())) | (
+        (rows >= slots) & (rows < slots + int(bins.g_count)))
+    x0, x1, y0, y1 = bins.row_box
+    assert bins.row_tile.shape == rows.shape and all(b.shape == rows.shape for b in bins.row_box)
+    assert bool(((x1 < x0) | (y1 < y0))[~live].all())
+    assert bool((bins.row_tile[~live] == -1).all())
+    assert bool((bins.row_tile[:int(bins.counts.sum())] >= 0).all())
+    assert torch.equal(bins.table[~live],
+                       raster_binned.dead_row(stride, "cpu").expand(int((~live).sum()), -1))
+
+
+def test_binning_shapes_follow_the_triangle_count_alone():
+    """Two triangle sets of one count at other positions (one with a
+    screen-wide triangle) give Bins of the same shapes and g_base."""
+    a = _bins("global")
+    verts, idx = _mesh(301, 11, spread=0.6)
+    b = raster_binned.bin_triangles(raster_binned.tri_rows(
+        torch.tensor(_clip(verts, True)), torch.tensor(idx), W, H), W, H)
+    assert int(a.g_count) != int(b.g_count) and not torch.equal(a.counts, b.counts)
+    assert a.g_base == b.g_base
+    for x, y in zip(a, b):
+        for p, q in (zip(x, y) if isinstance(x, tuple) else [(x, y)]):
+            if torch.is_tensor(p):
+                assert (p.shape, p.dtype) == (q.shape, q.dtype)
+            else:
+                assert p == q
+
+
+def _refuse(name):
+    def read(*args, **kwargs):
+        raise AssertionError(f"host read: {name}")
+    return read
+
+
+@pytest.mark.parametrize("vis", [False, True])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_binning_and_plan_read_nothing_back_to_the_host(case, vis, monkeypatch):
+    """tri_rows, bin_triangles and the plan (on CPU bins its plain version,
+    which the plan kernel's launch replaces on the card) run with every
+    host read raising: torch.nonzero, Tensor.nonzero, .item, .tolist,
+    .cpu, .numpy, int(), float(), bool(), index() and boolean-mask
+    indexing. What they give equals the unguarded run's."""
+    verts, idx, persp = CASES[case]()
+    clip, ti = torch.tensor(_clip(verts, persp)), torch.tensor(idx)
+    want_bins = raster_binned.bin_triangles(raster_binned.tri_rows(clip, ti, W, H, vis), W, H)
+    want_plan = raster_binned.depth_plan(want_bins)
+    getitem, setitem = torch.Tensor.__getitem__, torch.Tensor.__setitem__
+
+    def no_mask(index):
+        parts = index if isinstance(index, tuple) else (index,)
+        if any(torch.is_tensor(p) and p.dtype == torch.bool for p in parts):
+            raise AssertionError("host read: boolean mask indexing")
+
+    with monkeypatch.context() as m:
+        m.setattr(torch, "nonzero", _refuse("torch.nonzero"))
+        for name in ("nonzero", "item", "tolist", "cpu", "numpy", "__int__", "__float__",
+                     "__bool__", "__index__"):
+            m.setattr(torch.Tensor, name, _refuse(f"Tensor.{name}"))
+        m.setattr(torch.Tensor, "__getitem__", lambda t, i: (no_mask(i), getitem(t, i))[1])
+        m.setattr(torch.Tensor, "__setitem__", lambda t, i, v: (no_mask(i), setitem(t, i, v))[1])
+        bins = raster_binned.bin_triangles(raster_binned.tri_rows(clip, ti, W, H, vis), W, H)
+        plan = raster_binned.depth_plan(bins)
+    for got, want in zip((*bins, *plan), (*want_bins, *want_plan)):
+        for p, q in (zip(got, want) if isinstance(got, tuple) else [(got, want)]):
+            assert torch.equal(p, q) if torch.is_tensor(p) else p == q
+    assert int(plan.gmeta[0]) == int(bins.g_count)
 
 
 def _assert_depth_close(got, want):
@@ -139,7 +243,7 @@ def test_k4_plan_covers_every_tile_row_pair_once(case, item_rows, monkeypatch):
     want = []
     for t in range(bins.nx * bins.ny):
         s, c = int(bins.starts[t]), int(bins.counts[t])
-        walked = list(range(bins.g_base, bins.g_base + bins.g_count)) + list(range(s, s + c))
+        walked = [*range(bins.g_base, bins.g_base + int(bins.g_count)), *range(s, s + c)]
         want += [(t, r) for r in walked]
     assert sorted(map(tuple, pairs.tolist())) == sorted(want)
     if item_rows < raster_binned.K4_ITEM_ROWS:
@@ -240,7 +344,7 @@ def test_k5_plan_covers_every_tile_row_pair_once(case, item_rows, monkeypatch):
     want = []
     for t in range(bins.nx * bins.ny):
         s, c = int(bins.starts[t]), int(bins.counts[t])
-        want += [(t, r) for r in [*range(bins.g_base, bins.g_base + bins.g_count),
+        want += [(t, r) for r in [*range(bins.g_base, bins.g_base + int(bins.g_count)),
                                   *range(s, s + c)]]
     assert sorted(got) == sorted(want)
     assert len(set(got)) == len(got)

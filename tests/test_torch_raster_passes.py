@@ -38,7 +38,7 @@ from rust_renderer_tpu_torch.convert import packed_scene_from_numpy, view_from_n
 from rust_renderer_tpu_torch.graph import Graph
 from rust_renderer_tpu_torch.ops import raster
 from rust_renderer_tpu_torch.renderers import build_minimal_forward_render_graph
-from rust_renderer_tpu_torch.renderers.passes import BINS_SYNC, setup_gbuffer_pass
+from rust_renderer_tpu_torch.renderers.passes import setup_gbuffer_pass
 from rust_renderer_tpu_torch.settings import StaticConfig
 
 torch.set_num_threads(1)
@@ -80,7 +80,7 @@ def test_raster_gbuffer_pass_matches_jax(inputs):
     want = jg.render(scene, view)
     g = Graph(device="cpu")
     setup_gbuffer_pass(g, None, SIZE, SIZE, use_raycast=False)
-    assert g.passes[0].host_sync == BINS_SYNC
+    assert g.passes[0].host_sync is None  # the binning reads nothing back to the host
     got = g.render(port_scene, port_view)
     for name in ("gbuffer_position", "gbuffer_normal", "gbuffer_albedo", "gbuffer_pbr",
                  "gbuffer_depth"):
@@ -98,7 +98,7 @@ def test_raster_minimal_forward_matches_jax(inputs):
     want = jg.render(scene, view)
     g = Graph(device="cpu")
     build_minimal_forward_render_graph(g, StaticConfig(**SMALL), cam, None, SUN)
-    assert [p.host_sync == BINS_SYNC for p in g.passes] == [True, True, False]
+    assert [p.host_sync for p in g.passes] == [None, None, None]
     got = g.render(port_scene, port_view)
     for name in ("forward_output", "gbuffer_depth"):
         _assert_close(got[name], want[name])
