@@ -1,0 +1,9 @@
+"""pass.deferred_host_ms.orbit: the `deferred` pass's host enqueue ms a frame in the
+host-loop (orbit) cells, from its `pass/deferred` span summed over the measured
+window and divided by its frames (`app.enqueue_ms`'s arithmetic)."""
+
+from harness import passes
+
+
+def read(r):
+    return passes.host_ms(r, "deferred")

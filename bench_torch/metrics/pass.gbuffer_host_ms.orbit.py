@@ -1,0 +1,9 @@
+"""pass.gbuffer_host_ms.orbit: the `gbuffer` pass's host enqueue ms a frame in the
+host-loop (orbit) cells, from its `pass/gbuffer` span summed over the measured
+window and divided by its frames (`app.enqueue_ms`'s arithmetic)."""
+
+from harness import passes
+
+
+def read(r):
+    return passes.host_ms(r, "gbuffer")

@@ -17,6 +17,10 @@ resources cached by name; `render` runs the passes in order, and
   graph.py:154-175): the non-finite values of every floating pass output
   are counted on the device and read with one copy a frame (or one a
   `render_loop` call) into `last_sanitizer_report`.
+- Every pass runs inside the profiler's span `pass/<name>` (the
+  reference's per-pass GPU scope, graph.rs:1083-1125): its host enqueue
+  time and, on CUDA, its device time, in a captured loop from the replays
+  (utils/profiler.py).
 - Hot reload (graph.rs:673-701): `recompile_shader(module)` reloads a
   kernel module; a pass that then fails falls back to the pass function of
   the last good frame.
@@ -49,6 +53,7 @@ import torch
 import torch.distributed
 
 from rust_renderer_tpu_torch.settings import RenderSettings, to_tensor
+from rust_renderer_tpu_torch.utils.profiler import PROFILER
 
 log = logging.getLogger(__name__)
 PACKAGE = __name__.rpartition(".")[0]
@@ -375,24 +380,27 @@ class Graph:
     # -- execution ------------------------------------------------------------
 
     def _run_passes(self, passes, resources: dict, scene, view, count=None,
-                    fell_back: set | None = None) -> dict:
-        """Run `passes` in order over `resources` (updated in place);
-        `count(pass, name, tensor)` sees each output. With `fell_back` (a
-        set), a pass that raises after a reload runs its function of the last
-        good frame instead, and its name is added to the set."""
+                    fell_back: set | None = None, spans: list | None = None) -> dict:
+        """Run `passes` in order over `resources` (updated in place), each
+        inside its profiler span `pass/<name>` (`spans`: where a captured
+        span's event pair goes); `count(pass, name, tensor)` sees each output,
+        outside the span. With `fell_back` (a set), a pass that raises after
+        a reload runs its function of the last good frame instead, in the
+        same span, and its name is added to the set."""
         for p in passes:
-            try:
-                outs = _call(p.fn, p.takes_uniforms, _PassResources(self, resources, p),
-                             scene, view, p.uniforms)
-            except Exception:
-                old = self._last_good.get(p.name)
-                if fell_back is None or old is None or old[2] == self._generation:
-                    raise  # no reload since the pass last ran: a fault to surface
-                log.exception("pass '%s' failed after a hot reload; running its "
-                              "function of the last good frame", p.name)
-                outs = _call(old[0], old[1], _PassResources(self, resources, p), scene,
-                             view, p.uniforms)
-                fell_back.add(p.name)
+            with PROFILER.scope(f"pass/{p.name}", device=self.device, spans=spans):
+                try:
+                    outs = _call(p.fn, p.takes_uniforms, _PassResources(self, resources, p),
+                                 scene, view, p.uniforms)
+                except Exception:
+                    old = self._last_good.get(p.name)
+                    if fell_back is None or old is None or old[2] == self._generation:
+                        raise  # no reload since the pass last ran: a fault to surface
+                    log.exception("pass '%s' failed after a hot reload; running its "
+                                  "function of the last good frame", p.name)
+                    outs = _call(old[0], old[1], _PassResources(self, resources, p), scene,
+                                 view, p.uniforms)
+                    fell_back.add(p.name)
             for wname, arr in (outs or {}).items():
                 if wname not in p.writes:
                     raise ValueError(
@@ -522,7 +530,9 @@ class Graph:
           state read as it is, the scene's tensors and `view_update`; not
           N, except through the stacked prefix writes, which hold N frames
           (so a graph with an isolated prefix captures anew for another
-          N). A changed key captures anew. A failed capture raises.
+          N). A changed key captures anew, and so does toggling the
+          profiler: a capture holds the passes' device spans only while it
+          is enabled. A failed capture raises.
         - Eagerly, the same body N times: on CPU tensors, and on CUDA where
           `capture_unsupported_reason` gives a reason. `last_loop_form`
           says which.
@@ -592,7 +602,7 @@ class Graph:
                 sorted((d.name, d.shape, str(d.dtype), d.clear, d.sanitize)
                        for d in self.descs.values()),
                 san_keys, carry_names, inv, scene, view_update, layout(vars(fresh_view)),
-                layout(aux), layout(stacked), self.band))
+                layout(aux), layout(stacked), self.band, PROFILER.enabled))
             loop = self._loop
             if loop is None or loop.key != key:
                 loop = self._loop = None  # frees the last capture's memory first
@@ -605,6 +615,8 @@ class Graph:
                 replays = n_frames
             for _ in range(replays):
                 loop.graph.replay()
+            if replays:  # the last replay's pass spans; the capture ran none
+                PROFILER.queue(loop.spans)
             self.last_loop_form = "captured"
         self.state.update({n: t.clone() for n, t in loop.carry.items()})
         for n in stacked_names:
@@ -642,7 +654,8 @@ class Graph:
         index = loop.k.reshape(1)
         for name, arr in loop.stacked.items():
             resources[name] = arr.index_select(0, index)[0]
-        self._run_passes(loop.passes, resources, loop.scene, view, _counter(loop.san))
+        self._run_passes(loop.passes, resources, loop.scene, view, _counter(loop.san),
+                         spans=loop.spans)
         for name, t in loop.carry.items():
             t.copy_(resources[name])
         if loop.present is not None and "present_output" in resources:
@@ -692,6 +705,9 @@ class _Loop:
     key: object
     san: dict  # "pass/resource" -> () int64 non-finite count, summed over the frames
     graph: object = None
+    # The captured body's pass spans: (name, start, end) external event
+    # pairs that every replay records again.
+    spans: list = dataclasses.field(default_factory=list)
 
     def reload(self, view: RenderSettings, aux: dict, state: dict, stacked: dict) -> None:
         """A new call's inputs copied into the captured tensors; k = 0 and

@@ -1,22 +1,33 @@
-"""Profiling: named scopes with host timers, and device traces.
+"""Profiling: named scopes with host timers and device spans, and device
+traces.
 
 The port of the JAX package's ``utils/profiler.py``, the analog of the
 reference's two-level profiler (SURVEY.md §5.1):
-- puffin CPU scopes -> `scope()` host timers summed per name;
-- gpu-profiler timestamp queries -> each scope is also a
-  `torch.profiler.record_function` range and an NVTX range, so it names its
-  span in a `trace()` of the card (and in any CUDA profiler);
-- the puffin_egui window -> `report()`, a text table; `trace()` wraps
-  `torch.profiler.profile` over the CPU and the card and writes a Chrome
-  trace.
+- puffin CPU scopes -> `scope()` host timers summed per name; each scope is
+  also a `torch.profiler.record_function` range and an NVTX range, so it
+  names its span in a `trace()` of the card (and in any CUDA profiler);
+- gpu-profiler timestamp queries (`Graph::begin_gpu_scope` /
+  `end_gpu_scope`, graph.rs:1083-1125) -> a scope given a CUDA device also
+  records a timing event on the current stream at its start and at its
+  end; the frame graph opens one around every pass (`pass/<name>`). The
+  pairs are read once both events have run (`new_frame`,
+  `device_totals`), never by waiting. In a stream being captured into a
+  CUDA graph the pair's events are external, so the capture records them
+  and every replay records them again: the captured loop reads them after
+  its replays (`queue`);
+- the puffin_egui window -> `report()`, a text table of both; `trace()`
+  wraps `torch.profiler.profile` over the CPU and the card and writes a
+  Chrome trace.
 
 A scope never synchronizes the device: its host time is the time to
 enqueue the work in it, as the JAX package's scope times the dispatch.
-Toggled at run time like the reference's Q key (main.rs:450-453).
+Toggled at run time like the reference's Q key (main.rs:450-453); while
+disabled a scope times nothing and makes no event.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import os
 import time
@@ -24,54 +35,111 @@ from collections import defaultdict
 
 import torch
 
+# Event pairs waiting to be read; the oldest are dropped beyond this (a
+# frame queues one pair a pass, and each frame start reads what has run).
+PENDING_SPANS = 4096
+
 
 class Profiler:
     def __init__(self) -> None:
         self.enabled = True
-        self.paused = False
         self._totals: dict[str, float] = defaultdict(float)
         self._counts: dict[str, int] = defaultdict(int)
-        self._frame_started = 0.0
-        self.last_frame_ms = 0.0
+        # Device spans: (name, start event, end event) pairs not yet read,
+        # and per name the device ms and the spans read.
+        self._pending: collections.deque = collections.deque(maxlen=PENDING_SPANS)
+        self._device_ms: dict[str, float] = defaultdict(float)
+        self._device_counts: dict[str, int] = defaultdict(int)
 
     def toggle(self) -> None:
         self.enabled = not self.enabled
 
     def reset(self) -> None:
-        """Forget every scope's totals."""
+        """Forget every scope's totals and the device spans not yet read."""
         self._totals.clear()
         self._counts.clear()
+        self._pending.clear()
+        self._device_ms.clear()
+        self._device_counts.clear()
 
     @contextlib.contextmanager
-    def scope(self, name: str):
+    def scope(self, name: str, *, device: torch.device | None = None,
+              spans: list | None = None):
         """A named range (torch.profiler and NVTX), timed on the host clock
-        while the profiler is enabled and not paused."""
+        while the profiler is enabled. With `device` a CUDA device, its
+        device time too: a timing event on the current stream at its start
+        and at its end, the pair queued to be read once it has run. While
+        the current stream is being captured, the events are external and
+        the pair goes to `spans` (a list) instead; without `spans` a
+        captured scope makes no event."""
         with torch.profiler.record_function(name), _nvtx(name):
-            if not self.enabled or self.paused:
+            if not self.enabled:
                 yield
                 return
+            events = _start_events(device, spans)
             t0 = time.perf_counter()
             try:
                 yield
+                if events is not None:
+                    start, end, captured = events
+                    end.record()
+                    (spans if captured else self._pending).append((name, start, end))
             finally:
                 self._totals[name] += time.perf_counter() - t0
                 self._counts[name] += 1
 
+    def queue(self, spans: list) -> None:
+        """Queue event pairs that a captured scope recorded (`scope`'s
+        `spans`), after a replay has recorded them: they are read like
+        eager pairs. A pair still queued is not queued twice (its events
+        hold the last replay's times)."""
+        for span in spans:
+            if span not in self._pending:
+                self._pending.append(span)
+
+    def _drain(self) -> None:
+        """Read the queued pairs whose end event has run, without waiting;
+        the others stay queued."""
+        waiting = []
+        while self._pending:
+            name, start, end = span = self._pending.popleft()
+            if end.query():
+                self._device_ms[name] += start.elapsed_time(end)
+                self._device_counts[name] += 1
+            else:
+                waiting.append(span)
+        self._pending.extend(waiting)
+
     def new_frame(self) -> None:
-        now = time.perf_counter()
-        if self._frame_started:
-            self.last_frame_ms = (now - self._frame_started) * 1000.0
-        self._frame_started = now
+        """A frame starts: the device spans that have run are read."""
+        self._drain()
 
     def totals(self) -> dict[str, tuple[int, float]]:
-        """scope -> (calls, total ms), largest total first."""
+        """scope -> (calls, total host ms), largest total first."""
         return {name: (self._counts[name], self._totals[name] * 1000.0)
                 for name in sorted(self._totals, key=self._totals.get, reverse=True)}
 
+    def device_totals(self) -> dict[str, tuple[int, float]]:
+        """scope -> (frames sampled, total device ms), largest total first:
+        the device spans read so far, after reading those that have run."""
+        self._drain()
+        return {name: (self._device_counts[name], self._device_ms[name])
+                for name in sorted(self._device_ms, key=self._device_ms.get, reverse=True)}
+
     def report(self) -> str:
-        lines = [f"{'scope':<32}{'calls':>8}{'total ms':>12}{'avg ms':>10}"]
-        for name, (count, total) in self.totals().items():
-            lines.append(f"{name:<32}{count:>8}{total:>12.2f}{total / count:>10.2f}")
+        """The host totals a scope (calls, total ms, ms a call) and, where
+        any scope has device spans, their device ms a sampled frame."""
+        host, device = self.totals(), self.device_totals()
+        lines = [f"{'scope':<32}{'calls':>8}{'total ms':>12}{'avg ms':>10}"
+                 + (f"{'device ms':>12}" if device else "")]
+        for name in [*host, *(n for n in device if n not in host)]:
+            count, total = host.get(name, (0, 0.0))
+            row = f"{name:<32}{count:>8}{total:>12.2f}"
+            row += f"{total / count:>10.2f}" if count else f"{'':>10}"
+            if name in device:
+                frames, ms = device[name]
+                row += f"{ms / frames:>12.2f}"
+            lines.append(row)
         return "\n".join(lines)
 
     @contextlib.contextmanager
@@ -85,6 +153,20 @@ class Profiler:
             yield prof
         os.makedirs(log_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def _start_events(device: torch.device | None, spans: list | None):
+    """(start event, end event, captured) with the start recorded on the
+    current stream, or None: no CUDA device, or a captured scope with
+    nowhere to put its pair."""
+    if device is None or device.type != "cuda":
+        return None
+    captured = torch.cuda.is_current_stream_capturing()
+    if captured and spans is None:
+        return None
+    start, end = (torch.cuda.Event(enable_timing=True, external=captured) for _ in range(2))
+    start.record()
+    return start, end, captured
 
 
 def _nvtx(name: str):

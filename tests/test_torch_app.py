@@ -262,9 +262,6 @@ def test_profiler_scopes_and_report_match_jax(tmp_path):
     with prof.scope("off"):
         pass
     prof.toggle()
-    prof.paused = True
-    with prof.scope("paused"):
-        pass
     assert set(prof.totals()) == {"outer", "inner"}
     # The same totals print the same report as the JAX profiler's.
     jprof = JaxProfiler()
@@ -275,9 +272,8 @@ def test_profiler_scopes_and_report_match_jax(tmp_path):
         p._counts.update({"frame": 4, "render": 4, "build_graph": 4})
     assert prof.report() == jprof.report()
     assert prof.report().splitlines()[1].startswith("frame")
-    prof.new_frame()
-    prof.new_frame()
-    assert prof.last_frame_ms >= 0.0
+    prof.new_frame()  # reads the device spans that have run: none on the CPU
+    assert prof.device_totals() == {}
     prof.reset()
     assert prof.report() == jprof.report().splitlines()[0]
     with prof.trace(str(tmp_path / "trace")):
