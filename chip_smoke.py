@@ -5,12 +5,13 @@
     python3 chip_smoke.py --app   # the app phase alone (`app_alone`)
     python3 chip_smoke.py --tiles # the tiles phase alone (`tiles_alone`)
     python3 chip_smoke.py --raster # the raster apps' host frames and passes alone
+    python3 chip_smoke.py --sky   # the sky kernel alone (`sky_alone`)
 
 Builds the traversal kernels (rust_renderer_tpu_torch/csrc/traverse_wide.cu:
 K1 and K3's wide forms; traverse_q32.cu: K1q; traverse_drain.cu: K2;
 traverse_binary.cu: K3's binary walks; traverse_lq.cu: K3-lq;
-traverse_multi.cu: K3-multi), the seed kernel (csrc/seed_occlusion.cu) and
-K4 / K5 (csrc/raster_binned.cu) with nvcc into rust_renderer_tpu_torch/build/,
+traverse_multi.cu: K3-multi), the seed kernel (csrc/seed_occlusion.cu), the
+sky kernel (csrc/atmosphere.cu) and K4 / K5 (csrc/raster_binned.cu) with nvcc into rust_renderer_tpu_torch/build/,
 one nvcc per source, started together; then:
 
 1. device: versions, the card's name and power limit, build times;
@@ -74,7 +75,14 @@ one nvcc per source, started together; then:
 12. seed test: on the any-hit front of each scene, the seed kernel against
    its plain version (verdicts and walk directions), seeded any-hit against
    the walk, the share of rays it kills, its device time against its
-   bound, seed + K1 against K1 alone by events;
+   bound, seed + K1 against K1 alone by events; then the sky kernel
+   (`sky_phase`) on the 1920x1080 camera rays of the raster cells' view (the
+   atmosphere pass's call, one origin for every ray): against the plain
+   loop on the same rays with the sky on and off (every channel within
+   2e-6 + 1e-5 |plain|, NaN where the plain loop is NaN; the largest
+   difference and the bit-equal share), the launch counter (one launch and
+   every ray a call), its device time against its bound, the plain loop's
+   ms by events;
 13. a tree deeper than K1's stack takes (nested shells, wide depth > 14):
    the hit queries send it to K2, which matches the plain walk;
 14. RASTERIZED main path: Application(1920, 1080, RASTERIZED), default
@@ -160,7 +168,9 @@ one nvcc per source, started together; then:
    are built before the ranks start; each rank loads them.
 
 Each main path is driven with every launch count set to 0 just before it
-and read just after. Every failed check raises. The last log line gives
+and read just after; the sky kernel's is checked too (2 a RASTERIZED
+frame, 5 an exact-sky PT frame, none on a cubemap-sky PT or MINIMAL frame;
+the environment's capture, once an app, apart). Every failed check raises. The last log line gives
 the script's total seconds. Exits non-zero, printing no
 result, when torch sees no GPU. The last line is {"ok": true, ...}.
 """
@@ -199,6 +209,8 @@ SOURCES = {
     "k3_wide_multi": (f"{CSRC}/traverse_multi.cu", f"{TPU}:2296"),
     # No TPU kernel: XLA fused make_seed_test's tensor code.
     "seed": (f"{CSRC}/seed_occlusion.cu", "rust_renderer_tpu/ops/bvh.py:843"),
+    # No TPU kernel: XLA fused integrate_scattering's tensor code.
+    "sky": (f"{CSRC}/atmosphere.cu", "rust_renderer_tpu/ops/atmosphere.py:104"),
     "k4": (f"{CSRC}/raster_binned.cu", "rust_renderer_tpu/ops/raster_binned.py:258"),
     "k5": (f"{CSRC}/raster_binned.cu", "rust_renderer_tpu/ops/raster_binned.py:304"),
 }
@@ -256,6 +268,23 @@ SEED_DET_OPS, SEED_U_OPS, SEED_V_OPS, SEED_T_OPS = 15, 27, 45, 53
 # depth compare / select 2.
 K4_PAIR_OPS = 20
 K5_PAIR_OPS = 22
+# The sky kernel's operations a ray (csrc/atmosphere.cu in sky_radiance's
+# form), counted in the code: 73 float32 operations, 2 sqrtf and 3 divisions
+# before the march; 16 view samples of 367 operations, 10 sqrtf, 24 expf, a
+# division and a powf each (an 8-sample light march of 273 operations, 9
+# sqrtf, 16 expf and a division among them); 24 after. A library call counts
+# as its instruction sequence: expf, sqrtf and a correctly rounded division 8
+# each, powf 32.
+SKY_LIB_OPS = {"expf": 8, "sqrtf": 8, "div": 8, "powf": 32}
+SKY_OPS_PER_RAY = (
+    73 + 2 * SKY_LIB_OPS["sqrtf"] + 3 * SKY_LIB_OPS["div"]
+    + 16 * (367 + 10 * SKY_LIB_OPS["sqrtf"] + 24 * SKY_LIB_OPS["expf"] + SKY_LIB_OPS["div"]
+            + SKY_LIB_OPS["powf"])
+    + 24)
+# Origin and direction read, the color written.
+SKY_BYTES_PER_RAY = 24 + 12
+# The raster cells' view (bench_torch/configs/raster_rtshadows_sponza_1080p.json).
+SKY_VIEWPOINT, SKY_TARGET = [-10.28, 2.10, -0.18], [0.0, 0.5, 0.0]
 # The bench's Sponza-scale configuration (bench.py:101-105).
 SPONZA_CFG = dict(num_bounces=BOUNCES, samples_per_frame=1, sky_mode="cubemap",
                   cubemap_size=256, cubemap_mips=8, irradiance_size=32,
@@ -354,13 +383,40 @@ def device_ms(fn, reps: int) -> float:
 
 
 class Launches:
-    """The kernels' launch counters: zeroed before a main path, read after."""
+    """The kernels' launch counters: zeroed before a main path, read after.
+
+    The sky kernel's count ("sky") is the frames' own: the launch that the
+    environment's capture makes (ibl.capture_environment_cubemap, once when
+    a RASTERIZED or cubemap-sky PT app first reads the cubemaps: set-up, not
+    a frame's work) is counted apart and left out. A port without the sky
+    kernel's counter (a parent checkout under `--raster`) reads no "sky"."""
 
     K3_VARIANTS = ("binary", "binary_ordered", "wide", "wide_ordered", "wide_dual",
                    "wide_lq", "wide_multi")
 
     def __init__(self, traversal, raster_binned, bvh_ops):
+        from rust_renderer_tpu_torch.ops import atmosphere, ibl
+
         self.traversal, self.raster_binned, self.bvh_ops = traversal, raster_binned, bvh_ops
+        self.sky = getattr(atmosphere, "SKY_LAUNCHES", None)
+        if self.sky is not None and not hasattr(ibl.capture_environment_cubemap, "sky"):
+            ibl.capture_environment_cubemap = Launches._counting_capture(
+                ibl.capture_environment_cubemap, self.sky)
+        self.capture = ibl.capture_environment_cubemap
+
+    @staticmethod
+    def _counting_capture(capture, sky):
+        """capture_environment_cubemap, keeping the sky launches it makes in
+        its attribute `sky` (once a process: every Launches reads it)."""
+        def counted(*args, **kw):
+            before = sky["launches"]
+            try:
+                return capture(*args, **kw)
+            finally:
+                counted.sky += sky["launches"] - before
+
+        counted.sky = 0
+        return counted
 
     def reset(self) -> None:
         for counter in (self.traversal.K1_LAUNCHES, self.traversal.K1Q_LAUNCHES,
@@ -369,6 +425,9 @@ class Launches:
         self.raster_binned.K4_LAUNCHES = 0
         self.raster_binned.K5_LAUNCHES = 0
         self.bvh_ops.SEED_LAUNCHES = 0
+        if self.sky is not None:
+            self.sky.clear()
+            self.capture.sky = 0
 
     def read(self) -> dict:
         t = self.traversal
@@ -380,16 +439,29 @@ class Launches:
             got[f"k2_{variant}"] = t.K2_LAUNCHES[variant]
         for variant in Launches.K3_VARIANTS:
             got[f"k3_{variant}"] = t.K3_LAUNCHES[variant]
+        if self.sky is not None:
+            got["sky"] = self.sky["launches"] - self.capture.sky
         return got
 
     @staticmethod
-    def frame_want(k1_closest: int, k1_any_hit: int, k4: int, k5: int, seed: int = 0) -> dict:
-        """Per-frame counts of a frame: K1, K4, K5 and the seed kernel as
-        given, 0 on every other kernel."""
+    def frame_want(k1_closest: int, k1_any_hit: int, k4: int, k5: int, seed: int = 0,
+                   sky: int = 0) -> dict:
+        """Per-frame counts of a frame: K1, K4, K5, the seed kernel and the
+        sky kernel as given, 0 on every other kernel."""
         want = dict.fromkeys(
             ("k1q", "k2_sd", "k2_sdd", *(f"k3_{v}" for v in Launches.K3_VARIANTS)), 0)
-        want.update(k1_closest=k1_closest, k1_any_hit=k1_any_hit, k4=k4, k5=k5, seed=seed)
+        want.update(k1_closest=k1_closest, k1_any_hit=k1_any_hit, k4=k4, k5=k5, seed=seed,
+                    sky=sky)
         return want
+
+
+# The sky kernel's launches in a RASTERIZED frame (ray-traced passes on):
+# the atmosphere pass and the reflections' misses, each over every pixel;
+# in a PT frame with the exact sky (the StaticConfig default), BOUNCES
+# bounces and one sample: the miss shader's, once a bounce. A PT frame with
+# the cubemap sky (SPONZA_CFG, MC_CFG), a MINIMAL frame and the furnace
+# test launch it never.
+RASTER_SKY, PT_SKY = 2, BOUNCES
 
 
 # Config 5's launches a frame: K1 on the scene's tree and on the dynamic tree
@@ -434,14 +506,14 @@ def run_frames(label: str, app, launches: Launches, want: dict) -> dict:
     return got, steady
 
 
-def pt_schedules(label, app, launches, counted) -> None:
+def pt_schedules(label, app, launches, counted, sky: int) -> None:
     """The PT main path at the StaticConfig defaults (compaction windows and
     the seed test on), then frames with the four fields off, at the
     defaults, and with only the seed test off, in turns (SCHEDULE_PAIRS of
     each; frame times drift across a call, so they are compared in turns):
     launch counts (K1's unchanged; the seed kernel once per any-hit front
-    when on), the medians and their ratios."""
-    per_frame = dict(k1_closest=1 + BOUNCES, k1_any_hit=BOUNCES, k4=0, k5=0)
+    when on; the sky kernel `sky` a frame), the medians and their ratios."""
+    per_frame = dict(k1_closest=1 + BOUNCES, k1_any_hit=BOUNCES, k4=0, k5=0, sky=sky)
     counted.update(run_frames(label, app, launches,
                               Launches.frame_want(**per_frame, seed=BOUNCES))[0])
     cfgs = {"off": app.cfg.replace(**SCHEDULES_OFF), "on": app.cfg,
@@ -1103,6 +1175,88 @@ def seed_phase(label, bvh, fronts, traversal, bvh_ops, launches) -> dict:
             "launches": moved["seed"]}
 
 
+def sky_phase(atmosphere) -> dict:
+    """The sky kernel on the 1920x1080 camera rays of the raster cells' view,
+    one origin for every ray (the atmosphere pass's call): against the plain
+    loop on the same CUDA rays with the sky on and off (every channel within
+    2e-6 + 1e-5 |plain|, NaN where the plain loop is NaN), one launch and
+    every ray counted a call, the kernel's device time against its bound
+    (SKY_OPS_PER_RAY operations at F32_OPS against its bytes), and the plain
+    loop's ms by events (its ~5,000 launches a call outrun any spin)."""
+    from rust_renderer_tpu_torch.camera import Camera
+    from rust_renderer_tpu_torch.renderers.passes import _camera_rays
+    from rust_renderer_tpu_torch.settings import RenderSettings
+
+    cam = Camera(SKY_VIEWPOINT, SKY_TARGET, aspect_ratio=WIDTH / HEIGHT)
+    view = RenderSettings.default().with_camera(cam, WIDTH, HEIGHT).to("cuda")
+    o, d = _camera_rays(view, WIDTH, HEIGHT)
+    sun = view.sun_dir / torch.linalg.vector_norm(view.sun_dir)
+    n = WIDTH * HEIGHT
+
+    def plain(flag):
+        color, _ = atmosphere.integrate_scattering_plain(o, d, 999999999.0, sun, 1.0)
+        return torch.where(flag == 1, torch.clamp_max(color, 1.0), 0.0)
+
+    err, equal = 0.0, []
+    for enabled in (1, 0):
+        flag = torch.tensor(enabled, dtype=torch.int32, device="cuda")
+        before = atmosphere.SKY_LAUNCHES.copy()
+        got = atmosphere.sky_radiance(o, d, sun, flag)
+        moved = dict(atmosphere.SKY_LAUNCHES - before)
+        if moved != {"launches": 1, "rays": n}:
+            raise AssertionError(f"sky: a call moved the counter by {moved}")
+        want = plain(flag)
+        if not torch.equal(torch.isnan(got), torch.isnan(want)):
+            raise AssertionError("sky: the kernel's NaNs are not the plain loop's")
+        ok = ~torch.isnan(want)
+        diff = (got - want).abs()[ok]
+        excess = float((diff - (2e-6 + 1e-5 * want.abs()[ok])).max())
+        if excess > 0.0:
+            raise AssertionError(f"sky: the kernel is off the plain loop by {excess:.3e} "
+                                 "beyond 2e-6 + 1e-5 |plain|")
+        err = max(err, float(diff.max()))
+        equal.append(float((got == want)[ok].float().mean()))
+    flag = torch.tensor(1, dtype=torch.int32, device="cuda")
+    kernel = lambda: atmosphere.sky_radiance(o, d, sun, flag)
+    ms = min(device_ms(kernel, TIMING_REPS) for _ in range(TIMING_ROUNDS))
+    events_ms = cuda_ms(kernel, TIMING_REPS)
+    plain_ms = cuda_ms(lambda: plain(flag), 1)
+    ops_ms = n * SKY_OPS_PER_RAY / F32_OPS * 1e3
+    bytes_ms = n * SKY_BYTES_PER_RAY / HBM_BYTES_S * 1e3
+    bound = max(ops_ms, bytes_ms)
+    log(f"sky kernel on the {WIDTH}x{HEIGHT} front of the raster cells' view: {n} rays; "
+        f"largest |kernel - plain| {err:.3e}, bit-equal share {equal[0]:.6f} (sky on) / "
+        f"{equal[1]:.6f} (off); device ms {ms:.4f} (best of {TIMING_ROUNDS} rounds of "
+        f"{TIMING_REPS}), events {events_ms:.4f}; bound {bound:.4f} ms "
+        f"({SKY_OPS_PER_RAY} operations a ray: {ops_ms:.4f} ms; bytes {bytes_ms:.4f} ms; "
+        f"{ms / bound:.2f}x); plain loop {plain_ms:.2f} ms by events")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "launches": 2}
+
+
+def sky_alone() -> int:
+    """`--sky`: the kernels built, the sky phase, then a RASTERIZED app of
+    the default scene at 1920x1080 (marching cubes off): FRAMES host frames
+    (`run_frames`: the sky kernel launched twice a frame, over every pixel)
+    and the per-pass ms of one more frame; no kernels line and no result
+    line."""
+    from rust_renderer_tpu_torch import native
+    from rust_renderer_tpu_torch.app.main import Application
+    from rust_renderer_tpu_torch.ops import atmosphere, bvh as bvh_ops, raster_binned, traversal
+    from rust_renderer_tpu_torch.settings import RenderGraphMode
+
+    card = build_kernels(native, traversal, raster_binned)
+    sky_phase(atmosphere)
+    app = Application(WIDTH, HEIGHT, RenderGraphMode.RASTERIZED, device="cuda")
+    app.create_scene()
+    run_frames("RASTERIZED", app, Launches(traversal, raster_binned, bvh_ops),
+               Launches.frame_want(2, 1, 4, 0, seed=1, sky=RASTER_SKY))
+    pass_times("RASTERIZED", app)
+    log(f"chip_smoke --sky total {time.perf_counter() - START:.1f} s")
+    print(card)
+    return 0
+
+
 # -- rasterizer ----------------------------------------------------------------
 
 
@@ -1634,7 +1788,7 @@ def raster_gbuffer_phase(Application, StaticConfig, Graph, setup_gbuffer_pass, l
 # Frames compared and turns timed a mode; frames in the profiled window (a
 # host and device trace of a 1080p raster frame takes ~8 s to process).
 UNIFORM_FRAMES, UNIFORM_TURNS, UNIFORM_PROFILED = 3, 6, 1
-UNIFORM_WANT = {"RASTERIZED": Launches.frame_want(2, 1, 4, 1, seed=1),
+UNIFORM_WANT = {"RASTERIZED": Launches.frame_want(2, 1, 4, 1, seed=1, sky=RASTER_SKY),
                 "MINIMAL": Launches.frame_want(1, 0, 4, 0)}
 # The values changed between builds (the defaults: radius 0.3, threshold 0.45).
 UNIFORM_CHANGED = {"radius": 1.5, "fxaa_threshold": 2.0}
@@ -2003,7 +2157,8 @@ def scene_phase(Application, StaticConfig, RenderGraphMode, models, launches, co
         ("RTIOW PT", models.create_rtiow_scene, pt, (RTIOW_SIZE,) * 2, StaticConfig(**SPONZA_CFG),
          Launches.frame_want(BOUNCES, BOUNCES, 0, 0)),
         ("cube RASTERIZED", models.create_cube_scene, RenderGraphMode.RASTERIZED, (CUBE_SIZE,) * 2,
-         StaticConfig(**raster_cfg), Launches.frame_want(2, 1, 4, 0, seed=1)),
+         StaticConfig(**raster_cfg),
+         Launches.frame_want(2, 1, 4, 0, seed=1, sky=RASTER_SKY)),
         ("128-light PT", models.create_restir_many_lights_scene, pt, (WIDTH, HEIGHT),
          StaticConfig(**SPONZA_CFG), Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0,
                                                          seed=BOUNCES)),
@@ -2114,10 +2269,10 @@ APP_GIZMO_MOVE = np.float32([0.6, -0.5, 1.2])
 # the JAX package's flags, none of which turns it on): PT 6 + 5 K1 and 5
 # seed a frame; RASTERIZED 2 + 1 K1, 4 K4, 1 seed (K5 draws the isosurface
 # alone); MINIMAL 1 K1, 4 K4; RTIOW (no light, no triangle) 5 + 5 K1.
-APP_WANT = {"pt": Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0, seed=BOUNCES),
-            "raster": Launches.frame_want(2, 1, 4, 0, seed=1),
+APP_WANT = {"pt": Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0, seed=BOUNCES, sky=PT_SKY),
+            "raster": Launches.frame_want(2, 1, 4, 0, seed=1, sky=RASTER_SKY),
             "minimal": Launches.frame_want(1, 0, 4, 0)}
-APP_RTIOW_WANT = Launches.frame_want(BOUNCES, BOUNCES, 0, 0)
+APP_RTIOW_WANT = Launches.frame_want(BOUNCES, BOUNCES, 0, 0, sky=PT_SKY)
 
 
 def run_main(app_main, PROFILER, image_io, launches, counted, argv, want, size) -> object:
@@ -2448,9 +2603,10 @@ TILES_RANKS, TILES_FRAMES = (2, 4), 2
 # The gathered bands equal one rank's bit for bit (0 in every card run so
 # far, as claimed): any difference fails.
 TILES_ATOL = TILES_RASTER_ATOL = 0.0
-FLAGSHIP_WANT = Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0, seed=BOUNCES)
+FLAGSHIP_WANT = Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0, seed=BOUNCES, sky=PT_SKY)
 TILES_GRAPHS = {"PATH_TRACED": (FLAGSHIP_WANT, TILES_ATOL),
-                "RASTERIZED": (Launches.frame_want(2, 1, 4, 1, seed=1), TILES_RASTER_ATOL),
+                "RASTERIZED": (Launches.frame_want(2, 1, 4, 1, seed=1, sky=RASTER_SKY),
+                               TILES_RASTER_ATOL),
                 "MINIMAL": (Launches.frame_want(1, 0, 4, 0), TILES_RASTER_ATOL)}
 # The row-sharded apps whose device loop the tiles phase runs.
 TILES_LOOPS = ("PATH_TRACED", "RASTERIZED")
@@ -2813,11 +2969,14 @@ def raster_alone() -> int:
     card = build_kernels(native, traversal, raster_binned)
     launches = Launches(traversal, raster_binned, bvh_ops)
     for label, mode, want in (
-            ("RASTERIZED", RenderGraphMode.RASTERIZED, Launches.frame_want(2, 1, 4, 1, seed=1)),
+            ("RASTERIZED", RenderGraphMode.RASTERIZED,
+             Launches.frame_want(2, 1, 4, 1, seed=1, sky=RASTER_SKY)),
             ("MINIMAL", RenderGraphMode.MINIMAL, Launches.frame_want(1, 0, 4, 0))):
         app = Application(WIDTH, HEIGHT, mode, device="cuda")
         app.view = app.view.replace(marching_cubes_enabled=np.int32(label == "RASTERIZED"))
         app.create_scene()
+        if launches.sky is None:  # a port before the sky kernel's counter
+            del want["sky"]
         run_frames(label, app, launches, want)
         times = {}
         for _ in range(RASTER_ALONE_ROUNDS):
@@ -2857,6 +3016,8 @@ def main() -> int:
         return tiles_alone()
     if sys.argv[1:] == ["--raster"]:
         return raster_alone()
+    if sys.argv[1:] == ["--sky"]:
+        return sky_alone()
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -2866,8 +3027,8 @@ def main() -> int:
     from rust_renderer_tpu_torch.models import create_scene, create_sponza_scale_scene
     from rust_renderer_tpu_torch.graph import Graph
     from rust_renderer_tpu_torch.ops import (
-        bvh as bvh_ops, compaction, marching_cubes, mc_bvh, pathtrace, raster, raster_binned,
-        rays, shadow, traversal)
+        atmosphere, bvh as bvh_ops, compaction, marching_cubes, mc_bvh, pathtrace, raster,
+        raster_binned, rays, shadow, traversal)
     from rust_renderer_tpu_torch.renderers.passes import setup_gbuffer_pass
     from rust_renderer_tpu_torch.settings import RenderGraphMode, StaticConfig
 
@@ -2883,12 +3044,12 @@ def main() -> int:
     log(f"PT: scene + BVH build {time.perf_counter() - t0:.3f} s, "
         f"{app.scene.num_triangles} triangles, {app.scene_bvh.wnode_packed.shape[0]} "
         f"wide nodes, wide depth {app.scene_bvh.wide_depth}")
-    pt_schedules("PT", app, launches, counted)
+    pt_schedules("PT", app, launches, counted, PT_SKY)
     fronts["default"] = make_fronts(app, traversal, rays, pathtrace)
     bvhs["default"] = app.scene_bvh
     k1 = k1_phase(app, traversal, fronts["default"])
     del app
-    pt_want = Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0, seed=BOUNCES)
+    pt_want = Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0, seed=BOUNCES, sky=PT_SKY)
     loop_phase("PT device loop", Application, RenderGraphMode.PATH_TRACED,
                StaticConfig(num_bounces=BOUNCES), create_scene, launches, counted, pt_want)
     pt_parity_phase(Application, StaticConfig)
@@ -2926,14 +3087,14 @@ def main() -> int:
         f"wide depth {bvh.wide_depth} (K1 stack need {traversal.k1_stack_need(bvh.wide_depth)}"
         f" of {traversal.K1_STACK_CAP}), {bvh.wnode_q32.shape[0]} q32 nodes, q32 depth "
         f"{bvh.q32_depth}, binary depth {bvh.max_depth}")
-    pt_schedules("Sponza-scale PT", app, launches, counted)
+    pt_schedules("Sponza-scale PT", app, launches, counted, 0)
     fronts["sponza_scale"] = make_fronts(app, traversal, rays, pathtrace)
     bvhs["sponza_scale"] = bvh
     log(f"Sponza-scale PT peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del app, bvh
     loop_phase("Sponza-scale PT device loop", Application, RenderGraphMode.PATH_TRACED,
                StaticConfig(**SPONZA_CFG), create_sponza_scale_scene, launches, counted,
-               pt_want)
+               dict(pt_want, sky=0))
 
     # The traversal entry points under every kernel option, on both scenes;
     # then compaction and the seed test on the same fronts.
@@ -2950,6 +3111,7 @@ def main() -> int:
     seeds = {scene: seed_phase(f"seed {scene}", bvhs[scene], fronts[scene], traversal, bvh_ops,
                                launches) for scene in fronts}
     del fronts, bvhs
+    sky = sky_phase(atmosphere)
     deep = deep_tree_phase(traversal, bvh_ops, launches)
 
     # RASTERIZED with the marching-cubes draw.
@@ -2957,12 +3119,13 @@ def main() -> int:
     app.view = app.view.replace(marching_cubes_enabled=np.int32(1))
     app.create_scene()
     counted.update(run_frames("RASTERIZED", app, launches,
-                              Launches.frame_want(2, 1, 4, 1, seed=1))[0])
+                              Launches.frame_want(2, 1, 4, 1, seed=1, sky=RASTER_SKY))[0])
     gbuffer_depth = pass_times("RASTERIZED", app)["gbuffer"]["gbuffer_depth"]
     k4 = k4_phase(app, raster, raster_binned, shadow)
     k5 = k5_phase(app, raster, raster_binned, marching_cubes, gbuffer_depth)
     log(f"RASTERIZED peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    raster_loop("RASTERIZED", app, launches, counted, Launches.frame_want(2, 1, 4, 1, seed=1))
+    raster_loop("RASTERIZED", app, launches, counted,
+                Launches.frame_want(2, 1, 4, 1, seed=1, sky=RASTER_SKY))
     del app, gbuffer_depth
 
     # MINIMAL.
@@ -3004,9 +3167,10 @@ def main() -> int:
             r["outside_own_box"] for r in runs))))
     kernels += [("seed", counted["seed"] + sum(r["launches"] for r in seeds.values()),
                  seeds["default"]),
-                ("k4", counted["k4"], k4), ("k5", counted["k5"], k5)]
+                ("k4", counted["k4"], k4), ("k5", counted["k5"], k5),
+                ("sky", counted["sky"] + sky["launches"], sky)]
     names = {"k1": "k1_traverse_wide", "k4": "k4_depth_binned", "k5": "k5_vis_binned",
-             "seed": "seed_occlusion"}
+             "seed": "seed_occlusion", "sky": "sky_scatter"}
     line = []
     for key, launched, stats in kernels:
         source, replaces = SOURCES[key]

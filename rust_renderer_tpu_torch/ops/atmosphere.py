@@ -3,14 +3,25 @@ Felix Westin's model), the port of ``rust_renderer_tpu/ops/atmosphere.py``.
 
 Rayleigh/Mie/ozone densities, 8-sample optical depth toward the light,
 16-sample exponentially distributed view-ray integration, exposure 20.
+
+`integrate_scattering` and `sky_radiance` take, for CPU tensors, the plain
+loop (`integrate_scattering_plain`, held against the JAX package by the CPU
+tests) and, for CUDA tensors, the sky kernel (``csrc/atmosphere.cu``: the
+same float32 operations in the same order, one thread a ray, one launch a
+call), or raise. `SKY_LAUNCHES` counts the kernel's launches and the rays
+they integrated; nothing else changes it.
 """
 
 from __future__ import annotations
 
+import collections
 import math
+import numbers
 
+import numpy as np
 import torch
 
+from rust_renderer_tpu_torch.ops import traversal
 from rust_renderer_tpu_torch.ops.constants import device_constant
 from rust_renderer_tpu_torch.ops.rays import dot, length
 
@@ -28,6 +39,9 @@ _PLANET_CENTER = (0.0, -PLANET_RADIUS, 0.0)
 
 _OPTICAL_DEPTH_SAMPLES = 8
 _SCATTERING_SAMPLES = 16
+
+# The sky kernel's launches and the rays they integrated.
+SKY_LAUNCHES: collections.Counter = collections.Counter()  # "launches", "rays"
 
 
 def _sphere_intersection(ray_start, ray_dir, center, radius):
@@ -109,8 +123,22 @@ def integrate_scattering(ray_start, ray_dir, ray_length, light_dir, light_color)
     """Single-light scattering integral (glsl:154-215).
 
     ray_start/ray_dir: (...,3); ray_length float or (...,); light_dir (3,).
-    Returns (color (...,3), transmittance (...,3)).
+    Returns (color (...,3), transmittance (...,3)). CPU tensors take the
+    plain loop; CUDA tensors the sky kernel, which takes ray_length and
+    light_color as numbers only and raises on a tensor.
     """
+    dev = ray_dir.device
+    if dev.type == "cpu":
+        return integrate_scattering_plain(ray_start, ray_dir, ray_length, light_dir,
+                                          light_color)
+    if dev.type == "cuda":
+        return sky_scatter_cuda(ray_start, ray_dir, light_dir, ray_length, light_color)
+    raise ValueError(f"no scattering integral for device {dev}")
+
+
+def integrate_scattering_plain(ray_start, ray_dir, ray_length, light_dir, light_color):
+    """`integrate_scattering`'s plain version: the eager loop of tensor
+    operations, the function the sky kernel computes."""
     ray_height = _atmosphere_height(ray_start)
     exponent = 1.0 + torch.clamp(1.0 - ray_height / ATMOSPHERE_HEIGHT, 0.0, 1.0) * 8.0
 
@@ -156,7 +184,60 @@ def integrate_scattering(ray_start, ray_dir, ray_length, light_dir, light_color)
 
 def sky_radiance(ray_origin, ray_dir, sun_dir, sky_enabled):
     """Miss-shader sky (pathtrace_reference/reference.rmiss): scattering
-    clamped to <= 1, black when the sky toggle is off."""
+    clamped to <= 1, black when the sky toggle is off. On CUDA tensors one
+    launch of the sky kernel, which reads `sun_dir` and `sky_enabled` (a
+    tensor on the rays' device) from device memory."""
+    if ray_dir.device.type == "cuda":
+        return sky_scatter_cuda(ray_origin, ray_dir, sun_dir, 999999999.0, 1.0,
+                                sky_enabled=sky_enabled)[0]
     color, _ = integrate_scattering(ray_origin, ray_dir, 999999999.0, sun_dir, 1.0)
     color = torch.clamp_max(color, 1.0)
     return torch.where(sky_enabled == 1, color, 0.0)
+
+
+def sky_scatter_cuda(ray_start, ray_dir, light_dir, ray_length, light_color,
+                     sky_enabled=None):
+    """Launch the sky kernel (``csrc/atmosphere.cu``) on CUDA rays.
+
+    ray_start: (..., 3) or one (3,) origin broadcast over the rays (copied to
+    one a ray); ray_dir (..., 3); light_dir (3,); ray_length and light_color
+    numbers. Without `sky_enabled`, `integrate_scattering`'s (color,
+    transmittance); with it (a one-element tensor on the rays' device),
+    `sky_radiance`'s color and None."""
+    dev = ray_dir.device
+    if not isinstance(ray_length, numbers.Real) or not isinstance(light_color, numbers.Real):
+        raise ValueError("the sky kernel takes ray_length and light_color as numbers, "
+                         f"got {type(ray_length).__name__} and {type(light_color).__name__}")
+    # numpy's rule: torch.broadcast_shapes imports sympy (~4 s) at first use.
+    shape = np.broadcast_shapes(tuple(ray_start.shape), tuple(ray_dir.shape))
+    if shape[-1:] != (3,):
+        raise ValueError(f"rays of shape {tuple(shape)} do not end in 3")
+    d = ray_dir.expand(shape).reshape(-1, 3).contiguous()
+    n = d.shape[0]
+    traversal._check("direction", d, torch.float32, (n, 3), dev)
+    if n >= 2 ** 31:
+        raise ValueError(f"{n} rays exceed one sky kernel launch")
+    color = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    trans = None if sky_enabled is not None else torch.empty_like(color)
+    o = ray_start.expand(shape).reshape(-1, 3).contiguous()
+    traversal._check("origin", o, torch.float32, (n, 3), dev)
+    light = light_dir.reshape(-1).contiguous()
+    traversal._check("light_dir", light, torch.float32, (3,), dev)
+    flag = None
+    if sky_enabled is not None:
+        if not isinstance(sky_enabled, torch.Tensor):
+            raise ValueError("the sky kernel reads sky_enabled from a tensor on the rays' "
+                             f"device, got {type(sky_enabled).__name__}")
+        flag = sky_enabled.reshape(-1).contiguous()
+        traversal._check("sky_enabled", flag, torch.int32, (1,), dev)
+    if n:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = traversal.library("sky_scatter").sky_scatter(
+            o.data_ptr(), d.data_ptr(), light.data_ptr(),
+            None if flag is None else flag.data_ptr(), float(ray_length),
+            float(light_color), n, color.data_ptr(),
+            None if trans is None else trans.data_ptr(), stream)
+        traversal._raise_on(err, "the sky kernel")
+        SKY_LAUNCHES["launches"] += 1
+        SKY_LAUNCHES["rays"] += n
+    return color.reshape(shape), None if trans is None else trans.reshape(shape)

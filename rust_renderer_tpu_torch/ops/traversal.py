@@ -70,6 +70,9 @@ SOURCES = {
     "k3_traverse_multi": os.path.join(CSRC, "traverse_multi.cu"),
     # The seed test of ops/bvh.py::make_seed_test (no TPU kernel: XLA fused it).
     "seed_occlusion": os.path.join(CSRC, "seed_occlusion.cu"),
+    # The atmosphere's scattering integral of ops/atmosphere.py (no TPU
+    # kernel: XLA fused the JAX package's tensor code).
+    "sky_scatter": os.path.join(CSRC, "atmosphere.cu"),
 }
 # Compile-time constants of the kernels (csrc/*.cu).
 K1_STACK_CAP = 256
@@ -140,6 +143,10 @@ _ARGTYPES = {
     # rays (4), the host triangle table, then ints, the verdicts, the walk's
     # directions, stream
     "seed_occlusion": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+    + [ctypes.c_void_p] * 3,
+    # origin, direction, light direction, sky flag, ray length, light
+    # color, rays, color, transmittance, stream
+    "sky_scatter": [ctypes.c_void_p] * 4 + [ctypes.c_float] * 2 + [ctypes.c_int]
     + [ctypes.c_void_p] * 3,
 }
 
