@@ -6,6 +6,7 @@
     python3 chip_smoke.py --tiles # the tiles phase alone (`tiles_alone`)
     python3 chip_smoke.py --raster # the raster apps' host frames and passes alone
     python3 chip_smoke.py --sky   # the sky kernel alone (`sky_alone`)
+    python3 chip_smoke.py --k4    # K4 alone on the Sponza-scale cascades (`k4_alone`)
 
 Builds the traversal kernels (rust_renderer_tpu_torch/csrc/traverse_wide.cu:
 K1 and K3's wide forms; traverse_q32.cu: K1q; traverse_drain.cu: K2;
@@ -104,7 +105,9 @@ one nvcc per source, started together; then:
    with them, host-to-device copies of a steady frame of each form
    (torch.profiler), frame ms of the two in turns;
 16. K4 against its plain version on the 4 cascades of the default scene at
-   4096^2 (bit for bit), with its work plan (items, the longest item's
+   4096^2 (bit for bit) and against the float64 interpolation at its own
+   coverage (`depth_exact`: within K4_EXACT_ATOL on every covered texel,
+   the same coverage), with its work plan (items, the longest item's
    rows), the (row, pixel) box pairs it tests and the share of (tile,
    global row) pairs the boxes cull; and K5 on the marching-cubes front at
    1920x1080 over the gbuffer depth, with its plan and box pairs; times on
@@ -264,10 +267,12 @@ TRI_TEST_OPS = 52
 # (+ 9 + 6 + 1 add + 2 compares); t (+ 6 + 2 compares).
 SEED_DET_OPS, SEED_U_OPS, SEED_V_OPS, SEED_T_OPS = 15, 27, 45, 53
 # K4 / K5 per (row, pixel) test (csrc/raster_binned.cu): 3 edges x 3 ops, 3
-# compares, the depth 6 (K4) or the barycentrics and depth 8 (K5), the
-# depth compare / select 2.
+# compares, the depth plane from the first vertex 6 (2 offsets, 2 products,
+# 2 sums), the depth compare / select 2.
 K4_PAIR_OPS = 20
-K5_PAIR_OPS = 22
+K5_PAIR_OPS = 20
+# K4's largest gap to the float64 interpolation on a covered texel.
+K4_EXACT_ATOL = 1e-5
 # The sky kernel's operations a ray (csrc/atmosphere.cu in sky_radiance's
 # form), counted in the code: 73 float32 operations, 2 sqrtf and 3 divisions
 # before the march; 16 view samples of 367 operations, 10 sqrtf, 24 expf, a
@@ -1325,12 +1330,27 @@ def binning_line(stats: dict) -> str:
             f"{stats['live']} live")
 
 
-def k4_phase(app, raster, raster_binned, shadow) -> dict:
-    """K4 against its plain version on the default scene's cascades: bit for
-    bit, its plan, its time on the device alone (its wrapper's clear and
-    plan included) and by events around back-to-back calls (the host's
-    enqueueing included), the plain version's by events; the binning's
-    device ms and table bytes beside it (`binning_stats`)."""
+def exact_gap(raster_binned, got, clip, indices, size: int) -> dict:
+    """K4's depth `got` against the float64 interpolation at K4's own
+    coverage (`raster_binned.depth_exact`): whether the coverage is the
+    same, the largest gap on a covered texel and the texels beyond 1e-4
+    and beyond the shadow bias (5e-4)."""
+    exact = raster_binned.depth_exact(clip, indices, size, size)
+    covered = exact < 1.0
+    gap = (got.double() - exact)[covered].abs()
+    return {"same_coverage": bool(torch.equal(got < 1.0, covered)),
+            "max_gap": float(gap.max()) if gap.numel() else 0.0,
+            "beyond_1e-4": int((gap > 1e-4).sum()), "beyond_5e-4": int((gap > 5e-4).sum())}
+
+
+def k4_phase(app, raster, raster_binned, shadow, check_exact: bool = True) -> dict:
+    """K4 against its plain version on the app's scene's cascades: bit for
+    bit, against the float64 interpolation (`exact_gap`; held to
+    K4_EXACT_ATOL with `check_exact`), its plan, its time on the device
+    alone (its wrapper's clear and plan included) and by events around
+    back-to-back calls (the host's enqueueing included), the plain
+    version's by events; the binning's device ms and table bytes beside it
+    (`binning_stats`)."""
     cfg, scene = app.cfg, app.scene
     size = cfg.shadow_map_size
     matrices, _ = shadow.cascade_matrices(
@@ -1349,6 +1369,12 @@ def k4_phase(app, raster, raster_binned, shadow) -> dict:
             raise AssertionError(f"K4 cascade {i}: depth differs from the plain version on "
                                  f"{int((got != want).sum())} texels")
         err = max(err, float((got - want).abs().max()))
+        exact = exact_gap(raster_binned, got, clip, scene.indices, size)
+        log(f"K4 cascade {i} against the float64 interpolation: {exact}")
+        if check_exact and not (exact["same_coverage"]
+                                and exact["max_gap"] <= K4_EXACT_ATOL):
+            raise AssertionError(f"K4 cascade {i}: depth departs from the float64 "
+                                 f"interpolation: {exact}")
         k4()  # warm-up
         k4_ms.append(device_ms(k4, TIMING_REPS))
         events_ms = cuda_ms(k4, TIMING_REPS)
@@ -1449,6 +1475,32 @@ def k5_phase(app, raster, raster_binned, marching_cubes, gbuffer_depth) -> dict:
         f"the key plane's own traffic, written and read once, adds {key_ms:.4f})")
     return {"max_abs_err": err, "ms": k5_ms, "plain_ms": plain_ms,
             "bound_ms": bound["bound_ms"], "bound_by": bound["bound_by"]}
+
+
+def k4_alone() -> int:
+    """`chip_smoke.py --k4`: the kernels built, then `k4_phase` on the four
+    4096^2 cascades of the Sponza-scale scene (the benchmark's
+    raster_sponza_1080p), TIMING_ROUNDS times; the gaps to the float64
+    interpolation logged, not held. It reads K4 through
+    `depth_binned_cuda(bins, size, size)` and the binning, so a copy of this
+    script beside another checkout's package times that checkout's K4 on
+    the same cascades (given `raster_binned.depth_exact` where it has
+    none)."""
+    from rust_renderer_tpu_torch import native
+    from rust_renderer_tpu_torch.app.main import Application
+    from rust_renderer_tpu_torch.models import create_sponza_scale_scene
+    from rust_renderer_tpu_torch.ops import raster, raster_binned, shadow, traversal
+    from rust_renderer_tpu_torch.settings import RenderGraphMode
+
+    card = build_kernels(native, traversal, raster_binned)
+    app = Application(WIDTH, HEIGHT, RenderGraphMode.RASTERIZED, device="cuda")
+    app.create_scene(create_sponza_scale_scene)
+    for r in range(TIMING_ROUNDS):
+        k4 = k4_phase(app, raster, raster_binned, shadow, check_exact=False)
+        log(f"K4 alone round {r}: {k4}")
+    log(f"chip_smoke --k4 total {time.perf_counter() - START:.1f} s")
+    print(card)
+    return 0
 
 
 def k5_alone() -> int:
@@ -3018,6 +3070,8 @@ def main() -> int:
         return raster_alone()
     if sys.argv[1:] == ["--sky"]:
         return sky_alone()
+    if sys.argv[1:] == ["--k4"]:
+        return k4_alone()
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2

@@ -5,16 +5,19 @@
 // _depth_kernel (K4, launched by _run / rasterize_depth_binned) and
 // _vis_kernel (K5, launched by _run_vis / rasterize_binned). Same contract
 // over the table that ops/raster_binned.py::bin_triangles builds:
-//   table (R, 16) f32 for K4, (R, 24) f32 for K5, rows contiguous:
-//     [A0,B0,C0, A1,B1,C1, A2,B2,C2, z0,z1,z2, inv_abs_area, ...]; K5 rows go
-//     on with [iw0,iw1,iw2, b0u,b0v,b1u,b1v,b2u,b2v, orig_id, 0].
+//   table (R, 16) f32 for K4, (R, 28) f32 for K5, rows contiguous:
+//     [A0,B0,C0, A1,B1,C1, A2,B2,C2, z0,dzdx,dzdy, inv_abs_area, x0,y0, 0],
+//     (x0, y0) the first vertex's screen position, z0 its depth and (dzdx,
+//     dzdy) the depth's gradient; K5 rows go on with [iw0,iw1,iw2,
+//     b0u,b0v,b1u,b1v,b2u,b2v, orig_id, 0,0].
 //   rows [g_base, g_base + g_count) are the global list, every tile's
 //   segment is rows [starts[t], starts[t] + counts[t]). g_base is static
 //   (the table's shape); g_count lives on the device (Bins.g_count), and the
 //   plan kernel copies it into `gmeta` = (g_count, g_items) beside the
 //   plan, where K4 and K5 read it, so a launch needs no host read.
 //   K4: depth = min(1, least z of the rows whose three edge functions are
-//       >= 0 at the pixel center), z = (e1*z0 + e2*z1 + e0*z2) * inv_abs_area.
+//       >= 0 at the pixel center), z = (z0 + dzdx*dx) + dzdy*dy, (dx, dy) the
+//       center's offset from the first vertex.
 //   K5: (depth, tri, u, v) from a clear of (1, -1, 0, 0); a row is taken
 //       where inside, z <= depth and z <= 1, so the later row wins a tie.
 //
@@ -45,7 +48,7 @@
 //     to 1.0. The minimum does not depend on the order, so the result does
 //     not depend on the schedule.
 //
-// K5: the same work (each row on its box's pixels, ~22 operations a pair), and
+// K5: the same work (each row on its box's pixels, ~20 operations a pair), and
 // the same two obstacles, so the same scheme: K4's plan and persistent grid,
 // each row tested on its box only. K5 keeps the row that is inside, has the
 // least z <= 1 and is the latest of the walk on a tie (global list, then the
@@ -60,9 +63,13 @@
 // the two passes: as PyTorch's small operations, the plan and the boxes'
 // clip had cost K5 about as much device time as its kernels (PERF.md).
 //
-// The operation order follows the JAX kernels and the plain PyTorch
-// versions; build with -fmad=false so no multiply-add is contracted and K4's
-// depth is bit-equal to the plain version on the same table.
+// The operation order follows the plain PyTorch versions; build with
+// -fmad=false so no multiply-add is contracted and K4's depth is bit-equal
+// to the plain version on the same table. The edge functions decide
+// coverage as the JAX kernels do; depth and barycentrics are interpolated
+// from the first vertex, since at texel coordinates in the thousands A*x and
+// C cancel in float32 (the JAX kernels' (e1*z0 + e2*z1 + e0*z2) * ia was off
+// by up to 0.03 on a 4096^2 shadow cascade; the depth plane by 7.2e-8 at most).
 
 #if defined(__CUDACC__)
 #include <cuda_runtime.h>
@@ -73,7 +80,7 @@
 #define RB_TILE_W 256
 #define RB_TILE_PIX (RB_TILE_H * RB_TILE_W)
 #define RB_DEPTH_STRIDE 16
-#define RB_VIS_STRIDE 24
+#define RB_VIS_STRIDE 28
 #define RB_ONE_BITS 0x3F800000  // 1.0f
 #define K4_THREADS 512
 #define K4_ITEM_ROWS 1024   // ops/raster_binned.py K4_ITEM_ROWS
@@ -101,7 +108,7 @@ __device__ __forceinline__ void depth_min(float* slot, float z) {
 }
 
 struct DepthRow {
-  float a0, b0, c0, a1, b1, c1, a2, b2, c2, z0, z1, z2, ia;
+  float a0, b0, c0, a1, b1, c1, a2, b2, c2, z0, dzdx, dzdy, ia, x0, y0;
 };
 
 __device__ __forceinline__ DepthRow load_depth_row(const float* __restrict__ table,
@@ -109,20 +116,44 @@ __device__ __forceinline__ DepthRow load_depth_row(const float* __restrict__ tab
   const float4* q = reinterpret_cast<const float4*>(table) +
                     static_cast<int64_t>(row) * (RB_DEPTH_STRIDE / 4);
   const float4 u = __ldg(q), v = __ldg(q + 1), w = __ldg(q + 2), s = __ldg(q + 3);
-  return {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w, w.x, w.y, w.z, w.w, s.x};
+  return {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w, w.x, w.y, w.z, w.w, s.x, s.y, s.z};
 }
 
-// One (row, pixel) test in the plain version's order ((A*x + B*y) + C per
-// edge); lowers the tile's depth at pixel (x, y) of the tile at (tx0, ty0).
+// Whether the pixel center (px, py) is inside row q: its three edge
+// functions, (A*x + B*y) + C each, >= 0.
+__device__ __forceinline__ bool inside(const DepthRow& q, float px, float py) {
+  const float e0 = q.a0 * px + q.b0 * py + q.c0;
+  const float e1 = q.a1 * px + q.b1 * py + q.c1;
+  const float e2 = q.a2 * px + q.b2 * py + q.c2;
+  return e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f;
+}
+
+// The depth of row q at (px, py), in the plain version's order (_depth): its
+// plane from the first vertex.
+__device__ __forceinline__ float depth_at(const DepthRow& q, float px, float py) {
+  return q.z0 + q.dzdx * (px - q.x0) + q.dzdy * (py - q.y0);
+}
+
+// The depth and barycentrics of row q at (px, py), in the plain version's
+// order (_interpolate): l1 and l2 from the edge functions through the first
+// vertex, taken relative to it, over the area; l0 = 1 - l1 - l2.
+__device__ __forceinline__ float interpolate(const DepthRow& q, float px, float py,
+                                             float& l0, float& l1, float& l2) {
+  const float dx = px - q.x0, dy = py - q.y0;
+  l1 = (q.a2 * dx + q.b2 * dy) * q.ia;
+  l2 = (q.a0 * dx + q.b0 * dy) * q.ia;
+  l0 = 1.0f - l1 - l2;
+  return q.z0 + q.dzdx * dx + q.dzdy * dy;
+}
+
+// One (row, pixel) test; lowers the tile's depth at pixel (x, y) of the
+// tile at (tx0, ty0).
 __device__ __forceinline__ void depth_test(const DepthRow& q, int x, int y,
                                            int tx0, int ty0, float* depth) {
   const float px = static_cast<float>(x) + 0.5f;
   const float py = static_cast<float>(y) + 0.5f;
-  const float e0 = q.a0 * px + q.b0 * py + q.c0;
-  const float e1 = q.a1 * px + q.b1 * py + q.c1;
-  const float e2 = q.a2 * px + q.b2 * py + q.c2;
-  if (e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f) {
-    const float z = (e1 * q.z0 + e2 * q.z1 + e0 * q.z2) * q.ia;
+  if (inside(q, px, py)) {
+    const float z = depth_at(q, px, py);
     float* slot = depth + (y - ty0) * RB_TILE_W + (x - tx0);
     if (!(z >= *slot)) depth_min(slot, z);  // skips most atomics; a stale read only costs one
   }
@@ -275,16 +306,16 @@ __device__ __forceinline__ unsigned long long vis_key(float z, int pos) {
   return static_cast<unsigned long long>(key) ^ 0x8000000000000000ull;
 }
 
-// A K5 row's first 13 columns, which are a K4 row's.
+// A K5 row's first 16 columns, which are a K4 row.
 __device__ __forceinline__ DepthRow load_vis_row(const float* __restrict__ table,
                                                int row) {
   const float4* q = reinterpret_cast<const float4*>(table) +
                     static_cast<int64_t>(row) * (RB_VIS_STRIDE / 4);
   const float4 u = __ldg(q), v = __ldg(q + 1), w = __ldg(q + 2), s = __ldg(q + 3);
-  return {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w, w.x, w.y, w.z, w.w, s.x};
+  return {u.x, u.y, u.z, u.w, v.x, v.y, v.z, v.w, w.x, w.y, w.z, w.w, s.x, s.y, s.z};
 }
 
-// One (row, pixel) test in the plain version's order (_vis_terms): where
+// One (row, pixel) test in the plain version's order (_depth): where
 // inside and z <= 1, lowers the tile's key at pixel (x, y). The high word of
 // a key only falls, so a candidate whose high word is above it can skip the
 // atomic; a 32-bit read of it is never torn.
@@ -293,12 +324,8 @@ __device__ __forceinline__ void vis_test(const DepthRow& q, int x, int y, int tx
                                          unsigned long long* keys) {
   const float px = static_cast<float>(x) + 0.5f;
   const float py = static_cast<float>(y) + 0.5f;
-  const float e0 = q.a0 * px + q.b0 * py + q.c0;
-  const float e1 = q.a1 * px + q.b1 * py + q.c1;
-  const float e2 = q.a2 * px + q.b2 * py + q.c2;
-  if (!(e0 >= 0.0f && e1 >= 0.0f && e2 >= 0.0f)) return;
-  const float l0 = e1 * q.ia, l1 = e2 * q.ia, l2 = e0 * q.ia;
-  const float z = l0 * q.z0 + l1 * q.z1 + l2 * q.z2;
+  if (!inside(q, px, py)) return;
+  const float z = depth_at(q, px, py);
   if (!(z <= 1.0f)) return;
   const unsigned long long key = vis_key(z, pos);
   unsigned long long* slot = keys + (y - ty0) * RB_TILE_W + (x - tx0);
@@ -413,24 +440,20 @@ k5_decode_kernel(const float* __restrict__ table,
   const int x = i % width, y = i / width;
   const int tile = (y / RB_TILE_H) * nx + x / RB_TILE_W;
   const int row = pos < g_count ? g_base + pos : __ldg(starts + tile) + pos - g_count;
+  const DepthRow r = load_vis_row(table, row);
   const float* q = table + static_cast<int64_t>(row) * RB_VIS_STRIDE;
-  const float px = static_cast<float>(x) + 0.5f;
-  const float py = static_cast<float>(y) + 0.5f;
-  const float e0 = __ldg(q + 0) * px + __ldg(q + 1) * py + __ldg(q + 2);
-  const float e1 = __ldg(q + 3) * px + __ldg(q + 4) * py + __ldg(q + 5);
-  const float e2 = __ldg(q + 6) * px + __ldg(q + 7) * py + __ldg(q + 8);
-  const float ia = __ldg(q + 12);
-  const float l0 = e1 * ia, l1 = e2 * ia, l2 = e0 * ia;
-  const float z = l0 * __ldg(q + 9) + l1 * __ldg(q + 10) + l2 * __ldg(q + 11);
+  float l0, l1, l2;
+  const float z = interpolate(r, static_cast<float>(x) + 0.5f, static_cast<float>(y) + 0.5f,
+                              l0, l1, l2);
   // perspective correction, composed through the original triangle's
   // barycentrics (ops/raster.py semantics)
-  const float lw0 = l0 * __ldg(q + 13), lw1 = l1 * __ldg(q + 14), lw2 = l2 * __ldg(q + 15);
+  const float lw0 = l0 * __ldg(q + 16), lw1 = l1 * __ldg(q + 17), lw2 = l2 * __ldg(q + 18);
   const float denom = lw0 + lw1 + lw2;
   const float rden = 1.0f / (fabsf(denom) < 1e-12f ? 1.0f : denom);
   depth[i] = z;
-  tri[i] = static_cast<int>(__ldg(q + 22));
-  u_out[i] = (lw0 * __ldg(q + 16) + lw1 * __ldg(q + 18) + lw2 * __ldg(q + 20)) * rden;
-  v_out[i] = (lw0 * __ldg(q + 17) + lw1 * __ldg(q + 19) + lw2 * __ldg(q + 21)) * rden;
+  tri[i] = static_cast<int>(__ldg(q + 25));
+  u_out[i] = (lw0 * __ldg(q + 19) + lw1 * __ldg(q + 21) + lw2 * __ldg(q + 23)) * rden;
+  v_out[i] = (lw0 * __ldg(q + 20) + lw1 * __ldg(q + 22) + lw2 * __ldg(q + 24)) * rden;
 }
 
 }  // namespace

@@ -244,7 +244,7 @@ def rasterize_brute(clip, indices, width: int, height: int,
     return merge_visibility(found, init)
 
 
-def _binned(device, method: str) -> bool:
+def binned_path(device, method: str) -> bool:
     """True for the binned path (K4 / K5, or their plain versions on CPU
     tensors), False for the brute path."""
     if device.type not in ("cpu", "cuda"):
@@ -265,7 +265,7 @@ def rasterize(clip, indices, width: int, height: int, chunk: int = _CHUNK,
     K5; CPU tensors take the brute path (its triangles folded `chunk` at a
     time, as in the JAX package), or K5's plain version with
     method="binned"."""
-    if _binned(clip.device, method):
+    if binned_path(clip.device, method):
         from rust_renderer_tpu_torch.ops.raster_binned import rasterize_binned
 
         return rasterize_binned(clip, indices, width, height, init=init)
@@ -277,7 +277,7 @@ def rasterize_depth(clip, indices, width: int, height: int, chunk: int = _CHUNK,
     """Depth-only rasterization (shadow cascades, shadow.rs:111-131): min z,
     clear 1.0. CUDA tensors launch K4; CPU tensors take the brute path, or
     K4's plain version with method="binned"."""
-    if _binned(clip.device, method):
+    if binned_path(clip.device, method):
         from rust_renderer_tpu_torch.ops.raster_binned import rasterize_depth_binned
 
         return rasterize_depth_binned(clip, indices, width, height)

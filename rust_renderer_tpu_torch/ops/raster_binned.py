@@ -5,8 +5,12 @@ and the plain PyTorch version of each (the port of
 1. `tri_rows`: clip and screen-transform the triangles and precompute per
    triangle three edge functions E_i(x, y) = A_i·x + B_i·y + C_i,
    sign-normalized so that inside means all E >= 0 for both windings (cull
-   mode NONE), and the vertex depths. Invalid triangles become dead rows
-   (zero gradients, C = -1: never inside).
+   mode NONE), the depth plane (the first vertex's depth and the depth's
+   gradient) and the first vertex's screen position. Invalid triangles
+   become dead rows (zero gradients, C = -1: never inside). The edge
+   functions decide coverage; depth and barycentrics are interpolated from
+   the first vertex (`_interpolate`), since at texel coordinates in the
+   thousands the terms A·x and C of an edge function cancel in float32.
 2. `bin_triangles`: bin triangles to 32x256-pixel tiles by screen bounding
    box, in static shapes and with no read back to the host. Every clipped
    triangle emits SPAN_X x SPAN_Y candidate (tile, triangle) pairs; a pair
@@ -64,10 +68,11 @@ TILE_W = 256
 SPAN_X = 2  # tiles a triangle may span horizontally before going global
 SPAN_Y = 4
 DEPTH_STRIDE = 16  # f32 per depth row
-VIS_STRIDE = 24  # f32 per visibility row
+VIS_STRIDE = 28  # f32 per visibility row: a depth row, then the visibility columns
 # K4's and K5's work item: at most this many rows of one tile
 # (raster_binned.cu).
 K4_ITEM_ROWS = 1024
+VIS_ORIG = 25  # a visibility row's original triangle id
 _PAIR_BUDGET = 1 << 24
 
 SOURCE = os.path.join(native.PACKAGE_DIR, "csrc", "raster_binned.cu")
@@ -109,10 +114,11 @@ class Bins(NamedTuple):
 def tri_rows(clip, indices, width: int, height: int, vis: bool = False) -> TriRows:
     """Per-triangle rows and tile boxes (raster_binned.py:54-139).
 
-    Depth rows: [A0,B0,C0, A1,B1,C1, A2,B2,C2, z0,z1,z2, inv_abs_area, 0,0,0].
-    Visibility rows add [iw0,iw1,iw2, b0u,b0v,b1u,b1v,b2u,b2v, orig_id, 0]
-    after inv_abs_area, for perspective-correct original-triangle
-    barycentrics."""
+    Depth rows: [A0,B0,C0, A1,B1,C1, A2,B2,C2, z0,dzdx,dzdy, inv_abs_area,
+    x0,y0, 0], (x0, y0) the first vertex's screen position and z0 its
+    depth, (dzdx, dzdy) the depth's gradient in pixels. Visibility rows are
+    a depth row followed by [iw0,iw1,iw2, b0u,b0v,b1u,b1v,b2u,b2v, orig_id,
+    0,0], for perspective-correct original-triangle barycentrics."""
     tri_pos, tri_bary, tri_orig = clip_triangles_near(clip, indices)
     t2 = tri_pos.shape[0]
     screen, w = clip_to_screen(tri_pos.reshape(-1, 4), width, height)
@@ -136,15 +142,19 @@ def tri_rows(clip, indices, width: int, height: int, vis: bool = False) -> TriRo
     a1, b1, c1 = edge(x1, y1, x2, y2)
     a2, b2, c2 = edge(x2, y2, x0, y0)
     zeros = torch.zeros_like(x0)
-    cols = [a0, b0, c0, a1, b1, c1, a2, b2, c2, z0, z1, z2, inv_area.abs()]
+    ia = inv_area.abs()
+    # The depth plane z0 + dzdx·(x - x0) + dzdy·(y - y0): the barycentrics
+    # of vertices 1 and 2 are (A2·dx + B2·dy)·ia and (A0·dx + B0·dy)·ia.
+    dz1, dz2 = z1 - z0, z2 - z0
+    dzdx = (a2 * dz1 + a0 * dz2) * ia
+    dzdy = (b2 * dz1 + b0 * dz2) * ia
+    cols = [a0, b0, c0, a1, b1, c1, a2, b2, c2, z0, dzdx, dzdy, ia, x0, y0, zeros]
     if vis:
         iw = 1.0 / torch.clamp_min(wv, 1e-9)
         cols += [iw[:, 0], iw[:, 1], iw[:, 2],
                  tri_bary[:, 0, 0], tri_bary[:, 0, 1], tri_bary[:, 1, 0],
                  tri_bary[:, 1, 1], tri_bary[:, 2, 0], tri_bary[:, 2, 1],
-                 tri_orig.to(torch.float32), zeros]
-    else:
-        cols += [zeros, zeros, zeros]
+                 tri_orig.to(torch.float32), zeros, zeros]
     rows = torch.stack(cols, dim=-1)
     rows = torch.where(valid[:, None], rows, dead_row(rows.shape[1], rows.device))
 
@@ -176,7 +186,7 @@ def dead_row(stride: int, device) -> torch.Tensor:
     row = [0.0] * stride
     row[2] = row[5] = row[8] = -1.0
     if stride == VIS_STRIDE:
-        row[22] = -1.0
+        row[VIS_ORIG] = -1.0
     return device_constant(tuple(row), torch.device(device))
 
 
@@ -350,6 +360,30 @@ def depth_plan_items(bins: Bins, plan: DepthPlan):
     return tile, first, rows
 
 
+def depth_exact(clip, indices, width: int, height: int) -> torch.Tensor:
+    """K4's depth map with every depth interpolated exactly: at each pixel,
+    the least depth of the triangles whose rows K4 finds inside it (the
+    float32 edge functions of `tri_rows`), each interpolated in float64
+    from its float32 screen vertices; 1 where none is. (height, width)
+    float64. For tests and measurements."""
+    rows = tri_rows(clip, indices, width, height)
+    tri_pos, _, _ = clip_triangles_near(clip, indices)
+    screen, _ = clip_to_screen(tri_pos.reshape(-1, 4), width, height)
+    s = screen.reshape(-1, 3, 3).to(torch.float64)
+    x, y, z = s[..., 0], s[..., 1], s[..., 2]
+    out = torch.ones(height * width, dtype=torch.float64, device=clip.device)
+    for t, px, py in pixel_pairs(*rows.box, _PAIR_BUDGET):
+        inside = _depth(rows.rows[t], px, py)[1]
+        (x0, x1, x2), (y0, y1, y2), (z0, z1, z2) = x[t].T, y[t].T, z[t].T
+        dx, dy = px.to(torch.float64) + 0.5 - x0, py.to(torch.float64) + 0.5 - y0
+        area = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+        l1 = (dx * (y2 - y0) - (x2 - x0) * dy) / area
+        l2 = ((x1 - x0) * dy - dx * (y1 - y0)) / area
+        zz = (1.0 - l1 - l2) * z0 + l1 * z1 + l2 * z2
+        out.scatter_reduce_(0, py * width + px, torch.where(inside, zz, 3.0e38), "amin")
+    return out.reshape(height, width)
+
+
 def depth_binned_cuda(bins: Bins, width: int, height: int) -> torch.Tensor:
     """Launch K4 (after the plan kernel); returns the (height, width)
     depth."""
@@ -407,33 +441,38 @@ def _row_pixel_pairs(bins: Bins, width: int, height: int):
     return pixel_pairs(*row_boxes(bins), _PAIR_BUDGET)
 
 
-def _edges(q, px, py):
-    """Edge functions of rows q (N, stride) at pixel centers, in the
-    kernels' operation order: (A·x + B·y) + C."""
+def _depth(q, px, py):
+    """The depth z and the inside test of rows q (N, stride) at pixel
+    centers, in the kernels' operation order, and the offsets (dx, dy) of
+    the centers from the first vertex. Inside: the three edge functions
+    (A·x + B·y) + C >= 0. z: the depth plane from the first vertex, (z0 +
+    dzdx·dx) + dzdy·dy."""
     xs, ys = px.to(torch.float32) + 0.5, py.to(torch.float32) + 0.5
     e0 = q[:, 0] * xs + q[:, 1] * ys + q[:, 2]
     e1 = q[:, 3] * xs + q[:, 4] * ys + q[:, 5]
     e2 = q[:, 6] * xs + q[:, 7] * ys + q[:, 8]
-    return e0, e1, e2, (e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0)
+    dx, dy = xs - q[:, 13], ys - q[:, 14]
+    z = q[:, 9] + q[:, 10] * dx + q[:, 11] * dy
+    return z, (e0 >= 0.0) & (e1 >= 0.0) & (e2 >= 0.0), dx, dy
+
+
+def _interpolate(q, px, py):
+    """`_depth`'s z and inside test, and the barycentrics (l0, l1, l2): l1
+    and l2 the edge functions through the first vertex, taken relative to
+    it, A·dx + B·dy, over the area; l0 = 1 - l1 - l2."""
+    z, inside, dx, dy = _depth(q, px, py)
+    l1 = (q[:, 6] * dx + q[:, 7] * dy) * q[:, 12]
+    l2 = (q[:, 0] * dx + q[:, 1] * dy) * q[:, 12]
+    return 1.0 - l1 - l2, l1, l2, z, inside
 
 
 def depth_binned_plain(bins: Bins, width: int, height: int) -> torch.Tensor:
     """K4's function in tensor ops: per pixel min(1, least inside z)."""
     out = torch.ones(height * width, dtype=torch.float32, device=bins.table.device)
     for row, px, py in _row_pixel_pairs(bins, width, height):
-        q = bins.table[row]
-        e0, e1, e2, inside = _edges(q, px, py)
-        z = (e1 * q[:, 9] + e2 * q[:, 10] + e0 * q[:, 11]) * q[:, 12]
+        z, inside, _, _ = _depth(bins.table[row], px, py)
         out.scatter_reduce_(0, py * width + px, torch.where(inside, z, 3.0e38), "amin")
     return out.reshape(height, width)
-
-
-def _vis_terms(q, px, py):
-    e0, e1, e2, inside = _edges(q, px, py)
-    ia = q[:, 12]
-    l0, l1, l2 = e1 * ia, e2 * ia, e0 * ia
-    z = l0 * q[:, 9] + l1 * q[:, 10] + l2 * q[:, 11]
-    return l0, l1, l2, z, inside
 
 
 def vis_keys_plain(bins: Bins, width: int, height: int) -> torch.Tensor:
@@ -448,7 +487,7 @@ def vis_keys_plain(bins: Bins, width: int, height: int) -> torch.Tensor:
     starts = bins.starts.to(torch.int64)
     for row, px, py in _row_pixel_pairs(bins, width, height):
         q = bins.table[row]
-        _, _, _, z, inside = _vis_terms(q, px, py)
+        z, inside, _, _ = _depth(q, px, py)
         tile = bins.row_tile[row]
         pos = torch.where(tile >= 0, g + row - starts[tile.clamp_min(0)], row - bins.g_base)
         k = (float_order_key(z) << 32) | (0x7FFFFFFF - pos)
@@ -471,15 +510,15 @@ def vis_decode_plain(bins: Bins, key: torch.Tensor, width: int,
     tile = (py // TILE_H) * bins.nx + px // TILE_W
     row = torch.where(pos < g, bins.g_base + pos, starts[tile] + pos - g)
     q = bins.table[row]
-    l0, l1, l2, z, _ = _vis_terms(q, px, py)
-    lw0, lw1, lw2 = l0 * q[:, 13], l1 * q[:, 14], l2 * q[:, 15]
+    l0, l1, l2, z, _ = _interpolate(q, px, py)
+    lw0, lw1, lw2 = l0 * q[:, 16], l1 * q[:, 17], l2 * q[:, 18]
     denom = lw0 + lw1 + lw2
     rden = 1.0 / torch.where(denom.abs() < 1e-12, 1.0, denom)
-    u = (lw0 * q[:, 16] + lw1 * q[:, 18] + lw2 * q[:, 20]) * rden
-    v = (lw0 * q[:, 17] + lw1 * q[:, 19] + lw2 * q[:, 21]) * rden
+    u = (lw0 * q[:, 19] + lw1 * q[:, 21] + lw2 * q[:, 23]) * rden
+    v = (lw0 * q[:, 20] + lw1 * q[:, 22] + lw2 * q[:, 24]) * rden
 
     out = clear_visibility(height, width, dev)
-    for plane, values in zip(out, (z, q[:, 22].to(torch.int32), u, v)):
+    for plane, values in zip(out, (z, q[:, VIS_ORIG].to(torch.int32), u, v)):
         plane.view(-1)[pix] = values
     return out
 
@@ -511,12 +550,25 @@ def rasterize_depth_binned(clip, indices, width: int, height: int,
     """Depth-only binned rasterization (raster_binned.py:504-527): min z,
     clear 1.0, both windings, near-clipped. K4 on CUDA tensors, the plain
     version on CPU tensors."""
-    dev = clip.device
-    _check_interpret(interpret, dev)
+    _check_interpret(interpret, clip.device)
+    bins = depth_bins(clip, indices, width, height)
+    if bins is None:
+        return torch.ones((height, width), dtype=torch.float32, device=clip.device)
+    return depth_binned(bins, width, height)
+
+
+def depth_bins(clip, indices, width: int, height: int) -> Bins | None:
+    """The depth rows of the triangles, binned (`tri_rows`, then
+    `bin_triangles`); None where there are no triangles."""
     if indices.shape[0] == 0:
-        return torch.ones((height, width), dtype=torch.float32, device=dev)
-    bins = bin_triangles(tri_rows(clip, indices, width, height), width, height)
-    if dev.type == "cuda":
+        return None
+    return bin_triangles(tri_rows(clip, indices, width, height), width, height)
+
+
+def depth_binned(bins: Bins, width: int, height: int) -> torch.Tensor:
+    """The depth of binned rows: K4 on CUDA bins, its plain version on CPU
+    bins."""
+    if bins.table.device.type == "cuda":
         return depth_binned_cuda(bins, width, height)
     return depth_binned_plain(bins, width, height)
 

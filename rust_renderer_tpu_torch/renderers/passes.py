@@ -31,6 +31,7 @@ from rust_renderer_tpu_torch.ops import marching_cubes as mc_ops
 from rust_renderer_tpu_torch.ops import mc_bvh
 from rust_renderer_tpu_torch.ops import pbr as pbr_ops
 from rust_renderer_tpu_torch.ops import raster as raster_ops
+from rust_renderer_tpu_torch.ops import raster_binned
 from rust_renderer_tpu_torch.ops import rays as rayops
 from rust_renderer_tpu_torch.ops import shadow as shadow_ops
 from rust_renderer_tpu_torch.ops import ssao as ssao_ops
@@ -38,6 +39,7 @@ from rust_renderer_tpu_torch.ops.colors import linear_to_srgb
 from rust_renderer_tpu_torch.ops.constants import device_constant
 from rust_renderer_tpu_torch.ops.cubemap import sample_cubemap
 from rust_renderer_tpu_torch.ops.raster import VisibilityBuffer
+from rust_renderer_tpu_torch.utils.profiler import PROFILER
 
 GBUFFER_PLANES = ("gbuffer_position", "gbuffer_normal", "gbuffer_albedo",
                   "gbuffer_pbr", "gbuffer_depth")
@@ -158,11 +160,34 @@ def setup_gbuffer_pass(graph: Graph, scene_bvh, width: int, height: int,
 # -- shadow cascades (renderers/shadow.rs) -----------------------------------
 
 
+def _cascade_depth(scene, vp, size: int, method: str):
+    """One cascade's depth map: inside the span `shadow/bin` its vertices
+    transformed and, on the binned path, its triangles binned; inside
+    `shadow/raster` the plan and K4 (or the plain and brute paths on CPU
+    tensors). Returns the map and, on the binned path, the binned rows K4
+    walks (the tiles' segments and the global list) and the most rows of
+    one tile (its segment and the global list), as device scalars; else
+    None."""
+    dev = vp.device
+    with PROFILER.scope("shadow/bin", device=dev):
+        clip = raster_ops.transform_vertices(scene.positions, vp)
+        bins = (raster_binned.depth_bins(clip, scene.indices, size, size)
+                if raster_ops.binned_path(dev, method) else None)
+    with PROFILER.scope("shadow/raster", device=dev):
+        if bins is None:
+            return raster_ops.rasterize_depth(clip, scene.indices, size, size,
+                                              method=method), None
+        rows = (bins.counts.sum() + bins.g_count, bins.counts.max() + bins.g_count)
+        return raster_binned.depth_binned(bins, size, size), rows
+
+
 def setup_shadow_pass(graph: Graph, camera, sun_dir, enabled: bool, size: int = 1024,
                       cascade_count: int = 4, method: str = "auto"):
     """Cascaded shadow maps (shadow.rs:24-131): cascades fitted on the host,
-    then one depth-only raster per cascade (K4 on the card). Returns the
-    (matrices, split depths) as numpy."""
+    then one depth-only raster per cascade (K4 on the card;
+    `_cascade_depth`). On the binned path the profiler's counter
+    `shadow/rows` takes a frame's binned rows over the cascades and the
+    largest tile's. Returns the (matrices, split depths) as numpy."""
     graph.create_buffer("shadow_map", (cascade_count, size, size), clear=1.0)
     matrices, split_depths = shadow_ops.cascade_matrices(
         camera.get_view(), camera.get_projection(), camera.get_near_plane(),
@@ -173,9 +198,11 @@ def setup_shadow_pass(graph: Graph, camera, sun_dir, enabled: bool, size: int = 
             return {"shadow_map": torch.ones((cascade_count, size, size),
                                              device=view.view.device)}
         vp = u["cascade_vp"]
-        layers = [raster_ops.rasterize_depth(
-            raster_ops.transform_vertices(scene.positions, vp[i]), scene.indices, size, size,
-            method=method) for i in range(cascade_count)]
+        layers, rows = zip(*(_cascade_depth(scene, vp[i], size, method)
+                             for i in range(cascade_count)))
+        if rows[0] is not None:
+            total, peak = (torch.stack(x) for x in zip(*rows))
+            PROFILER.count("shadow/rows", total.sum(), peak.max())
         return {"shadow_map": torch.stack(layers)}
 
     (graph.add_pass("shadow").write("shadow_map")

@@ -14,7 +14,12 @@ reference's two-level profiler (SURVEY.md §5.1):
   `device_totals`), never by waiting. In a stream being captured into a
   CUDA graph the pair's events are external, so the capture records them
   and every replay records them again: the captured loop reads them after
-  its replays (`queue`);
+  its replays (`queue`). A scope opened inside another takes its
+  enclosing scope's place for captured pairs, so a pass body's own scopes
+  (`shadow/bin` in `pass/shadow`) are read from replays too;
+- counters kept on the device (`count`): a frame adds to them with device
+  operations only, so a captured frame counts in every replay; they are
+  read, waiting for the device, after the frames (`counters`);
 - the puffin_egui window -> `report()`, a text table of both; `trace()`
   wraps `torch.profiler.profile` over the CPU and the card and writes a
   Chrome trace.
@@ -50,17 +55,25 @@ class Profiler:
         self._pending: collections.deque = collections.deque(maxlen=PENDING_SPANS)
         self._device_ms: dict[str, float] = defaultdict(float)
         self._device_counts: dict[str, int] = defaultdict(int)
+        # The `spans` of each open scope, innermost last.
+        self._open: list = []
+        # Device counters: name -> (3,) int64 (calls, total, peak).
+        self._counters: dict[str, torch.Tensor] = {}
 
     def toggle(self) -> None:
         self.enabled = not self.enabled
 
     def reset(self) -> None:
-        """Forget every scope's totals and the device spans not yet read."""
+        """Forget every scope's totals and the device spans not yet read,
+        and zero the counters (in place, on their devices: a captured frame
+        holds them)."""
         self._totals.clear()
         self._counts.clear()
         self._pending.clear()
         self._device_ms.clear()
         self._device_counts.clear()
+        for c in self._counters.values():
+            c.zero_()
 
     @contextlib.contextmanager
     def scope(self, name: str, *, device: torch.device | None = None,
@@ -71,12 +84,16 @@ class Profiler:
         and at its end, the pair queued to be read once it has run. While
         the current stream is being captured, the events are external and
         the pair goes to `spans` (a list) instead; without `spans` a
-        captured scope makes no event."""
+        scope takes its enclosing scope's, and a captured scope with none
+        makes no event."""
         with torch.profiler.record_function(name), _nvtx(name):
             if not self.enabled:
                 yield
                 return
+            if spans is None and self._open:
+                spans = self._open[-1]
             events = _start_events(device, spans)
+            self._open.append(spans)
             t0 = time.perf_counter()
             try:
                 yield
@@ -85,8 +102,28 @@ class Profiler:
                     end.record()
                     (spans if captured else self._pending).append((name, start, end))
             finally:
+                self._open.pop()
                 self._totals[name] += time.perf_counter() - t0
                 self._counts[name] += 1
+
+    def count(self, name: str, value: torch.Tensor, peak: torch.Tensor) -> None:
+        """One call of the counter `name`: its calls + 1, its total +
+        `value`, its peak the larger of itself and `peak` (integer scalars on
+        one device), by operations on that device alone, so that a captured
+        frame counts in every replay. Nothing while disabled."""
+        if not self.enabled:
+            return
+        c = self._counters.get(name)
+        if c is None or c.device != value.device:
+            c = self._counters[name] = torch.zeros(3, dtype=torch.int64, device=value.device)
+        c[0].add_(1)
+        c[1].add_(value)
+        torch.maximum(c[2], peak, out=c[2])
+
+    def counters(self) -> dict[str, tuple[int, int, int]]:
+        """counter -> (calls, total, peak) since the last reset; waits for
+        the device."""
+        return {name: tuple(c.tolist()) for name, c in self._counters.items()}
 
     def queue(self, spans: list) -> None:
         """Queue event pairs that a captured scope recorded (`scope`'s

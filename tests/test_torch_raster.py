@@ -6,13 +6,18 @@ Inputs are made with numpy from a seed and given to both packages.
 Tolerances (those of tests/test_raster_binned.py, tighter where the port
 meets them):
 - the binning tables (`starts`, `counts`, the global count) are equal, and
-  the triangle rows agree to 1e-6 (relative, floor 1e-6); given the same
-  triangle rows, the live rows of the two tables (each tile's segment, the
-  global list) are bit-equal and in the same order;
+  the triangle rows agree to 1e-6 (relative, floor 1e-6) in the columns
+  both have (the port's rows hold the depth's gradient where the JAX rows
+  hold two vertex depths, and the first vertex's screen position);
+  given the same triangle rows, the live rows of the two tables (each
+  tile's segment, the global list) are bit-equal and in the same order;
 - the port's binning has static shapes (they follow the triangle count and
   the image size alone) and reads nothing back to the host;
 - depth agrees to 1e-4 where both cover a pixel, and coverage differs on
   under 0.5% of the pixels (edge-function rounding on boundary pixels);
+  left out are the pixels where the float64 interpolation shows the JAX
+  kernel's depth to be the inexact one (it interpolates with the absolute
+  edge functions, which cancel in float32), under 1% of them;
 - the visibility buffer names the same triangle on at least 98% of the
   pixels both cover (depth ties may break either way: the JAX package's
   sort does not promise stability) with barycentrics within 2e-3;
@@ -83,7 +88,13 @@ def test_tri_rows_and_bins_match_jax(case, vis):
     (jc, ji), (tc, ti) = _both(*CASES[case]())
     want = jax_binned._tri_rows(jc, ji, W, H, vis=vis)
     got = raster_binned.tri_rows(tc, ti, W, H, vis=vis)
-    np.testing.assert_allclose(got.rows.numpy(), np.asarray(want[0]), rtol=1e-6, atol=1e-6)
+    jax_rows = torch.tensor(np.asarray(want[0]))
+    np.testing.assert_allclose(_jax_layout(got.rows, jax_rows).numpy(), jax_rows.numpy(),
+                               rtol=1e-6, atol=1e-6)
+    tri_pos, _, _ = raster.clip_triangles_near(tc, ti)
+    screen, _ = raster.clip_to_screen(tri_pos.reshape(-1, 4), W, H)
+    first = screen.reshape(-1, 3, 3)[:, 0, :2]
+    assert torch.equal(got.rows[got.valid, 13:15], first[got.valid])
     for name, a, b in zip(("tx0", "ty0", "span_w", "span_h"), got[1:5], want[1:5]):
         ok = np.asarray(want[5])
         np.testing.assert_array_equal(a.numpy()[ok], np.asarray(b)[ok], err_msg=name)
@@ -101,7 +112,7 @@ def test_tri_rows_and_bins_match_jax(case, vis):
 
     # JAX's rows binned by the port: the live rows bit-equal, in JAX's order.
     same = raster_binned.bin_triangles(_port_tri_rows(want, got.box), W, H)
-    width = raster_binned.VIS_STRIDE if vis else raster_binned.DEPTH_STRIDE
+    width = want[0].shape[1]  # the JAX rows' columns, which the port bins as they are
     jax_table = np.asarray(packed).reshape(-1, stride)[:, :width]
     n_seg, g = int(np.asarray(counts).sum()), int(g_count)
     jax_g = int(g_group) * (128 // stride)
@@ -109,6 +120,30 @@ def test_tri_rows_and_bins_match_jax(case, vis):
     np.testing.assert_array_equal(same.table[:n_seg].numpy(), jax_table[:n_seg])
     np.testing.assert_array_equal(same.table[same.g_base:same.g_base + g].numpy(),
                                   jax_table[jax_g:jax_g + g])
+
+
+def _jax_layout(rows, jax_rows):
+    """The port's rows in the layout of the JAX package's `jax_rows`: the
+    edge functions, the first vertex's depth, the area, and a visibility
+    row's columns after its depth row. Where the JAX rows hold the other
+    two vertices' depths, the port's hold the depth's gradient: those two
+    depths are taken from the JAX rows, once the port's gradient is found
+    to be the gradient of the JAX rows' plane (relative 1e-5 of the plane's
+    slope). The first vertex's position (columns 13-14), which the JAX rows
+    lack, is left out, and the JAX rows' padding is zero."""
+    out = torch.zeros_like(jax_rows)
+    out[:, :13] = rows[:, :13]
+    out[:, 10:12] = jax_rows[:, 10:12]
+    if rows.shape[1] == raster_binned.VIS_STRIDE:
+        out[:, 13:23] = rows[:, 16:26]
+    q = jax_rows.double()
+    dz1, dz2 = q[:, 10] - q[:, 9], q[:, 11] - q[:, 9]
+    for col, (a2, a0) in ((10, (6, 0)), (11, (7, 1))):  # dzdx, dzdy
+        terms = (q[:, a2] * dz1, q[:, a0] * dz2)
+        want = (terms[0] + terms[1]) * q[:, 12]
+        scale = (terms[0].abs() + terms[1].abs()) * q[:, 12]
+        assert bool(((rows[:, col].double() - want).abs() <= 1e-5 * scale + 1e-12).all())
+    return out
 
 
 def _port_tri_rows(want, box) -> raster_binned.TriRows:
@@ -201,11 +236,29 @@ def test_binning_and_plan_read_nothing_back_to_the_host(case, vis, monkeypatch):
     assert int(plan.gmeta[0]) == int(bins.g_count)
 
 
-def _assert_depth_close(got, want):
+def _assert_depth_close(got, want, exact):
+    """The port's depth `got` against the JAX kernel's `want` where both
+    cover a pixel, but where `exact` (float64) shows the JAX depth to be
+    the inexact one: off it by more than EXACT_ATOL where the port's is
+    within it."""
     both = (got < 1.0) & (want < 1.0)
     assert both.mean() > 0.2, "coverage sanity"
-    np.testing.assert_allclose(got[both], want[both], atol=1e-4)
+    jax_inexact = (np.abs(want - exact) > EXACT_ATOL) & (np.abs(got - exact) <= EXACT_ATOL)
+    assert (both & jax_inexact).sum() <= 0.01 * both.sum()
+    keep = both & ~jax_inexact
+    np.testing.assert_allclose(got[keep], want[keep], atol=1e-4)
     assert ((got < 1.0) != (want < 1.0)).mean() < 0.005
+
+
+# The binned depth's largest gap to the float64 interpolation at its own
+# coverage (ops/raster_binned.py::depth_exact).
+EXACT_ATOL = 1e-5
+
+
+@functools.cache
+def _exact_depth(case):
+    (_, _), (tc, ti) = _both(*CASES[case]())
+    return raster_binned.depth_exact(tc, ti, W, H).numpy()
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -216,7 +269,7 @@ def test_depth_plain_matches_jax_binned(case):
     got = raster_binned.rasterize_depth_binned(tc, ti, W, H).numpy()
     assert raster_binned.K4_LAUNCHES == launches  # CPU tensors: the plain version
     assert got.shape == (H, W)
-    _assert_depth_close(got, want)
+    _assert_depth_close(got, want, _exact_depth(case))
 
 
 # K4's work plan (ops/raster_binned.py::depth_plan), at the kernel's item
@@ -286,15 +339,13 @@ def test_k4_boxes_are_the_plain_versions_pixel_boxes(case):
 
 def _fold_plan(bins, plan, width, height):
     """K4's function computed item by item as the kernel walks it: each row
-    of an item on its box clipped to the item's tile, in `_edges`'
+    of an item on its box clipped to the item's tile, in `_depth`'s
     arithmetic, folded by a minimum onto a clear of 1.0."""
     out = torch.ones(height * width)
     for t, f, n in zip(*(x.tolist() for x in raster_binned.depth_plan_items(bins, plan))):
         rows = torch.arange(f, f + n)
         for j, px, py in raster.pixel_pairs(*_item_boxes(bins, t, rows), 1 << 20):
-            q = bins.table[rows[j]]
-            e0, e1, e2, inside = raster_binned._edges(q, px, py)
-            z = (e1 * q[:, 9] + e2 * q[:, 10] + e0 * q[:, 11]) * q[:, 12]
+            z, inside, _, _ = raster_binned._depth(bins.table[rows[j]], px, py)
             out.scatter_reduce_(0, py * width + px, torch.where(inside, z, 3.0e38), "amin")
     return out.reshape(height, width)
 
@@ -315,7 +366,7 @@ def test_k4_plan_fold_matches_plain_and_jax(case, item_rows, monkeypatch):
     bins = _bins(case)
     got = _fold_plan(bins, raster_binned.depth_plan(bins), W, H)
     assert torch.equal(got, raster_binned.depth_binned_plain(bins, W, H))
-    _assert_depth_close(got.numpy(), _jax_depth(case))
+    _assert_depth_close(got.numpy(), _jax_depth(case), _exact_depth(case))
 
 
 def _vis_bins(case, copies=1):
@@ -362,7 +413,7 @@ def _fold_vis_plan(bins, plan, width, height):
                           bins.g_count + rows - int(bins.starts[t]))
         item = torch.full_like(out, raster.INT64_MAX)
         for j, px, py in raster.pixel_pairs(*_item_boxes(bins, t, rows), 1 << 20):
-            _, _, _, z, inside = raster_binned._vis_terms(bins.table[rows[j]], px, py)
+            z, inside, _, _ = raster_binned._depth(bins.table[rows[j]], px, py)
             k = (raster.float_order_key(z) << 32) | (0x7FFFFFFF - pos[j])
             item.scatter_reduce_(0, py * width + px,
                                  torch.where(inside & (z <= 1.0), k, raster.INT64_MAX), "amin")
@@ -388,7 +439,7 @@ def test_k5_plan_fold_matches_plain(case, item_rows, copies, monkeypatch):
     for a, b in zip(vis, plain):
         assert torch.equal(a, b)
     if copies == 2:  # the later copy of each triangle wins its tie
-        n = bins.table[:, 22].max().item() + 1
+        n = bins.table[:, raster_binned.VIS_ORIG].max().item() + 1
         covered = plain.tri >= 0
         assert bool((plain.tri[covered] >= n // 2).all())
 
@@ -505,3 +556,110 @@ def test_binned_method_takes_the_plain_versions_on_cpu():
     for a, b in zip(vis, raster_binned.rasterize_binned(tc, ti, W, H)):
         assert torch.equal(a, b)
     assert (raster_binned.K4_LAUNCHES, raster_binned.K5_LAUNCHES) == launches
+
+
+# -- the binned paths' interpolation at texel coordinates in the thousands ----
+#
+# The JAX kernels interpolate depth as (e1·z0 + e2·z1 + e0·z2) / area from
+# the absolute edge functions A·x + B·y + C, whose terms cancel in float32
+# far from the origin: on a 4096² shadow cascade a few texels' depth was off
+# by up to 0.03. The port interpolates from the first vertex: depth by its
+# plane (raster_binned._depth), barycentrics by the edge functions taken
+# relative to it (raster_binned._interpolate), as the brute path does.
+
+BIG = 4096
+
+
+def _far_triangles(n, seed, height=BIG, size=5.0):
+    """`n` small triangles (`size` texels across, slivers among them) at
+    texel coordinates in [2048, 4096) of a BIG x `height` map (rows too
+    where the map is that tall), as orthographic clip coordinates (w = 1)
+    with depths in (0.2, 0.8)."""
+    rng = np.random.default_rng(seed)
+    lo_y = 2048 + 8 if height == BIG else 8
+    centre = np.concatenate([rng.uniform(2048 + 8, BIG - 8, (n, 1, 1)),
+                             rng.uniform(lo_y, height - 8, (n, 1, 1))], -1)
+    corners = centre + rng.normal(0.0, size / 2, (n, 3, 2))
+    corners[: n // 4, 2] = (corners[: n // 4, 0] + corners[: n // 4, 1]) / 2 + rng.normal(
+        0.0, 0.05, (n // 4, 2))  # slivers
+    depth = rng.uniform(0.2, 0.8, (n, 1, 1)) + rng.normal(0.0, 0.01, (n, 3, 1))
+    ndc_x = corners[..., 0] / BIG * 2.0 - 1.0
+    ndc_y = 1.0 - corners[..., 1] / height * 2.0
+    clip = np.concatenate([ndc_x[..., None], ndc_y[..., None], depth,
+                           np.ones((n, 3, 1))], -1).reshape(-1, 4).astype(np.float32)
+    return torch.tensor(clip), torch.arange(3 * n, dtype=torch.int32).reshape(n, 3)
+
+
+def test_binned_depth_is_exact_at_texel_coordinates_in_the_thousands():
+    """K4's plain version on a BIG² map: within 1e-6 of the float64
+    interpolation on every texel it covers (the old formula was off by
+    ~1e-3 here), the coverage its own, and where the brute path covers the
+    same texel the same depth."""
+    clip, idx = _far_triangles(3000, 41)
+    got = raster.rasterize_depth(clip, idx, BIG, BIG, method="binned")
+    exact = raster_binned.depth_exact(clip, idx, BIG, BIG)
+    covered = exact < 1.0
+    assert int(covered.sum()) > 10000
+    assert torch.equal(got < 1.0, covered)
+    assert float((got.double() - exact)[covered].abs().max()) <= 1e-6
+    brute = raster.rasterize_depth(clip, idx, BIG, BIG, method="brute")
+    both = covered & (brute < 1.0)
+    assert int(both.sum()) >= 0.99 * int(covered.sum())
+    assert float((got - brute)[both].abs().max()) <= 1e-6
+
+
+@functools.cache
+def _sponza_cascades():
+    """The Sponza-scale scene's vertices and triangles and its four
+    cascades' light view-projections (the default camera and sun)."""
+    from rust_renderer_tpu_torch.camera import Camera
+    from rust_renderer_tpu_torch.models import create_sponza_scale_scene
+    from rust_renderer_tpu_torch.ops import shadow
+    from rust_renderer_tpu_torch.renderer import Renderer
+
+    cam = Camera([-10.28, 2.10, -0.18], [0.0, 0.5, 0.0], fov_degrees=60.0,
+                 aspect_ratio=1920 / 1080, z_near=0.01, z_far=1000.0)
+    scene = Renderer()
+    create_sponza_scale_scene(scene, cam)
+    packed = scene.pack_numpy()
+    mats, _ = shadow.cascade_matrices(cam.get_view(), cam.get_projection(),
+                                      cam.get_near_plane(), cam.get_far_plane(),
+                                      np.array([0.0, 0.90631, 0.42262], np.float32))
+    return torch.tensor(packed["positions"]), torch.tensor(packed["indices"]), torch.tensor(mats)
+
+
+def test_binned_depth_of_a_512_cascade_of_the_sponza_scene_is_exact():
+    """Cascade 0 of the Sponza-scale scene at 512² (259,932 triangles; the
+    old formula left 386 texels beyond 1e-4 here): every covered texel of
+    K4's plain version within 1e-5 of the float64 interpolation."""
+    positions, indices, mats = _sponza_cascades()
+    clip = raster.transform_vertices(positions, mats[0])
+    got = raster_binned.rasterize_depth_binned(clip, indices, 512, 512)
+    exact = raster_binned.depth_exact(clip, indices, 512, 512)
+    covered = exact < 1.0
+    assert int(covered.sum()) > 50000
+    assert torch.equal(got < 1.0, covered)
+    assert float((got.double() - exact)[covered].abs().max()) <= EXACT_ATOL
+
+
+def test_vis_barycentrics_are_exact_at_texel_coordinates_in_the_thousands():
+    """K5's plain version on a BIG x 64 strip of the far triangles (w = 1
+    and nothing clipped, so a triangle's barycentrics are its pixel's
+    linear ones): depth and (u, v) within 1e-5 of the float64
+    interpolation of the triangle it names, on every pixel it covers."""
+    clip, idx = _far_triangles(4000, 43, height=64)
+    vis = raster.rasterize(clip, idx, BIG, 64, method="binned")
+    covered = vis.tri >= 0
+    assert int(covered.sum()) > 5000
+    py, px = torch.nonzero(covered, as_tuple=True)
+    tri = vis.tri[covered].long()
+    screen, _ = raster.clip_to_screen(clip, BIG, 64)
+    v = screen.double()[idx.long()[tri]]
+    (x0, x1, x2), (y0, y1, y2), (z0, z1, z2) = v[..., 0].T, v[..., 1].T, v[..., 2].T
+    dx, dy = px.double() + 0.5 - x0, py.double() + 0.5 - y0
+    area = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+    l1 = (dx * (y2 - y0) - (x2 - x0) * dy) / area
+    l2 = ((x1 - x0) * dy - dx * (y1 - y0)) / area
+    z = (1.0 - l1 - l2) * z0 + l1 * z1 + l2 * z2
+    for got, want in ((vis.depth, z), (vis.bary_u, l1), (vis.bary_v, l2)):
+        assert float((got[covered].double() - want).abs().max()) <= EXACT_ATOL

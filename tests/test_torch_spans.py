@@ -294,3 +294,106 @@ def test_raster_frames_are_the_same_with_spans_on_and_off_on_card(cuda_device, p
         assert (spans <= set(profiler.device_totals())) == enabled
     for on, off in zip(images[True], images[False]):
         np.testing.assert_array_equal(on, off)
+
+
+# -- the shadow pass's spans and its rows counter --------------------------------
+
+SHADOW_CFG = dict(shadow_map_size=256, cubemap_size=16, cubemap_mips=4, irradiance_size=8,
+                  brdf_lut_size=16)
+
+
+def _shadow_app(device, method="binned", width=48, height=32):
+    """A RASTERIZED app of the cube scene with its cascades on, the clock
+    pinned."""
+    cfg = StaticConfig(**SHADOW_CFG, raster_method=method)
+    app = Application(width, height, RenderGraphMode.RASTERIZED, cfg=cfg, device=device)
+    app.fps_timer.elapsed_seconds = lambda: 0.25
+    app.create_scene()
+    return app
+
+
+def _binned_rows(app) -> tuple[int, int]:
+    """A frame's binned rows over the app's cascades, each cascade's
+    segments and global list (`bins.counts.sum() + g_count`), and the
+    largest tile's rows (its segment and the global list), from the bins
+    made anew."""
+    from rust_renderer_tpu_torch.ops import raster, raster_binned
+
+    shadow_pass = next(p for p in app.graph.passes if p.name == "shadow")
+    size = app.cfg.shadow_map_size
+    total, peak = 0, 0
+    for vp in shadow_pass.uniforms["cascade_vp"]:
+        clip = raster.transform_vertices(app.scene.positions, vp.to(app.device))
+        bins = raster_binned.depth_bins(clip, app.scene.indices, size, size)
+        total += int(bins.counts.sum()) + int(bins.g_count)
+        peak = max(peak, int(bins.counts.max()) + int(bins.g_count))
+    return total, peak
+
+
+def test_shadow_pass_counts_its_binned_rows_and_spans_each_cascade(profiler):
+    """On the binned path (K4's plain version on the CPU) a frame adds its
+    cascades' binned rows to the counter `shadow/rows` and raises its peak
+    to the largest tile's rows; `shadow/bin` and `shadow/raster` are opened
+    once a cascade, inside `pass/shadow`; the eager loop counts every frame
+    too. A reset zeroes the counter in place."""
+    app = _shadow_app("cpu")
+    app.run(1)
+    total, peak = _binned_rows(app)
+    assert total > 0 and peak > 0
+    profiler.reset()
+    app.run(2)
+    assert profiler.counters()["shadow/rows"] == (2, 2 * total, peak)
+    calls = _calls(profiler)
+    assert calls["pass/shadow"] == 2 and calls["shadow/bin"] == calls["shadow/raster"] == 8
+    totals = profiler.totals()
+    assert totals["shadow/bin"][1] + totals["shadow/raster"][1] <= totals["pass/shadow"][1]
+    counter = profiler._counters["shadow/rows"]
+    profiler.reset()
+    assert profiler._counters["shadow/rows"] is counter
+    assert profiler.counters()["shadow/rows"] == (0, 0, 0)
+    app.run_on_device(3, tstep=0.0)
+    assert app.graph.last_loop_form.startswith("eager")
+    assert profiler.counters()["shadow/rows"] == (3, 3 * total, peak)
+
+
+def test_shadow_pass_counts_nothing_on_the_brute_path_or_disabled(profiler):
+    """The brute path bins nothing: its cascades are spanned but not
+    counted. A disabled profiler counts nothing."""
+    app = _shadow_app("cpu", method="brute")
+    app.run(1)
+    assert profiler.counters().get("shadow/rows", (0, 0, 0)) == (0, 0, 0)
+    assert _calls(profiler)["shadow/raster"] == 4
+    app = _shadow_app("cpu")
+    profiler.reset()
+    profiler.enabled = False
+    app.run(1)
+    assert profiler.counters().get("shadow/rows", (0, 0, 0)) == (0, 0, 0)
+    assert profiler.totals() == {}
+
+
+@pytest.mark.cuda
+def test_captured_shadow_pass_counts_every_replay_on_card(cuda_device, profiler):
+    """`run_on_device(4)` captured: the counter counts 4 frames a call (the
+    first call's eager frame and 3 replays, then 4 replays), each frame's
+    rows those of the bins made anew; each replayed frame's device spans
+    `shadow/bin` and `shadow/raster`, 4 each, lie inside its `pass/shadow`."""
+    app = _shadow_app(cuda_device, method="auto", width=128, height=64)
+    app.run(1)
+    total, peak = _binned_rows(app)
+    torch.cuda.synchronize()
+    profiler.reset()
+    app.run_on_device(4, tstep=0.0)
+    assert app.graph.last_loop_form == "captured"
+    assert profiler.counters()["shadow/rows"] == (4, 4 * total, peak)
+    torch.cuda.synchronize()
+    profiler.reset()
+    for _ in range(2):
+        app.run_on_device(4, tstep=0.0)
+        torch.cuda.synchronize()
+        profiler.new_frame()
+    assert app.graph.captures == 1
+    assert profiler.counters()["shadow/rows"] == (8, 8 * total, peak)
+    device = profiler.device_totals()
+    assert device["pass/shadow"][0] == 2
+    assert device["shadow/bin"][0] == device["shadow/raster"][0] == 8
+    assert device["shadow/bin"][1] + device["shadow/raster"][1] <= device["pass/shadow"][1]
