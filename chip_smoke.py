@@ -7,12 +7,14 @@
     python3 chip_smoke.py --raster # the raster apps' host frames and passes alone
     python3 chip_smoke.py --sky   # the sky kernel alone (`sky_alone`)
     python3 chip_smoke.py --k4    # K4 alone on the Sponza-scale cascades (`k4_alone`)
+    python3 chip_smoke.py --deferred # the deferred kernel alone (`deferred_alone`)
 
 Builds the traversal kernels (rust_renderer_tpu_torch/csrc/traverse_wide.cu:
 K1 and K3's wide forms; traverse_q32.cu: K1q; traverse_drain.cu: K2;
 traverse_binary.cu: K3's binary walks; traverse_lq.cu: K3-lq;
 traverse_multi.cu: K3-multi), the seed kernel (csrc/seed_occlusion.cu), the
-sky kernel (csrc/atmosphere.cu) and K4 / K5 (csrc/raster_binned.cu) with nvcc into rust_renderer_tpu_torch/build/,
+sky kernel (csrc/atmosphere.cu), the deferred kernel (csrc/deferred.cu) and K4 / K5
+(csrc/raster_binned.cu) with nvcc into rust_renderer_tpu_torch/build/,
 one nvcc per source, started together; then:
 
 1. device: versions, the card's name and power limit, build times;
@@ -95,6 +97,12 @@ one nvcc per source, started together; then:
    a call of pure replay under torch.cuda.set_sync_debug_mode("error"),
    launches (first call two frames' worth, replay none), the host loop's
    and the replay's ms per frame in turns, and the busy share of each;
+   then the deferred kernel (`deferred_phase`) on the inputs of the
+   Sponza-scale scene's 1080p deferred pass, rows planted in every cascade:
+   against the plain body under every toggle with 0, 3 and 10 lights
+   (every channel within 1e-5 x max(1, |plain|)), its device time against
+   its byte bound, the plain body's ms, its registers and spills, one
+   launch a host frame and a kernel record a replay;
 15. MINIMAL main path: the same at 1920x1080, its device loop as
    RASTERIZED's; then the pass uniforms
    (`uniforms_phase`): the RASTERIZED (marching cubes on) and MINIMAL
@@ -173,7 +181,8 @@ one nvcc per source, started together; then:
 Each main path is driven with every launch count set to 0 just before it
 and read just after; the sky kernel's is checked too (2 a RASTERIZED
 frame, 5 an exact-sky PT frame, none on a cubemap-sky PT or MINIMAL frame;
-the environment's capture, once an app, apart). Every failed check raises. The last log line gives
+the environment's capture, once an app, apart), and the deferred kernel's
+(1 a RASTERIZED frame, none on a PT or MINIMAL frame). Every failed check raises. The last log line gives
 the script's total seconds. Exits non-zero, printing no
 result, when torch sees no GPU. The last line is {"ok": true, ...}.
 """
@@ -183,7 +192,9 @@ from __future__ import annotations
 import collections
 import concurrent.futures
 import functools
+import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -214,6 +225,8 @@ SOURCES = {
     "seed": (f"{CSRC}/seed_occlusion.cu", "rust_renderer_tpu/ops/bvh.py:843"),
     # No TPU kernel: XLA fused integrate_scattering's tensor code.
     "sky": (f"{CSRC}/atmosphere.cu", "rust_renderer_tpu/ops/atmosphere.py:104"),
+    # No TPU kernel: XLA fused the deferred pass's tensor code.
+    "deferred": (f"{CSRC}/deferred.cu", "rust_renderer_tpu/renderers/passes.py:308"),
     "k4": (f"{CSRC}/raster_binned.cu", "rust_renderer_tpu/ops/raster_binned.py:258"),
     "k5": (f"{CSRC}/raster_binned.cu", "rust_renderer_tpu/ops/raster_binned.py:304"),
 }
@@ -288,6 +301,17 @@ SKY_OPS_PER_RAY = (
     + 24)
 # Origin and direction read, the color written.
 SKY_BYTES_PER_RAY = 24 + 12
+# The deferred kernel's bytes a pixel (csrc/deferred.cu): the four gbuffer
+# planes and the reflections read (16 B each), the RT shadows and SSAO (4 B
+# each), the output written (16 B).
+DEFERRED_BYTES_PER_PIXEL = 5 * 16 + 2 * 4 + 16
+# The deferred kernel against its plain version: every channel within
+# DEFERRED_RTOL x max(1, |plain|).
+DEFERRED_RTOL = 1e-5
+DEFERRED_TOGGLES = ("ibl_enabled", "shadows_enabled", "raytracing_supported",
+                    "cascade_debug", "ssao_enabled")
+# The deferred phase's rows planted with positions in every cascade.
+DEFERRED_PLANTED_ROWS = slice(700, 764)
 # The raster cells' view (bench_torch/configs/raster_rtshadows_sponza_1080p.json).
 SKY_VIEWPOINT, SKY_TARGET = [-10.28, 2.10, -0.18], [0.0, 0.5, 0.0]
 # The bench's Sponza-scale configuration (bench.py:101-105).
@@ -393,8 +417,10 @@ class Launches:
     The sky kernel's count ("sky") is the frames' own: the launch that the
     environment's capture makes (ibl.capture_environment_cubemap, once when
     a RASTERIZED or cubemap-sky PT app first reads the cubemaps: set-up, not
-    a frame's work) is counted apart and left out. A port without the sky
-    kernel's counter (a parent checkout under `--raster`) reads no "sky"."""
+    a frame's work) is counted apart and left out. The deferred kernel's
+    ("deferred") is one a RASTERIZED frame. A port without the sky or the
+    deferred kernel's counter (a parent checkout under `--raster`) reads no
+    "sky" or no "deferred"."""
 
     K3_VARIANTS = ("binary", "binary_ordered", "wide", "wide_ordered", "wide_dual",
                    "wide_lq", "wide_multi")
@@ -404,6 +430,11 @@ class Launches:
 
         self.traversal, self.raster_binned, self.bvh_ops = traversal, raster_binned, bvh_ops
         self.sky = getattr(atmosphere, "SKY_LAUNCHES", None)
+        try:
+            from rust_renderer_tpu_torch.ops import deferred
+            self.deferred = deferred.DEFERRED_LAUNCHES
+        except ImportError:
+            self.deferred = None
         if self.sky is not None and not hasattr(ibl.capture_environment_cubemap, "sky"):
             ibl.capture_environment_cubemap = Launches._counting_capture(
                 ibl.capture_environment_cubemap, self.sky)
@@ -433,6 +464,8 @@ class Launches:
         if self.sky is not None:
             self.sky.clear()
             self.capture.sky = 0
+        if self.deferred is not None:
+            self.deferred.clear()
 
     def read(self) -> dict:
         t = self.traversal
@@ -446,17 +479,19 @@ class Launches:
             got[f"k3_{variant}"] = t.K3_LAUNCHES[variant]
         if self.sky is not None:
             got["sky"] = self.sky["launches"] - self.capture.sky
+        if self.deferred is not None:
+            got["deferred"] = self.deferred["launches"]
         return got
 
     @staticmethod
     def frame_want(k1_closest: int, k1_any_hit: int, k4: int, k5: int, seed: int = 0,
-                   sky: int = 0) -> dict:
-        """Per-frame counts of a frame: K1, K4, K5, the seed kernel and the
-        sky kernel as given, 0 on every other kernel."""
+                   sky: int = 0, deferred: int = 0) -> dict:
+        """Per-frame counts of a frame: K1, K4, K5, the seed kernel, the sky
+        kernel and the deferred kernel as given, 0 on every other kernel."""
         want = dict.fromkeys(
             ("k1q", "k2_sd", "k2_sdd", *(f"k3_{v}" for v in Launches.K3_VARIANTS)), 0)
         want.update(k1_closest=k1_closest, k1_any_hit=k1_any_hit, k4=k4, k5=k5, seed=seed,
-                    sky=sky)
+                    sky=sky, deferred=deferred)
         return want
 
 
@@ -1239,6 +1274,165 @@ def sky_phase(atmosphere) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes", "launches": 2}
 
 
+def ptxas_usage(log_path: str, kernel: str) -> dict:
+    """A kernel's registers and spill bytes from its library's `-Xptxas=-v`
+    build log (the lines after its "Function properties for" line)."""
+    with open(log_path) as f:
+        text = f.read()
+    found = re.search(r"Function properties for \S*" + kernel + r"\S*\s+"
+                      r"\d+ bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads\s+ptxas info\s*: Used (\d+) registers", text)
+    if found is None:
+        log(f"no ptxas usage of {kernel} in {log_path} (its build log is above)")
+        return {"registers": None, "spill_stores": None, "spill_loads": None}
+    stores, loads, regs = (int(g) for g in found.groups())
+    return {"registers": regs, "spill_stores": stores, "spill_loads": loads}
+
+
+def plant_cascades(position: torch.Tensor, camera, splits: torch.Tensor) -> None:
+    """Overwrite `position`'s (rows, W, 4) rows with points ahead of the
+    camera at view depths from 0.5 to 1.25x the last cascade's near split
+    across the columns (so in every cascade's range), spread sideways over
+    the rows (tests/test_torch_deferred_kernel.py plants the same)."""
+    rows, width = position.shape[:2]
+    view = torch.tensor(np.asarray(camera.get_view(), np.float32))
+    eye = torch.tensor(np.asarray(camera.get_position(), np.float32))
+    depth = torch.linspace(0.5, 1.25 * float(splits[-2]), width)
+    side = torch.linspace(-2.0, 2.0, rows)
+    points = (eye + depth[None, :, None] * -view[2, :3] + side[:, None, None] * view[0, :3]
+              + 0.25 * side.flip(0)[:, None, None] * view[1, :3])
+    position[..., :3] = points.to(position.device)
+    position[..., 3] = 1.0
+
+
+def deferred_phase(native) -> dict:
+    """The deferred kernel on the inputs of the Sponza-scale scene's 1920x1080
+    deferred pass (a RASTERIZED frame with the shadows on, so the four 4096^2
+    cascades are real; the view's own pixels lie in cascades 0 and 1 only,
+    so rows DEFERRED_PLANTED_ROWS are planted with positions in every
+    cascade's range, and the plain body must reach each): against the plain
+    body on the same CUDA inputs under every combination of
+    DEFERRED_TOGGLES, with 0, 3 and 10 lights (every channel within
+    DEFERRED_RTOL x max(1, |plain|), no NaN; one launch and every pixel
+    counted a call); its device time in the two benchmark cells' settings
+    against its byte bound (DEFERRED_BYTES_PER_PIXEL at 3.35 TB/s) and the
+    plain body's ms by events; its registers and spills; its launches in
+    host frames, and its kernel records in captured replays (torch.profiler).
+    Returns the kernels line's fields and the phase's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rust_renderer_tpu_torch.app.main import Application
+    from rust_renderer_tpu_torch.models import create_sponza_scale_scene
+    from rust_renderer_tpu_torch.ops import deferred, shadow
+    from rust_renderer_tpu_torch.settings import RenderGraphMode
+
+    start = deferred.DEFERRED_LAUNCHES["launches"]
+    app = Application(WIDTH, HEIGHT, RenderGraphMode.RASTERIZED, device="cuda")
+    app.create_scene(create_sponza_scale_scene)
+    seen = []
+    composite = deferred.deferred_composite
+
+    def record(*args):
+        seen.append(args)
+        return composite(*args)
+
+    deferred.deferred_composite = record
+    try:
+        app.run(1)
+    finally:
+        deferred.deferred_composite = composite
+    scene, _, *inputs = seen[0]
+    p = dict(zip(("position", "normal", "albedo", "pbr", "rt_reflections", "rt_shadows",
+                  "ssao", "shadow_map", "cascade_vp", "cascade_splits", "irradiance_map",
+                  "specular_map", "brdf_lut"), inputs))
+    p["position"] = p["position"].clone()
+    plant_cascades(p["position"][DEFERRED_PLANTED_ROWS], app.camera, p["cascade_splits"].cpu())
+    planes = list(p.values())
+    n = WIDTH * HEIGHT
+
+    def view_of(num_lights, **toggles):
+        view = app.view.with_camera(app.camera, WIDTH, HEIGHT).replace(
+            num_lights=np.int32(num_lights), **{k: np.int32(v) for k, v in toggles.items()})
+        return view.to("cuda")
+
+    _, cascade = shadow.calculate_shadow(p["position"][..., :3], view_of(0).view,
+                                         p["shadow_map"], p["cascade_vp"], p["cascade_splits"])
+    reached = sorted(cascade.unique().tolist())
+    if reached != list(range(p["shadow_map"].shape[0])):
+        raise AssertionError(f"deferred: the plain body reaches cascades {reached} only")
+    gap, worst = 0.0, -1.0
+    for combo in itertools.product((0, 1), repeat=len(DEFERRED_TOGGLES)):
+        for num_lights in (0, 3, 10):
+            view = view_of(num_lights, **dict(zip(DEFERRED_TOGGLES, combo)))
+            before = deferred.DEFERRED_LAUNCHES.copy()
+            got = deferred.deferred_composite(scene, view, *planes)
+            moved = dict(deferred.DEFERRED_LAUNCHES - before)
+            if moved != {"launches": 1, "pixels": n}:
+                raise AssertionError(f"deferred: a call moved the counter by {moved}")
+            want = deferred.deferred_composite_plain(scene, view, *planes)
+            if bool(torch.isnan(got).any()) or bool(torch.isnan(want).any()):
+                raise AssertionError(f"deferred: NaN under {combo}, {num_lights} lights")
+            diff = (got - want).abs()
+            excess = float((diff - DEFERRED_RTOL * torch.clamp_min(want.abs(), 1.0)).max())
+            if excess > 0.0:
+                raise AssertionError(f"deferred: the kernel is off the plain body by "
+                                     f"{excess:.3e} beyond its tolerance under {combo}, "
+                                     f"{num_lights} lights")
+            gap, worst = max(gap, float(diff.max())), max(worst, excess)
+    times = {}
+    for cell, shadows in (("rtshadows", 0), ("cascaded", 1)):
+        view = view_of(10, shadows_enabled=shadows)
+        kernel = lambda: deferred.deferred_composite(scene, view, *planes)
+        times[cell] = min(device_ms(kernel, TIMING_REPS) for _ in range(TIMING_ROUNDS))
+        times[f"{cell}_plain"] = cuda_ms(
+            lambda: deferred.deferred_composite_plain(scene, view, *planes), 1)
+    bound = n * DEFERRED_BYTES_PER_PIXEL / HBM_BYTES_S * 1e3
+    usage = ptxas_usage(f"{native.BUILD_DIR}/libdeferred_shade.so.log",
+                        "deferred_shade_kernel")
+
+    before = deferred.DEFERRED_LAUNCHES["launches"]
+    app.run(2)
+    host = deferred.DEFERRED_LAUNCHES["launches"] - before
+    app.run_on_device(FRAMES)  # the eager frame, the capture, FRAMES - 1 replays
+    captured = deferred.DEFERRED_LAUNCHES["launches"] - before - host
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        app.run_on_device(FRAMES)  # FRAMES replays
+        torch.cuda.synchronize()
+    replayed = sum(e.count for e in prof.key_averages() if "deferred_shade_kernel" in e.key)
+    if host != 2 or captured != 2 or replayed != FRAMES:
+        raise AssertionError(f"deferred: {host} launches in 2 host frames, {captured} in "
+                             f"a captured call, {replayed} kernel records in {FRAMES} "
+                             "replays")
+    log(f"deferred kernel on the Sponza-scale {WIDTH}x{HEIGHT} deferred pass (cascades "
+        f"{reached} reached), 96 settings (every toggle, 0 / 3 / 10 lights): largest "
+        f"|kernel - plain| {gap:.3e} (worst excess over {DEFERRED_RTOL} x max(1, |plain|): "
+        f"{worst:.3e}); device ms {times['rtshadows']:.4f} (RT shadows) / "
+        f"{times['cascaded']:.4f} (cascades) (best of {TIMING_ROUNDS} rounds of "
+        f"{TIMING_REPS}); byte bound {bound:.4f} ms ({DEFERRED_BYTES_PER_PIXEL} B a pixel; "
+        f"{times['rtshadows'] / bound:.2f}x / {times['cascaded'] / bound:.2f}x); plain body "
+        f"{times['rtshadows_plain']:.2f} / {times['cascaded_plain']:.2f} ms by events; "
+        f"{usage['registers']} registers, spill stores {usage['spill_stores']} B, loads "
+        f"{usage['spill_loads']} B; launches: {host} in 2 host frames, {captured} in "
+        f"run_on_device({FRAMES}) (eager frame + capture), {replayed} kernel records in "
+        f"{FRAMES} replays")
+    return {"launches": deferred.DEFERRED_LAUNCHES["launches"] - start, "max_abs_err": gap,
+            "ms": times["cascaded"], "plain_ms": times["cascaded_plain"], "bound_ms": bound,
+            "bound_by": "bytes", **usage}
+
+
+def deferred_alone() -> int:
+    """`--deferred`: the kernels built, then the deferred phase; no kernels
+    line and no result line."""
+    from rust_renderer_tpu_torch import native
+    from rust_renderer_tpu_torch.ops import raster_binned, traversal
+
+    card = build_kernels(native, traversal, raster_binned)
+    deferred_phase(native)
+    log(f"chip_smoke --deferred total {time.perf_counter() - START:.1f} s")
+    print(card)
+    return 0
+
+
 def sky_alone() -> int:
     """`--sky`: the kernels built, the sky phase, then a RASTERIZED app of
     the default scene at 1920x1080 (marching cubes off): FRAMES host frames
@@ -1255,7 +1449,7 @@ def sky_alone() -> int:
     app = Application(WIDTH, HEIGHT, RenderGraphMode.RASTERIZED, device="cuda")
     app.create_scene()
     run_frames("RASTERIZED", app, Launches(traversal, raster_binned, bvh_ops),
-               Launches.frame_want(2, 1, 4, 0, seed=1, sky=RASTER_SKY))
+               Launches.frame_want(2, 1, 4, 0, seed=1, sky=RASTER_SKY, deferred=1))
     pass_times("RASTERIZED", app)
     log(f"chip_smoke --sky total {time.perf_counter() - START:.1f} s")
     print(card)
@@ -1840,7 +2034,7 @@ def raster_gbuffer_phase(Application, StaticConfig, Graph, setup_gbuffer_pass, l
 # Frames compared and turns timed a mode; frames in the profiled window (a
 # host and device trace of a 1080p raster frame takes ~8 s to process).
 UNIFORM_FRAMES, UNIFORM_TURNS, UNIFORM_PROFILED = 3, 6, 1
-UNIFORM_WANT = {"RASTERIZED": Launches.frame_want(2, 1, 4, 1, seed=1, sky=RASTER_SKY),
+UNIFORM_WANT = {"RASTERIZED": Launches.frame_want(2, 1, 4, 1, seed=1, sky=RASTER_SKY, deferred=1),
                 "MINIMAL": Launches.frame_want(1, 0, 4, 0)}
 # The values changed between builds (the defaults: radius 0.3, threshold 0.45).
 UNIFORM_CHANGED = {"radius": 1.5, "fxaa_threshold": 2.0}
@@ -2210,7 +2404,7 @@ def scene_phase(Application, StaticConfig, RenderGraphMode, models, launches, co
          Launches.frame_want(BOUNCES, BOUNCES, 0, 0)),
         ("cube RASTERIZED", models.create_cube_scene, RenderGraphMode.RASTERIZED, (CUBE_SIZE,) * 2,
          StaticConfig(**raster_cfg),
-         Launches.frame_want(2, 1, 4, 0, seed=1, sky=RASTER_SKY)),
+         Launches.frame_want(2, 1, 4, 0, seed=1, sky=RASTER_SKY, deferred=1)),
         ("128-light PT", models.create_restir_many_lights_scene, pt, (WIDTH, HEIGHT),
          StaticConfig(**SPONZA_CFG), Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0,
                                                          seed=BOUNCES)),
@@ -2322,7 +2516,7 @@ APP_GIZMO_MOVE = np.float32([0.6, -0.5, 1.2])
 # seed a frame; RASTERIZED 2 + 1 K1, 4 K4, 1 seed (K5 draws the isosurface
 # alone); MINIMAL 1 K1, 4 K4; RTIOW (no light, no triangle) 5 + 5 K1.
 APP_WANT = {"pt": Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0, seed=BOUNCES, sky=PT_SKY),
-            "raster": Launches.frame_want(2, 1, 4, 0, seed=1, sky=RASTER_SKY),
+            "raster": Launches.frame_want(2, 1, 4, 0, seed=1, sky=RASTER_SKY, deferred=1),
             "minimal": Launches.frame_want(1, 0, 4, 0)}
 APP_RTIOW_WANT = Launches.frame_want(BOUNCES, BOUNCES, 0, 0, sky=PT_SKY)
 
@@ -2657,7 +2851,7 @@ TILES_RANKS, TILES_FRAMES = (2, 4), 2
 TILES_ATOL = TILES_RASTER_ATOL = 0.0
 FLAGSHIP_WANT = Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0, seed=BOUNCES, sky=PT_SKY)
 TILES_GRAPHS = {"PATH_TRACED": (FLAGSHIP_WANT, TILES_ATOL),
-                "RASTERIZED": (Launches.frame_want(2, 1, 4, 1, seed=1, sky=RASTER_SKY),
+                "RASTERIZED": (Launches.frame_want(2, 1, 4, 1, seed=1, sky=RASTER_SKY, deferred=1),
                                TILES_RASTER_ATOL),
                 "MINIMAL": (Launches.frame_want(1, 0, 4, 0), TILES_RASTER_ATOL)}
 # The row-sharded apps whose device loop the tiles phase runs.
@@ -3022,13 +3216,15 @@ def raster_alone() -> int:
     launches = Launches(traversal, raster_binned, bvh_ops)
     for label, mode, want in (
             ("RASTERIZED", RenderGraphMode.RASTERIZED,
-             Launches.frame_want(2, 1, 4, 1, seed=1, sky=RASTER_SKY)),
+             Launches.frame_want(2, 1, 4, 1, seed=1, sky=RASTER_SKY, deferred=1)),
             ("MINIMAL", RenderGraphMode.MINIMAL, Launches.frame_want(1, 0, 4, 0))):
         app = Application(WIDTH, HEIGHT, mode, device="cuda")
         app.view = app.view.replace(marching_cubes_enabled=np.int32(label == "RASTERIZED"))
         app.create_scene()
         if launches.sky is None:  # a port before the sky kernel's counter
             del want["sky"]
+        if launches.deferred is None:  # a port before the deferred kernel
+            del want["deferred"]
         run_frames(label, app, launches, want)
         times = {}
         for _ in range(RASTER_ALONE_ROUNDS):
@@ -3072,6 +3268,8 @@ def main() -> int:
         return sky_alone()
     if sys.argv[1:] == ["--k4"]:
         return k4_alone()
+    if sys.argv[1:] == ["--deferred"]:
+        return deferred_alone()
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -3173,14 +3371,15 @@ def main() -> int:
     app.view = app.view.replace(marching_cubes_enabled=np.int32(1))
     app.create_scene()
     counted.update(run_frames("RASTERIZED", app, launches,
-                              Launches.frame_want(2, 1, 4, 1, seed=1, sky=RASTER_SKY))[0])
+                              Launches.frame_want(2, 1, 4, 1, seed=1, sky=RASTER_SKY, deferred=1))[0])
     gbuffer_depth = pass_times("RASTERIZED", app)["gbuffer"]["gbuffer_depth"]
     k4 = k4_phase(app, raster, raster_binned, shadow)
     k5 = k5_phase(app, raster, raster_binned, marching_cubes, gbuffer_depth)
     log(f"RASTERIZED peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     raster_loop("RASTERIZED", app, launches, counted,
-                Launches.frame_want(2, 1, 4, 1, seed=1, sky=RASTER_SKY))
+                Launches.frame_want(2, 1, 4, 1, seed=1, sky=RASTER_SKY, deferred=1))
     del app, gbuffer_depth
+    shade = deferred_phase(native)
 
     # MINIMAL.
     app = Application(WIDTH, HEIGHT, RenderGraphMode.MINIMAL, device="cuda")
@@ -3222,9 +3421,10 @@ def main() -> int:
     kernels += [("seed", counted["seed"] + sum(r["launches"] for r in seeds.values()),
                  seeds["default"]),
                 ("k4", counted["k4"], k4), ("k5", counted["k5"], k5),
-                ("sky", counted["sky"] + sky["launches"], sky)]
+                ("sky", counted["sky"] + sky["launches"], sky),
+                ("deferred", counted["deferred"] + shade["launches"], shade)]
     names = {"k1": "k1_traverse_wide", "k4": "k4_depth_binned", "k5": "k5_vis_binned",
-             "seed": "seed_occlusion", "sky": "sky_scatter"}
+             "seed": "seed_occlusion", "sky": "sky_scatter", "deferred": "deferred_shade"}
     line = []
     for key, launched, stats in kernels:
         source, replaces = SOURCES[key]
@@ -3238,7 +3438,9 @@ def main() -> int:
                      # K1 on config 5's dynamic tree, its primary front.
                      **({"dynamic_ms": dyn_k1["primary"]["ms"],
                          "dynamic_bound_ms": dyn_k1["primary"]["bound_ms"]}
-                        if key == "k1" else {})})
+                        if key == "k1" else {}),
+                     **({k: stats[k] for k in ("registers", "spill_stores", "spill_loads")}
+                        if key == "deferred" else {})})
         if launched == 0:
             raise AssertionError(f"{key} was never launched on a main path")
     log(f"chip_smoke total {time.perf_counter() - START:.1f} s")

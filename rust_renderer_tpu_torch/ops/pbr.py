@@ -29,6 +29,20 @@ class PixelParams(NamedTuple):
     occlusion: torch.Tensor  # (...,)
 
 
+def material_pixel(scene, position, normal, albedo, pbr) -> PixelParams:
+    """Gbuffer planes -> PixelParams with the material's factors applied and
+    albedo decoded with pow 2.2 (deferred.frag:55-70, forward.frag)."""
+    material = pbr[..., 3].to(torch.int64).clamp(0, scene.mat_roughness.shape[0] - 1)
+    return PixelParams(
+        position=position,
+        base_color=torch.pow(torch.clamp_min(albedo, 0.0), 2.2)
+        * scene.mat_base_color[material][..., :3],
+        normal=normal,
+        metallic=pbr[..., 0] * scene.mat_metallic[material],
+        roughness=pbr[..., 1] * scene.mat_roughness[material],
+        occlusion=pbr[..., 2])
+
+
 def _norm(v: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(v, dim=-1)
 

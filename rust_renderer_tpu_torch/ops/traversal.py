@@ -73,6 +73,9 @@ SOURCES = {
     # The atmosphere's scattering integral of ops/atmosphere.py (no TPU
     # kernel: XLA fused the JAX package's tensor code).
     "sky_scatter": os.path.join(CSRC, "atmosphere.cu"),
+    # The deferred composite of ops/deferred.py (no TPU kernel: XLA fused the
+    # JAX package's tensor code).
+    "deferred_shade": os.path.join(CSRC, "deferred.cu"),
 }
 # Compile-time constants of the kernels (csrc/*.cu).
 K1_STACK_CAP = 256
@@ -148,6 +151,9 @@ _ARGTYPES = {
     # color, rays, color, transmittance, stream
     "sky_scatter": [ctypes.c_void_p] * 4 + [ctypes.c_float] * 2 + [ctypes.c_int]
     + [ctypes.c_void_p] * 3,
+    # the DeferredArgs block, stream
+    "deferred_shade": [ctypes.c_void_p] * 2,
+    "deferred_args_size": [],
 }
 
 

@@ -24,6 +24,7 @@ import torch
 from rust_renderer_tpu_torch.graph import Graph
 from rust_renderer_tpu_torch.ops import atmosphere as atmosphere_ops
 from rust_renderer_tpu_torch.ops import bvh as bvh_ops
+from rust_renderer_tpu_torch.ops import deferred as deferred_ops
 from rust_renderer_tpu_torch.ops import fxaa as fxaa_ops
 from rust_renderer_tpu_torch.ops import gbuffer as gbuffer_ops
 from rust_renderer_tpu_torch.ops import ibl as ibl_ops
@@ -311,52 +312,17 @@ def setup_rt_reflections_pass(graph: Graph, scene_bvh, cfg, width: int, height: 
 # -- deferred composite (renderers/deferred.rs + deferred.frag) ----------------
 
 
-def _material_pixel(scene, position, normal, albedo, pbr) -> pbr_ops.PixelParams:
-    """Gbuffer planes -> PixelParams with the material's factors applied and
-    albedo decoded with pow 2.2 (deferred.frag:55-70, forward.frag)."""
-    material = pbr[..., 3].to(torch.int64).clamp(0, scene.mat_roughness.shape[0] - 1)
-    return pbr_ops.PixelParams(
-        position=position,
-        base_color=torch.pow(torch.clamp_min(albedo, 0.0), 2.2)
-        * scene.mat_base_color[material][..., :3],
-        normal=normal,
-        metallic=pbr[..., 0] * scene.mat_metallic[material],
-        roughness=pbr[..., 1] * scene.mat_roughness[material],
-        occlusion=pbr[..., 2])
-
-
 def setup_deferred_pass(graph: Graph, cfg, width: int, height: int,
                         cascade_matrices, cascade_splits) -> None:
     graph.create_texture("deferred_output", width, height, 4, clear=0.0)
 
     def render(res, scene, view, u):
-        gb_pos, gb_pbr = res["gbuffer_position"], res["gbuffer_pbr"]
-        pixel = _material_pixel(scene, gb_pos[..., :3], res["gbuffer_normal"][..., :3],
-                                res["gbuffer_albedo"][..., :3], gb_pbr)
-        lo = pbr_ops.shade_all_lights(pixel, scene, view)
-        ambient_flat = 0.03 * pixel.base_color * gb_pbr[..., 2:3]
-        ambient_ibl = pbr_ops.image_based_lighting(pixel, view.eye_pos,
-                                                   *_ibl_inputs(res, cfg))
-        color = torch.where(_on(view.ibl_enabled), ambient_ibl, ambient_flat) + lo
-
-        # RT reflections replace metal materials (deferred.frag:92-95).
-        material = gb_pbr[..., 3].to(torch.int64).clamp(0, scene.mat_roughness.shape[0] - 1)
-        is_metal = _on(view.raytracing_supported) & (scene.mat_rt_type[material] == 1)
-        color = torch.where(is_metal[..., None], res["rt_reflections"][..., :3], color)
-
-        # CSM when enabled, else RT shadows (deferred.frag:97-111).
-        csm, cascade = shadow_ops.calculate_shadow(
-            gb_pos[..., :3], view.view, res["shadow_map"], u["cascade_vp"],
-            u["cascade_splits"])
-        rt_sh = torch.clamp_min(res["rt_shadows"], 0.3)
-        shadow = torch.where(_on(view.shadows_enabled), csm,
-                             torch.where(_on(view.raytracing_supported), rt_sh, 1.0))
-        color = color * shadow[..., None]
-        # CASCADE_DEBUG tint (deferred.frag:104-107) as a runtime toggle.
-        tint = _on(view.shadows_enabled) & _on(view.cascade_debug)
-        color = torch.where(tint, color * shadow_ops.cascade_debug_color(cascade), color)
-        color = color * torch.where(_on(view.ssao_enabled), res["ssao_output"], 1.0)[..., None]
-        return {"deferred_output": torch.cat([color, torch.ones_like(color[..., :1])], -1)}
+        irradiance, specular, lut = _ibl_inputs(res, cfg)
+        return {"deferred_output": deferred_ops.deferred_composite(
+            scene, view, res["gbuffer_position"], res["gbuffer_normal"],
+            res["gbuffer_albedo"], res["gbuffer_pbr"], res["rt_reflections"],
+            res["rt_shadows"], res["ssao_output"], res["shadow_map"], u["cascade_vp"],
+            u["cascade_splits"], irradiance, specular, lut)}
 
     builder = graph.add_pass("deferred")
     for name in (*GBUFFER_PLANES[:4], "shadow_map", "rt_shadows", "rt_reflections",
@@ -490,8 +456,8 @@ def setup_forward_pass(graph: Graph, cfg, width: int, height: int, cascade_matri
             gb = gbuffer_ops.from_rays(scene, hit, o, d,
                                        projection_view=view.projection @ view.view)
             covered = hit.is_hit
-        pixel = _material_pixel(scene, gb.position[..., :3], gb.normal[..., :3],
-                                gb.albedo[..., :3], gb.pbr)
+        pixel = pbr_ops.material_pixel(scene, gb.position[..., :3], gb.normal[..., :3],
+                                       gb.albedo[..., :3], gb.pbr)
         lo = pbr_ops.shade_all_lights(pixel, scene, view)
         color = 0.03 * pixel.base_color * pixel.occlusion[..., None] + lo
         csm, _ = shadow_ops.calculate_shadow(
