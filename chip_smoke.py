@@ -9,13 +9,12 @@
     python3 chip_smoke.py --k4    # K4 alone on the Sponza-scale cascades (`k4_alone`)
     python3 chip_smoke.py --deferred # the deferred kernel alone (`deferred_alone`)
 
-Builds the traversal kernels (rust_renderer_tpu_torch/csrc/traverse_wide.cu:
-K1 and K3's wide forms; traverse_q32.cu: K1q; traverse_drain.cu: K2;
-traverse_binary.cu: K3's binary walks; traverse_lq.cu: K3-lq;
-traverse_multi.cu: K3-multi), the seed kernel (csrc/seed_occlusion.cu), the
-sky kernel (csrc/atmosphere.cu), the deferred kernel (csrc/deferred.cu) and K4 / K5
-(csrc/raster_binned.cu) with nvcc into rust_renderer_tpu_torch/build/,
-one nvcc per source, started together; then:
+Builds every library the port's modules declare (`native.LIBRARIES`: the
+traversal kernels of ops/traversal.py, the seed kernel of ops/bvh.py, the
+sky kernel of ops/atmosphere.py, the deferred kernel of ops/deferred.py,
+K4 / K5 of ops/raster_binned.py, all from rust_renderer_tpu_torch/csrc/ with
+nvcc, and the BVH builder with g++) into rust_renderer_tpu_torch/build/, one
+compiler per library, started together; then:
 
 1. device: versions, the card's name and power limit, build times;
 2. PT main path: Application(1920, 1080, PATH_TRACED) on the default scene,
@@ -1422,14 +1421,13 @@ def deferred_phase(native) -> dict:
 
 def deferred_alone() -> int:
     """`--deferred`: the kernels built, then the deferred phase; no kernels
-    line and no result line."""
+    line, and the last line {"ok": true, "card": ...}."""
     from rust_renderer_tpu_torch import native
-    from rust_renderer_tpu_torch.ops import raster_binned, traversal
 
-    card = build_kernels(native, traversal, raster_binned)
+    card = build_kernels()
     deferred_phase(native)
     log(f"chip_smoke --deferred total {time.perf_counter() - START:.1f} s")
-    print(card)
+    print(json.dumps({"ok": True, "card": card}))
     return 0
 
 
@@ -1437,14 +1435,13 @@ def sky_alone() -> int:
     """`--sky`: the kernels built, the sky phase, then a RASTERIZED app of
     the default scene at 1920x1080 (marching cubes off): FRAMES host frames
     (`run_frames`: the sky kernel launched twice a frame, over every pixel)
-    and the per-pass ms of one more frame; no kernels line and no result
-    line."""
-    from rust_renderer_tpu_torch import native
+    and the per-pass ms of one more frame; no kernels line, and the last
+    line {"ok": true, "card": ...}."""
     from rust_renderer_tpu_torch.app.main import Application
     from rust_renderer_tpu_torch.ops import atmosphere, bvh as bvh_ops, raster_binned, traversal
     from rust_renderer_tpu_torch.settings import RenderGraphMode
 
-    card = build_kernels(native, traversal, raster_binned)
+    card = build_kernels()
     sky_phase(atmosphere)
     app = Application(WIDTH, HEIGHT, RenderGraphMode.RASTERIZED, device="cuda")
     app.create_scene()
@@ -1452,7 +1449,7 @@ def sky_alone() -> int:
                Launches.frame_want(2, 1, 4, 0, seed=1, sky=RASTER_SKY, deferred=1))
     pass_times("RASTERIZED", app)
     log(f"chip_smoke --sky total {time.perf_counter() - START:.1f} s")
-    print(card)
+    print(json.dumps({"ok": True, "card": card}))
     return 0
 
 
@@ -1678,22 +1675,21 @@ def k4_alone() -> int:
     interpolation logged, not held. It reads K4 through
     `depth_binned_cuda(bins, size, size)` and the binning, so a copy of this
     script beside another checkout's package times that checkout's K4 on
-    the same cascades (given `raster_binned.depth_exact` where it has
-    none)."""
-    from rust_renderer_tpu_torch import native
+    the same cascades (given `raster_binned.depth_exact` and
+    `native.LIBRARIES` where it has none)."""
     from rust_renderer_tpu_torch.app.main import Application
     from rust_renderer_tpu_torch.models import create_sponza_scale_scene
-    from rust_renderer_tpu_torch.ops import raster, raster_binned, shadow, traversal
+    from rust_renderer_tpu_torch.ops import raster, raster_binned, shadow
     from rust_renderer_tpu_torch.settings import RenderGraphMode
 
-    card = build_kernels(native, traversal, raster_binned)
+    card = build_kernels()
     app = Application(WIDTH, HEIGHT, RenderGraphMode.RASTERIZED, device="cuda")
     app.create_scene(create_sponza_scale_scene)
     for r in range(TIMING_ROUNDS):
         k4 = k4_phase(app, raster, raster_binned, shadow, check_exact=False)
         log(f"K4 alone round {r}: {k4}")
     log(f"chip_smoke --k4 total {time.perf_counter() - START:.1f} s")
-    print(card)
+    print(json.dumps({"ok": True, "card": card}))
     return 0
 
 
@@ -3155,42 +3151,44 @@ def tiles_phase(Application, StaticConfig, launches, card: str) -> collections.C
     return counted
 
 
-def build_kernels(native, traversal, raster_binned) -> str:
-    """Versions and the card's line logged; every kernel library built, one
-    nvcc per source, all started together. Returns the card's line."""
+def build_kernels() -> str:
+    """Versions and the card's line logged; every library that the port's
+    modules declare (`native.LIBRARIES`) built, one compiler per library,
+    all started together, and each compiler's report logged. Returns the
+    card's line."""
+    from rust_renderer_tpu_torch import native
+    import rust_renderer_tpu_torch.app.main  # noqa: F401 (its ops declare every library)
+
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     card = card_line()
     t0 = time.perf_counter()
-    builds = [functools.partial(traversal.library, name) for name in traversal.SOURCES]
-    builds.append(raster_binned.library)
-    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
-        for f in [pool.submit(b) for b in builds]:
+    libs = list(native.LIBRARIES.values())
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        for f in [pool.submit(lib.library) for lib in libs]:
             f.result()
-    log(f"traversal + K4/K5 build ({len(builds)} nvcc in parallel) "
-        f"{time.perf_counter() - t0:.2f} s")
-    for lib in (*traversal.SOURCES, "k45_raster_binned"):
-        with open(f"{native.BUILD_DIR}/lib{lib}.so.log") as f:
+    log(f"native build ({len(libs)} libraries in parallel) {time.perf_counter() - t0:.2f} s")
+    for lib in libs:
+        with open(f"{native.BUILD_DIR}/lib{lib.name}.so.log") as f:
             log(f.read().strip())
     return card
 
 
 def app_alone() -> int:
     """`--app`: the kernels built, then the app phase alone (no kernels
-    line and no result line)."""
-    from rust_renderer_tpu_torch import native
+    line; the last line {"ok": true, "card": ...})."""
     from rust_renderer_tpu_torch.app.main import Application
     from rust_renderer_tpu_torch.models import create_scene
     from rust_renderer_tpu_torch.ops import bvh as bvh_ops, raster_binned, traversal
     from rust_renderer_tpu_torch.settings import RenderGraphMode, StaticConfig
 
-    card = build_kernels(native, traversal, raster_binned)
+    card = build_kernels()
     counted = collections.Counter()
     app_phase(Application, StaticConfig, RenderGraphMode, create_scene,
               Launches(traversal, raster_binned, bvh_ops), counted)
     log(f"app phase launches {dict(counted)}; chip_smoke --app total "
         f"{time.perf_counter() - START:.1f} s")
-    print(card)
+    print(json.dumps({"ok": True, "card": card}))
     return 0
 
 
@@ -3202,17 +3200,17 @@ def raster_alone() -> int:
     and MINIMAL apps of the main path at 1920x1080: FRAMES host frames
     (launches checked, `run_frames`) and RASTER_ALONE_ROUNDS frames with
     events around every pass (`pass_times`), with the median of each pass;
-    no device loop, no kernels line and no result line. It reads only what
-    the port has had since its uniforms slice, so a copy of this script
-    beside another checkout's package (its directory comes first on
+    no device loop, no kernels line; the last line {"ok": true, "card":
+    ...}. It reads only what the port has had since its uniforms slice and
+    builds what `native.LIBRARIES` declares, so a copy of this script beside
+    another checkout's package that has them (its directory comes first on
     sys.path) measures that checkout's frames: parent against change in one
     call."""
-    from rust_renderer_tpu_torch import native
     from rust_renderer_tpu_torch.app.main import Application
     from rust_renderer_tpu_torch.ops import bvh as bvh_ops, raster_binned, traversal
     from rust_renderer_tpu_torch.settings import RenderGraphMode
 
-    card = build_kernels(native, traversal, raster_binned)
+    card = build_kernels()
     launches = Launches(traversal, raster_binned, bvh_ops)
     for label, mode, want in (
             ("RASTERIZED", RenderGraphMode.RASTERIZED,
@@ -3233,22 +3231,21 @@ def raster_alone() -> int:
             f"{name} {sorted(v)[len(v) // 2]:.2f}" for name, v in times.items()))
         del app
     log(f"chip_smoke --raster total {time.perf_counter() - START:.1f} s")
-    print(card)
+    print(json.dumps({"ok": True, "card": card}))
     return 0
 
 
 def tiles_alone() -> int:
     """`--tiles`: the kernels built, then the tiles phase alone (no kernels
-    line and no result line)."""
-    from rust_renderer_tpu_torch import native
+    line; the last line {"ok": true, "card": ...})."""
     from rust_renderer_tpu_torch.app.main import Application
     from rust_renderer_tpu_torch.ops import bvh as bvh_ops, raster_binned, traversal
     from rust_renderer_tpu_torch.settings import StaticConfig
 
-    card = build_kernels(native, traversal, raster_binned)
+    card = build_kernels()
     tiles_phase(Application, StaticConfig, Launches(traversal, raster_binned, bvh_ops), card)
     log(f"chip_smoke --tiles total {time.perf_counter() - START:.1f} s")
-    print(card)
+    print(json.dumps({"ok": True, "card": card}))
     return 0
 
 
@@ -3284,7 +3281,7 @@ def main() -> int:
     from rust_renderer_tpu_torch.renderers.passes import setup_gbuffer_pass
     from rust_renderer_tpu_torch.settings import RenderGraphMode, StaticConfig
 
-    card = build_kernels(native, traversal, raster_binned)
+    card = build_kernels()
     launches = Launches(traversal, raster_binned, bvh_ops)
     counted = collections.Counter()
     fronts, bvhs = {}, {}

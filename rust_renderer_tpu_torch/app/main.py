@@ -36,7 +36,7 @@ import os
 import numpy as np
 import torch
 
-from rust_renderer_tpu_torch import models
+from rust_renderer_tpu_torch import models, native
 from rust_renderer_tpu_torch.app.ui import Ui
 from rust_renderer_tpu_torch.camera import Camera
 from rust_renderer_tpu_torch.graph import Graph
@@ -171,8 +171,11 @@ class Application:
         if path is None:
             return
         self.reset_accumulation()
-        mod = DirectoryWatcher.module_name_for(path)
-        if mod:
+        if path.endswith((".cu", ".cuh")):
+            # The libraries built from it load the edited code at their next launch.
+            native.invalidate(path)
+            self.graph.recompile()
+        elif mod := DirectoryWatcher.module_name_for(path):
             self.graph.recompile_shader(mod)
 
     def _refresh_view(self) -> None:

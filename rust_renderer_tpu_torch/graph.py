@@ -91,7 +91,6 @@ class RenderPass:
     uniforms: Mapping[str, torch.Tensor]
     fn: Callable  # fn(resources, scene, view[, uniforms]) -> dict of writes
     isolated: bool = False  # see PassBuilder.isolate
-    host_sync: str | None = None  # see PassBuilder.host_sync
     # Whether fn takes the uniforms: decided once, from fn's parameters.
     takes_uniforms: bool = dataclasses.field(init=False)
 
@@ -110,7 +109,6 @@ class PassBuilder:
         self._uniforms: dict[str, Any] = {}
         self._fn: Callable | None = None
         self._isolated = False
-        self._host_sync: str | None = None
 
     def isolate(self) -> "PassBuilder":
         """Mark the pass isolated, as the JAX package's builders do (there:
@@ -118,14 +116,6 @@ class PassBuilder:
         `render_loop` runs a leading run of isolated passes for all N frames
         first and stacks what they write (`Graph.render_loop`)."""
         self._isolated = True
-        return self
-
-    def host_sync(self, why: str) -> "PassBuilder":
-        """Mark the pass as one whose body waits on the host (a readback, a
-        host branch on a tensor's value), `why` saying where: such a pass
-        cannot be captured into a CUDA graph, so `render_loop` runs the
-        graph eagerly (`Graph.capture_unsupported_reason`)."""
-        self._host_sync = why
         return self
 
     def read(self, resource: str) -> "PassBuilder":
@@ -173,8 +163,7 @@ class PassBuilder:
                     for name, value in self._uniforms.items()}
         self._graph.passes.append(
             RenderPass(self._name, list(self._reads), list(self._writes),
-                       types.MappingProxyType(uniforms), self._fn, self._isolated,
-                       self._host_sync))
+                       types.MappingProxyType(uniforms), self._fn, self._isolated))
 
 
 class _PassResources(Mapping):
@@ -350,10 +339,11 @@ class Graph:
 
     def recompile_shader(self, module_name: str) -> bool:
         """Reload one kernel module by name (the reference's per-path shader
-        recompile, graph.rs:683-701), then `recompile`. A module that builds
-        CUDA libraries loads them anew: `native.load_library` names a
-        library by its sources' hash. Returns whether the reload succeeded;
-        a failed one keeps the old module."""
+        recompile, graph.rs:683-701), then `recompile`. A module that
+        declares native libraries declares them anew (`native.declare`), so
+        its next launch loads the libraries of the sources as they stand.
+        Returns whether the reload succeeded; a failed one keeps the old
+        module."""
         mod = sys.modules.get(module_name)
         if mod is None:
             log.warning("recompile_shader: module %s not loaded", module_name)
@@ -493,16 +483,12 @@ class Graph:
         """Why `render_loop` cannot capture its body (the passes after the
         isolated prefix) into a CUDA graph: a row-sharded graph whose group
         is not NCCL's (a CUDA graph holds NCCL collectives, not gloo's,
-        which move the tensors through the host), or the first pass marked
-        with `PassBuilder.host_sync`; None where it can."""
+        which move the tensors through the host); None where it can."""
         if self.band is not None:
             backend = torch.distributed.get_backend(self.band.group)
             if backend != "nccl":
                 return (f"{backend} collectives cannot be captured (the graph is "
                         f"row-sharded over a {backend} group)")
-        for p in self._split_prefix()[1]:
-            if p.host_sync is not None:
-                return f"pass '{p.name}' {p.host_sync}"
         return None
 
     def render_loop(self, scene, view, n_frames: int, view_update=None, aux=None):

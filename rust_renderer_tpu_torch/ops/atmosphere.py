@@ -15,13 +15,14 @@ they integrated; nothing else changes it.
 from __future__ import annotations
 
 import collections
+import ctypes
 import math
 import numbers
 
 import numpy as np
 import torch
 
-from rust_renderer_tpu_torch.ops import traversal
+from rust_renderer_tpu_torch import native
 from rust_renderer_tpu_torch.ops.constants import device_constant
 from rust_renderer_tpu_torch.ops.rays import dot, length
 
@@ -42,6 +43,13 @@ _SCATTERING_SAMPLES = 16
 
 # The sky kernel's launches and the rays they integrated.
 SKY_LAUNCHES: collections.Counter = collections.Counter()  # "launches", "rays"
+# The sky kernel's library (no TPU kernel: XLA fused the JAX package's tensor
+# code). sky_scatter's arguments: origin, direction, light direction, sky
+# flag, ray length, light color, rays, color, transmittance, stream.
+SKY = native.declare("sky_scatter", ["atmosphere.cu"], {
+    "sky_scatter": [ctypes.c_void_p] * 4 + [ctypes.c_float] * 2 + [ctypes.c_int]
+    + [ctypes.c_void_p] * 3,
+})
 
 
 def _sphere_intersection(ray_start, ray_dir, center, radius):
@@ -214,30 +222,29 @@ def sky_scatter_cuda(ray_start, ray_dir, light_dir, ray_length, light_color,
         raise ValueError(f"rays of shape {tuple(shape)} do not end in 3")
     d = ray_dir.expand(shape).reshape(-1, 3).contiguous()
     n = d.shape[0]
-    traversal._check("direction", d, torch.float32, (n, 3), dev)
+    native.check("direction", d, torch.float32, (n, 3), dev)
     if n >= 2 ** 31:
         raise ValueError(f"{n} rays exceed one sky kernel launch")
     color = torch.empty((n, 3), dtype=torch.float32, device=dev)
     trans = None if sky_enabled is not None else torch.empty_like(color)
     o = ray_start.expand(shape).reshape(-1, 3).contiguous()
-    traversal._check("origin", o, torch.float32, (n, 3), dev)
+    native.check("origin", o, torch.float32, (n, 3), dev)
     light = light_dir.reshape(-1).contiguous()
-    traversal._check("light_dir", light, torch.float32, (3,), dev)
+    native.check("light_dir", light, torch.float32, (3,), dev)
     flag = None
     if sky_enabled is not None:
         if not isinstance(sky_enabled, torch.Tensor):
             raise ValueError("the sky kernel reads sky_enabled from a tensor on the rays' "
                              f"device, got {type(sky_enabled).__name__}")
         flag = sky_enabled.reshape(-1).contiguous()
-        traversal._check("sky_enabled", flag, torch.int32, (1,), dev)
+        native.check("sky_enabled", flag, torch.int32, (1,), dev)
     if n:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = traversal.library("sky_scatter").sky_scatter(
+        SKY.launch(
+            "sky_scatter", "the sky kernel", dev,
             o.data_ptr(), d.data_ptr(), light.data_ptr(),
             None if flag is None else flag.data_ptr(), float(ray_length),
             float(light_color), n, color.data_ptr(),
-            None if trans is None else trans.data_ptr(), stream)
-        traversal._raise_on(err, "the sky kernel")
+            None if trans is None else trans.data_ptr())
         SKY_LAUNCHES["launches"] += 1
         SKY_LAUNCHES["rays"] += n
     return color.reshape(shape), None if trans is None else trans.reshape(shape)

@@ -34,6 +34,7 @@ any-hit query's pre-test against the largest leaf rows.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import logging
 from typing import NamedTuple
@@ -479,6 +480,12 @@ SEED_LAUNCHES = 0
 # The triangles one launch of the seed kernel holds in its parameters (its
 # SEED_MAX_TRIS); the wrapper's launcher runs a larger table in chunks.
 SEED_LAUNCH_TRIS = 8 * LEAF_SIZE
+# The seed kernel's library (no TPU kernel: XLA fused the JAX package's
+# make_seed_test). seed_occlusion's arguments: the rays (4), the host triangle
+# table, then ints, the verdicts, the walk's directions and the stream.
+SEED = native.declare("seed_occlusion", ["seed_occlusion.cu"], {
+    "seed_occlusion": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3,
+}, deps=("traverse_common.cuh",))
 
 
 def seed_table(bvh: BVH, k: int) -> torch.Tensor | None:
@@ -534,19 +541,18 @@ def seed_occlusion_cuda(tris, o, d, t_min, t_max):
     function of `seed_occlusion_plain`. `tris` stays on the host: its values
     travel in the launches' parameters, SEED_LAUNCH_TRIS at a time."""
     global SEED_LAUNCHES
-    r, dev = traversal._check_rays("the seed kernel", o, d, t_min, t_max)
+    r, dev = traversal.check_rays("the seed kernel", o, d, t_min, t_max)
     n = tris.shape[1]
-    traversal._check("seed table", tris, torch.float32, (9, n), torch.device("cpu"))
+    native.check("seed table", tris, torch.float32, (9, n), torch.device("cpu"))
     if n < 1:
         raise ValueError("the seed kernel takes at least one triangle")
     occ = torch.empty(r, dtype=torch.bool, device=dev)
     walk_d = torch.empty((r, 3), dtype=torch.float32, device=dev)
     if r:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = traversal.library("seed_occlusion").seed_occlusion(
+        SEED.launch(
+            "seed_occlusion", "the seed kernel", dev,
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
-            tris.data_ptr(), n, r, occ.data_ptr(), walk_d.data_ptr(), stream)
-        traversal._raise_on(err, "the seed kernel")
+            tris.data_ptr(), n, r, occ.data_ptr(), walk_d.data_ptr())
         SEED_LAUNCHES += 1
     return occ, walk_d
 

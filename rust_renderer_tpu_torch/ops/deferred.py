@@ -25,9 +25,9 @@ import math
 
 import torch
 
+from rust_renderer_tpu_torch import native
 from rust_renderer_tpu_torch.ops import pbr as pbr_ops
 from rust_renderer_tpu_torch.ops import shadow as shadow_ops
-from rust_renderer_tpu_torch.ops import traversal
 
 # The kernel's launches and the pixels they shaded.
 DEFERRED_LAUNCHES: collections.Counter = collections.Counter()  # "launches", "pixels"
@@ -35,6 +35,12 @@ DEFERRED_LAUNCHES: collections.Counter = collections.Counter()  # "launches", "p
 # Compile-time limits of csrc/deferred.cu.
 MAX_LEVELS = 16
 MAX_CASCADES = 8
+# The deferred kernel's library (no TPU kernel: XLA fused the JAX package's
+# tensor code). deferred_shade takes the DeferredArgs block and the stream.
+SHADE = native.declare("deferred_shade", ["deferred.cu"], {
+    "deferred_shade": [ctypes.c_void_p] * 2,
+    "deferred_args_size": [],
+})
 
 
 def deferred_composite(scene, view, position, normal, albedo, pbr, rt_reflections,
@@ -114,7 +120,7 @@ def _on_device(name: str, x: torch.Tensor, dtype, shape, dev, flat: bool = False
     if not isinstance(x, torch.Tensor):
         raise ValueError(f"the deferred kernel reads {name} from a tensor on {dev}, "
                          f"got {type(x).__name__}")
-    traversal._check(name, x, dtype, x.shape if flat else shape, dev)
+    native.check(name, x, dtype, x.shape if flat else shape, dev)
     if x.numel() != math.prod(shape):
         raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {math.prod(shape)} "
                          "elements")
@@ -186,7 +192,7 @@ def deferred_shade_cuda(scene, view, position, normal, albedo, pbr, rt_reflectio
         raise ValueError("the deferred kernel reads brdf_lut as float2: it must be 8-byte "
                          "aligned")
     if rows and width:
-        lib = traversal.library("deferred_shade")
+        lib = SHADE.library()
         if lib.deferred_args_size() != ctypes.sizeof(_Args):
             raise RuntimeError(f"csrc/deferred.cu's DeferredArgs holds "
                                f"{lib.deferred_args_size()} bytes, _Args "
@@ -199,9 +205,7 @@ def deferred_shade_cuda(scene, view, position, normal, albedo, pbr, rt_reflectio
         for m, level in enumerate(levels):
             args.specular[m] = level.data_ptr()
             args.specular_size[m] = level.shape[1]
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.deferred_shade(ctypes.addressof(args), stream)
-        traversal._raise_on(err, "the deferred kernel")
+        SHADE.launch("deferred_shade", "the deferred kernel", dev, ctypes.addressof(args))
         DEFERRED_LAUNCHES["launches"] += 1
         DEFERRED_LAUNCHES["pixels"] += rows * width
     return out

@@ -50,8 +50,6 @@ is exact in any order, and K5's in-order last-wins walk is the least
 from __future__ import annotations
 
 import ctypes
-import functools
-import os
 from typing import NamedTuple
 
 import torch
@@ -61,7 +59,6 @@ from rust_renderer_tpu_torch.ops.constants import device_constant
 from rust_renderer_tpu_torch.ops.raster import (
     INT64_MAX, VisibilityBuffer, clear_visibility, clip_to_screen,
     clip_triangles_near, float_order_key, merge_visibility, pixel_box, pixel_pairs)
-from rust_renderer_tpu_torch.ops.traversal import _check, nvcc_command
 
 TILE_H = 32
 TILE_W = 256
@@ -75,7 +72,14 @@ K4_ITEM_ROWS = 1024
 VIS_ORIG = 25  # a visibility row's original triangle id
 _PAIR_BUDGET = 1 << 24
 
-SOURCE = os.path.join(native.PACKAGE_DIR, "csrc", "raster_binned.cu")
+# K4, K5 and their plan kernel. Each function's arguments: pointers in (the
+# plan: counts, g_count; K4 and K5: table, the four box columns, starts,
+# counts, plan, gmeta), then ints, then the outputs (the plan: itself and
+# gmeta; K5: the key plane first) and the stream.
+RASTER = native.declare("k45_raster_binned", ["raster_binned.cu"], {
+    fn: [ctypes.c_void_p] * n_in + [ctypes.c_int] * n_ints + [ctypes.c_void_p] * (n_out + 1)
+    for fn, n_in, n_ints, n_out in (("raster_plan", 2, 1, 2), ("k4_depth_binned", 9, 4, 1),
+                                    ("k5_vis_binned", 9, 5, 5))})
 
 K4_LAUNCHES = 0
 K5_LAUNCHES = 0
@@ -234,24 +238,6 @@ def bin_triangles(tr: TriRows, width: int, height: int) -> Bins:
 # -- the kernels ---------------------------------------------------------------
 
 
-@functools.cache
-def library() -> ctypes.CDLL:
-    """Build (at first use) and bind K4, K5 and their plan kernel. Cached,
-    as `traversal.library` is: every launch asks for its library, and
-    building the nvcc command resolves nvcc on PATH."""
-    lib = native.load_library("k45_raster_binned", [SOURCE], nvcc_command())
-    # pointers in (the plan: counts, g_count; K4 and K5: table, the four box
-    # columns, starts, counts, plan, gmeta), then ints, then the outputs (the
-    # plan: itself and gmeta; K5: the key plane first) and the stream
-    for fn, n_in, n_ints, n_out in ((lib.raster_plan, 2, 1, 2),
-                                    (lib.k4_depth_binned, 9, 4, 1),
-                                    (lib.k5_vis_binned, 9, 5, 5)):
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * n_in + [ctypes.c_int] * n_ints
-                       + [ctypes.c_void_p] * (n_out + 1))
-    return lib
-
-
 def _check_bins(bins: Bins, width: int, height: int, kernel: str) -> None:
     """Raises on bins a K4 / K5 launch does not take (nothing is truncated)."""
     _check_plan(bins)
@@ -263,12 +249,12 @@ def _check_bins(bins: Bins, width: int, height: int, kernel: str) -> None:
     if dev.type != "cuda":
         raise ValueError(f"{kernel} runs on CUDA tensors, got {dev}")
     n_tiles = bins.nx * bins.ny
-    _check("table", bins.table, torch.float32, (bins.table.shape[0], bins.table.shape[1]), dev)
-    _check("starts", bins.starts, torch.int32, (n_tiles,), dev)
-    _check("counts", bins.counts, torch.int32, (n_tiles,), dev)
-    _check("g_count", bins.g_count, torch.int32, (), dev)
+    native.check("table", bins.table, torch.float32, (bins.table.shape[0], bins.table.shape[1]), dev)
+    native.check("starts", bins.starts, torch.int32, (n_tiles,), dev)
+    native.check("counts", bins.counts, torch.int32, (n_tiles,), dev)
+    native.check("g_count", bins.g_count, torch.int32, (), dev)
     for name, box in zip(("x0", "x1", "y0", "y1"), bins.row_box):
-        _check(f"row_box {name}", box, torch.int64, (bins.table.shape[0],), dev)
+        native.check(f"row_box {name}", box, torch.int64, (bins.table.shape[0],), dev)
 
 
 class DepthPlan(NamedTuple):
@@ -330,15 +316,12 @@ def depth_plan(bins: Bins) -> DepthPlan:
         raise ValueError(f"no plan for device {dev}")
     _check_plan(bins)
     n_tiles = bins.nx * bins.ny
-    _check("counts", bins.counts, torch.int32, (n_tiles,), dev)
-    _check("g_count", bins.g_count, torch.int32, (), dev)
+    native.check("counts", bins.counts, torch.int32, (n_tiles,), dev)
+    native.check("g_count", bins.g_count, torch.int32, (), dev)
     ends = torch.empty(n_tiles + 1, dtype=torch.int32, device=dev)
     gmeta = torch.empty(2, dtype=torch.int32, device=dev)
-    err = library().raster_plan(bins.counts.data_ptr(), bins.g_count.data_ptr(), n_tiles,
-                                ends.data_ptr(), gmeta.data_ptr(),
-                                torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"the raster plan's launch failed: cudaError {err}")
+    RASTER.launch("raster_plan", "the raster plan", dev, bins.counts.data_ptr(),
+                  bins.g_count.data_ptr(), n_tiles, ends.data_ptr(), gmeta.data_ptr())
     return DepthPlan(ends, gmeta)
 
 
@@ -394,13 +377,11 @@ def depth_binned_cuda(bins: Bins, width: int, height: int) -> torch.Tensor:
     dev = bins.table.device
     plan = depth_plan(bins)
     out = torch.ones((height, width), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = library().k4_depth_binned(
+    RASTER.launch(
+        "k4_depth_binned", "K4", dev,
         bins.table.data_ptr(), *(b.data_ptr() for b in bins.row_box), bins.starts.data_ptr(),
         bins.counts.data_ptr(), plan.ends.data_ptr(), plan.gmeta.data_ptr(), bins.nx * bins.ny,
-        bins.nx, bins.g_base, width, out.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"K4 launch failed: cudaError {err}")
+        bins.nx, bins.g_base, width, out.data_ptr())
     K4_LAUNCHES += 1
     return out
 
@@ -420,14 +401,12 @@ def vis_binned_cuda(bins: Bins, width: int, height: int) -> VisibilityBuffer:
     planes = torch.empty((4, height, width), dtype=torch.float32, device=dev)
     out = VisibilityBuffer(depth=planes[0], tri=planes[1].view(torch.int32),
                            bary_u=planes[2], bary_v=planes[3])
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = library().k5_vis_binned(
+    RASTER.launch(
+        "k5_vis_binned", "K5", dev,
         bins.table.data_ptr(), *(b.data_ptr() for b in bins.row_box), bins.starts.data_ptr(),
         bins.counts.data_ptr(), plan.ends.data_ptr(), plan.gmeta.data_ptr(), bins.nx * bins.ny,
         bins.nx, bins.g_base, width, height, keys.data_ptr(),
-        *(x.data_ptr() for x in out), stream)
-    if err != 0:
-        raise RuntimeError(f"K5 launch failed: cudaError {err}")
+        *(x.data_ptr() for x in out))
     K5_LAUNCHES += 1
     return out
 

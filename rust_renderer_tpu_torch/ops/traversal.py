@@ -9,8 +9,9 @@ make_closest_hit` calls it), and `select_kernel` names the kernel they
 choose, by the JAX rule. CPU tensors take the plain version; CUDA tensors
 launch the selected kernel or raise; any other device raises.
 
-Every kernel is CUDA C++ (``csrc/``), one thread per ray, built with nvcc at
-first use and bound with ctypes:
+Every kernel is CUDA C++ (``csrc/``), one thread per ray, declared below
+(`native.declare`), built with nvcc at its first launch and bound with
+ctypes:
 
 - K1 (``traverse_wide.cu``) walks the width-16 tree `wnode_packed` with a
   private stack, reading rows with 16-byte loads; a closest-hit walk tests
@@ -50,33 +51,36 @@ from __future__ import annotations
 
 import collections
 import ctypes
-import functools
-import os
-import shutil
 
 import torch
 
 from rust_renderer_tpu_torch import native
 from rust_renderer_tpu_torch.ops.rays import INF
 
-CSRC = os.path.join(native.PACKAGE_DIR, "csrc")
-COMMON = os.path.join(CSRC, "traverse_common.cuh")
-SOURCES = {
-    "k1_traverse_wide": os.path.join(CSRC, "traverse_wide.cu"),  # K1, K3 wide
-    "k1q_traverse_q32": os.path.join(CSRC, "traverse_q32.cu"),
-    "k2_traverse_drain": os.path.join(CSRC, "traverse_drain.cu"),
-    "k3_traverse_binary": os.path.join(CSRC, "traverse_binary.cu"),
-    "k3_traverse_lq": os.path.join(CSRC, "traverse_lq.cu"),
-    "k3_traverse_multi": os.path.join(CSRC, "traverse_multi.cu"),
-    # The seed test of ops/bvh.py::make_seed_test (no TPU kernel: XLA fused it).
-    "seed_occlusion": os.path.join(CSRC, "seed_occlusion.cu"),
-    # The atmosphere's scattering integral of ops/atmosphere.py (no TPU
-    # kernel: XLA fused the JAX package's tensor code).
-    "sky_scatter": os.path.join(CSRC, "atmosphere.cu"),
-    # The deferred composite of ops/deferred.py (no TPU kernel: XLA fused the
-    # JAX package's tensor code).
-    "deferred_shade": os.path.join(CSRC, "deferred.cu"),
-}
+# The libraries this module launches; each function's arguments are the
+# rays (4), the tables, then ints, the outputs and the stream.
+_COMMON = ("traverse_common.cuh",)
+WIDE = native.declare("k1_traverse_wide", ["traverse_wide.cu"], {  # K1, K3 wide
+    "k1_traverse_wide": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 6,
+    "k3_traverse_wide": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6,
+}, deps=_COMMON)
+Q32 = native.declare("k1q_traverse_q32", ["traverse_q32.cu"], {
+    "k1q_traverse_q32": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5,
+}, deps=_COMMON)
+DRAIN = native.declare("k2_traverse_drain", ["traverse_drain.cu"], {
+    "k2_traverse_drain": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+    + [ctypes.c_int] + [ctypes.c_void_p] * 6,
+}, deps=_COMMON)
+BINARY = native.declare("k3_traverse_binary", ["traverse_binary.cu"], {
+    "k3_traverse_binary": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5,
+}, deps=_COMMON)
+LQ = native.declare("k3_traverse_lq", ["traverse_lq.cu"], {
+    "k3_traverse_lq": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6,
+}, deps=_COMMON)
+MULTI = native.declare("k3_traverse_multi", ["traverse_multi.cu"], {
+    "k3_traverse_multi": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 5,
+}, deps=_COMMON)
+
 # Compile-time constants of the kernels (csrc/*.cu).
 K1_STACK_CAP = 256
 K3_STACK_CAP = 512
@@ -113,74 +117,6 @@ BLOCK = 1024
 TILE = 32
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    return os.path.join(home, "bin", "nvcc")
-
-
-def nvcc_command() -> list[str]:
-    return [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-fmad=false", "-Xptxas=-v", "-shared",
-            "-Xcompiler", "-fPIC"]
-
-
-_ARGTYPES = {
-    # rays (4), tables, then ints, outputs, stream
-    "k1_traverse_wide": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 2
-    + [ctypes.c_void_p] * 6,
-    "k3_traverse_wide": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-    + [ctypes.c_void_p] * 6,
-    "k1q_traverse_q32": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
-    + [ctypes.c_void_p] * 5,
-    "k2_traverse_drain": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-    + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 6,
-    "k3_traverse_binary": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-    + [ctypes.c_void_p] * 5,
-    "k3_traverse_lq": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-    + [ctypes.c_void_p] * 6,
-    "k3_traverse_multi": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
-    + [ctypes.c_void_p] * 5,
-    # rays (4), the host triangle table, then ints, the verdicts, the walk's
-    # directions, stream
-    "seed_occlusion": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-    + [ctypes.c_void_p] * 3,
-    # origin, direction, light direction, sky flag, ray length, light
-    # color, rays, color, transmittance, stream
-    "sky_scatter": [ctypes.c_void_p] * 4 + [ctypes.c_float] * 2 + [ctypes.c_int]
-    + [ctypes.c_void_p] * 3,
-    # the DeferredArgs block, stream
-    "deferred_shade": [ctypes.c_void_p] * 2,
-    "deferred_args_size": [],
-}
-
-
-@functools.cache
-def library(name: str) -> ctypes.CDLL:
-    """Build (at first use) and bind the traversal library `name`, a key of
-    SOURCES."""
-    lib = native.load_library(name, [SOURCES[name]], nvcc_command(), deps=(COMMON,))
-    for fn_name, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, fn_name, None)
-        if fn is not None:
-            fn.restype = ctypes.c_int
-            fn.argtypes = argtypes
-    return lib
-
-
-def _check(name: str, x: torch.Tensor, dtype, shape, device) -> None:
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if x.dtype != dtype:
-        raise ValueError(f"{name} has dtype {x.dtype}, expected {dtype}")
-    if tuple(x.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(shape)}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
 def k1_stack_need(wide_depth: int) -> int:
     """Stack entries K1's walk of the width-16 tree can hold: a popped wide
     node defers up to WIDTH - 1 siblings per level, plus the WIDTH children
@@ -198,25 +134,25 @@ def level_stack_need(levels: int, dual: bool) -> int:
     return K1_WIDTH * (2 if dual else 1) * int(levels)
 
 
-def _check_rays(kernel: str, o, d, t_min, t_max):
+def check_rays(kernel: str, o, d, t_min, t_max):
     """Device, dtype, shape and contiguity of (R,3) rays and (R,) limits."""
     dev = o.device
     r = o.shape[0]
     if dev.type != "cuda":
         raise ValueError(f"{kernel} runs on CUDA tensors, got {dev}")
-    _check("origin", o, torch.float32, (r, 3), dev)
-    _check("direction", d, torch.float32, (r, 3), dev)
-    _check("t_min", t_min, torch.float32, (r,), dev)
-    _check("t_max", t_max, torch.float32, (r,), dev)
+    native.check("origin", o, torch.float32, (r, 3), dev)
+    native.check("direction", d, torch.float32, (r, 3), dev)
+    native.check("t_min", t_min, torch.float32, (r,), dev)
+    native.check("t_max", t_max, torch.float32, (r,), dev)
     if r >= 2 ** 31:
         raise ValueError(f"{r} rays exceed one {kernel} launch")
     return r, dev
 
 
 def _check_wide_tables(wnode_packed, leaf_packed, dev) -> None:
-    _check("wnode_packed", wnode_packed, torch.float32,
+    native.check("wnode_packed", wnode_packed, torch.float32,
            (wnode_packed.shape[0], 7 * K1_WIDTH), dev)
-    _check("leaf_packed", leaf_packed, torch.float32,
+    native.check("leaf_packed", leaf_packed, torch.float32,
            (leaf_packed.shape[0], 10 * K1_LEAF_SLOTS), dev)
 
 
@@ -225,11 +161,6 @@ def _hits(r: int, dev):
             torch.empty(r, dtype=torch.int32, device=dev),
             torch.empty(r, dtype=torch.float32, device=dev),
             torch.empty(r, dtype=torch.float32, device=dev))
-
-
-def _raise_on(err: int, kernel: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: cudaError {err}")
 
 
 def traverse_wide_cuda(wnode_packed, leaf_packed, wide_depth: int, o, d,
@@ -242,7 +173,7 @@ def traverse_wide_cuda(wnode_packed, leaf_packed, wide_depth: int, o, d,
     dropped because their entry lies beyond the best hit (row 3), the
     child-box slab tests (row 4: non-empty slots of the expanded nodes) and
     the triangle tests (row 5: live leaf slots reached)."""
-    r, dev = _check_rays("K1", o, d, t_min, t_max)
+    r, dev = check_rays("K1", o, d, t_min, t_max)
     _check_wide_tables(wnode_packed, leaf_packed, dev)
     need = k1_stack_need(wide_depth)
     if need > K1_STACK_CAP:
@@ -255,12 +186,11 @@ def traverse_wide_cuda(wnode_packed, leaf_packed, wide_depth: int, o, d,
     out = _hits(r, dev)
     st = torch.empty((6, r), dtype=torch.int32, device=dev) if stats else None
     if r:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = library("k1_traverse_wide").k1_traverse_wide(
+        WIDE.launch(
+            "k1_traverse_wide", "K1", dev,
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
             wnode_packed.data_ptr(), leaf_packed.data_ptr(), r, int(any_hit),
-            *(x.data_ptr() for x in out), st.data_ptr() if stats else None, stream)
-        _raise_on(err, "K1")
+            *(x.data_ptr() for x in out), st.data_ptr() if stats else None)
         K1_LAUNCHES["any_hit" if any_hit else "closest"] += 1
     return (*out, st) if stats else out
 
@@ -277,7 +207,7 @@ def traverse_wide_k3_cuda(wnode_packed, leaf_packed, wide_depth: int, o, d,
     walk performs."""
     if ordered and dual:
         raise ValueError("K3's wide walk is ordered or dual, not both")
-    r, dev = _check_rays("K3", o, d, t_min, t_max)
+    r, dev = check_rays("K3", o, d, t_min, t_max)
     _check_wide_tables(wnode_packed, leaf_packed, dev)
     need = level_stack_need(wide_depth + 1, dual)  # leaf refs are entries too
     if need > K3_STACK_CAP:
@@ -287,13 +217,12 @@ def traverse_wide_k3_cuda(wnode_packed, leaf_packed, wide_depth: int, o, d,
     out = _hits(r, dev)
     st = torch.empty((4, r), dtype=torch.int32, device=dev) if stats else None
     if r:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = library("k1_traverse_wide").k3_traverse_wide(
+        WIDE.launch(
+            "k3_traverse_wide", "K3", dev,
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
             wnode_packed.data_ptr(), leaf_packed.data_ptr(), r, int(any_hit),
             int(ordered), int(dual), *(x.data_ptr() for x in out),
-            st.data_ptr() if stats else None, stream)
-        _raise_on(err, "K3")
+            st.data_ptr() if stats else None)
         K3_LAUNCHES["wide_ordered" if ordered else "wide_dual" if dual else "wide"] += 1
     return (*out, st) if stats else out
 
@@ -314,7 +243,7 @@ def traverse_lq_cuda(wnode_packed, leaf_packed, wide_depth: int, o, d, t_min,
     is empty. Returns (t, prim, u, v), with stats a fifth (4, R) int32
     tensor: per ray the internal nodes popped, the leaf rows tested, and
     the slab and triangle tests, as K3 wide's stats count them."""
-    r, dev = _check_rays("K3-lq", o, d, t_min, t_max)
+    r, dev = check_rays("K3-lq", o, d, t_min, t_max)
     _check_wide_tables(wnode_packed, leaf_packed, dev)
     if flush_k < 1:
         raise ValueError(f"K3-lq flushes at least one leaf row, got flush_k={flush_k}")
@@ -328,13 +257,12 @@ def traverse_lq_cuda(wnode_packed, leaf_packed, wide_depth: int, o, d, t_min,
     out = _hits(r, dev)
     st = torch.empty((4, r), dtype=torch.int32, device=dev) if stats else None
     if r:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = library("k3_traverse_lq").k3_traverse_lq(
+        LQ.launch(
+            "k3_traverse_lq", "K3-lq", dev,
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
             wnode_packed.data_ptr(), leaf_packed.data_ptr(), r, int(any_hit),
             int(flush_k), *(x.data_ptr() for x in out),
-            st.data_ptr() if stats else None, stream)
-        _raise_on(err, "K3-lq")
+            st.data_ptr() if stats else None)
         K3_LAUNCHES["wide_lq"] += 1
     return (*out, st) if stats else out
 
@@ -360,7 +288,7 @@ def traverse_multi_cuda(wnode_packed, leaf_packed, wide_depth: int, o, d, t_min,
     """Launch K3-multi: K3 wide's walk with `m` rays per thread, each with
     its own stack; each iteration pops one entry of every ray still
     walking. Returns (t, prim, u, v)."""
-    r, dev = _check_rays("K3-multi", o, d, t_min, t_max)
+    r, dev = check_rays("K3-multi", o, d, t_min, t_max)
     _check_wide_tables(wnode_packed, leaf_packed, dev)
     if m not in MULTI_WIDTHS:
         raise ValueError(f"K3-multi is built for {MULTI_WIDTHS} rays per thread, got {m}")
@@ -370,12 +298,11 @@ def traverse_multi_cuda(wnode_packed, leaf_packed, wide_depth: int, o, d, t_min,
                          f"K3-multi is built with {K3_STACK_CAP}")
     out = _hits(r, dev)
     if r:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = library("k3_traverse_multi").k3_traverse_multi(
+        MULTI.launch(
+            "k3_traverse_multi", "K3-multi", dev,
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
             wnode_packed.data_ptr(), leaf_packed.data_ptr(), r, int(any_hit), int(m),
-            *(x.data_ptr() for x in out), stream)
-        _raise_on(err, "K3-multi")
+            *(x.data_ptr() for x in out))
         K3_LAUNCHES["wide_multi"] += 1
     return out
 
@@ -389,7 +316,7 @@ def traverse_drain_cuda(wnode_packed, leaf_packed, wide_depth: int, o, d,
     per walker. Returns (t, prim, u, v), with stats a fifth (3, R) int32
     tensor: per ray the internal nodes popped, the leaf rows tested and the
     peak queue depth (rows 0-2 of the JAX stats)."""
-    r, dev = _check_rays("K2", o, d, t_min, t_max)
+    r, dev = check_rays("K2", o, d, t_min, t_max)
     _check_wide_tables(wnode_packed, leaf_packed, dev)
     if drain < 1:
         raise ValueError(f"K2 drains at least one leaf row per iteration, got {drain}")
@@ -402,14 +329,13 @@ def traverse_drain_cuda(wnode_packed, leaf_packed, wide_depth: int, o, d,
         walkers = k2_walkers(r, dev)
         stack = torch.empty((stack_cap, walkers), dtype=torch.int32, device=dev)
         queue = torch.empty((queue_cap, walkers), dtype=torch.int32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = library("k2_traverse_drain").k2_traverse_drain(
+        DRAIN.launch(
+            "k2_traverse_drain", "K2", dev,
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
             wnode_packed.data_ptr(), leaf_packed.data_ptr(), r, int(any_hit),
             int(drain), int(dual), int(drain_first), walkers // THREADS,
             stack.data_ptr(), queue.data_ptr(), queue_cap, *(x.data_ptr() for x in out),
-            st.data_ptr() if stats else None, stream)
-        _raise_on(err, "K2")
+            st.data_ptr() if stats else None)
         K2_LAUNCHES["sdd" if dual else "sd"] += 1
     return (*out, st) if stats else out
 
@@ -424,25 +350,24 @@ def k2_walkers(r: int, dev) -> int:
 def traverse_q32_cuda(wnode_q32, wnode_meta32, q32_leaf_perm, leaf_packed,
                       q32_depth: int, o, d, t_min, t_max, any_hit: bool):
     """Launch K1q over the quantized width-32 tree. Returns (t, prim, u, v)."""
-    r, dev = _check_rays("K1q", o, d, t_min, t_max)
+    r, dev = check_rays("K1q", o, d, t_min, t_max)
     n = wnode_q32.shape[0]
-    _check("wnode_q32", wnode_q32, torch.int32, (n, 128), dev)
-    _check("wnode_meta32", wnode_meta32, torch.int32, (n + 1, 4), dev)
-    _check("q32_leaf_perm", q32_leaf_perm, torch.int32, (q32_leaf_perm.shape[0],), dev)
-    _check("leaf_packed", leaf_packed, torch.float32,
+    native.check("wnode_q32", wnode_q32, torch.int32, (n, 128), dev)
+    native.check("wnode_meta32", wnode_meta32, torch.int32, (n + 1, 4), dev)
+    native.check("q32_leaf_perm", q32_leaf_perm, torch.int32, (q32_leaf_perm.shape[0],), dev)
+    native.check("leaf_packed", leaf_packed, torch.float32,
            (leaf_packed.shape[0], 10 * K1_LEAF_SLOTS), dev)
     if q32_depth + 1 > K1Q_STACK_CAP:
         raise ValueError(f"q32 tree of depth {q32_depth} needs {q32_depth + 1} "
                          f"stack entries; K1q is built with {K1Q_STACK_CAP}")
     out = _hits(r, dev)
     if r:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = library("k1q_traverse_q32").k1q_traverse_q32(
+        Q32.launch(
+            "k1q_traverse_q32", "K1q", dev,
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
             wnode_q32.data_ptr(), wnode_meta32.data_ptr(), q32_leaf_perm.data_ptr(),
             leaf_packed.data_ptr(), n, r, int(any_hit),
-            *(x.data_ptr() for x in out), stream)
-        _raise_on(err, "K1q")
+            *(x.data_ptr() for x in out))
         K1Q_LAUNCHES["any_hit" if any_hit else "closest"] += 1
     return out
 
@@ -451,22 +376,21 @@ def traverse_binary_cuda(node_packed, leaf_packed, max_depth: int, o, d,
                          t_min, t_max, any_hit: bool, ordered: bool = False):
     """Launch K3's binary walk over `node_packed`: the skip walk, or with
     `ordered` the near-child-first stack walk. Returns (t, prim, u, v)."""
-    r, dev = _check_rays("K3", o, d, t_min, t_max)
+    r, dev = check_rays("K3", o, d, t_min, t_max)
     n = node_packed.shape[0]
-    _check("node_packed", node_packed, torch.float32, (n, 8), dev)
-    _check("leaf_packed", leaf_packed, torch.float32,
+    native.check("node_packed", node_packed, torch.float32, (n, 8), dev)
+    native.check("leaf_packed", leaf_packed, torch.float32,
            (leaf_packed.shape[0], 10 * K1_LEAF_SLOTS), dev)
     if ordered and max_depth + 2 > K3B_STACK_CAP:
         raise ValueError(f"binary tree of depth {max_depth} needs {max_depth + 2} "
                          f"stack entries; K3 is built with {K3B_STACK_CAP}")
     out = _hits(r, dev)
     if r:
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = library("k3_traverse_binary").k3_traverse_binary(
+        BINARY.launch(
+            "k3_traverse_binary", "K3", dev,
             o.data_ptr(), d.data_ptr(), t_min.data_ptr(), t_max.data_ptr(),
             node_packed.data_ptr(), leaf_packed.data_ptr(), n, r, int(any_hit),
-            int(ordered), *(x.data_ptr() for x in out), stream)
-        _raise_on(err, "K3")
+            int(ordered), *(x.data_ptr() for x in out))
         K3_LAUNCHES["binary_ordered" if ordered else "binary"] += 1
     return out
 

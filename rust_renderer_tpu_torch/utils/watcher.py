@@ -4,9 +4,10 @@ the port of the JAX package's ``utils/watcher.py``).
 The reference watches `utopian/shaders/` with a 100 ms debounce and
 recompiles the touched GLSL (main.rs:430-448). Here the 'shaders' are the
 port's Python modules (ops, renderers) and its CUDA sources (csrc/*.cu,
-*.cuh); the watcher polls their mtimes and reports a changed file, and
+*.cuh); the watcher polls their mtimes and reports a changed file.
 `module_name_for` names the module that `Graph.recompile_shader` reloads
-for it: a CUDA source maps to the wrapper module that builds its library.
+for a Python file; a CUDA source goes to `native.invalidate`, which knows
+the libraries built from it.
 """
 
 from __future__ import annotations
@@ -16,19 +17,6 @@ import time
 
 PACKAGE = "rust_renderer_tpu_torch"
 WATCHED_SUFFIXES = (".py", ".cu", ".cuh")
-
-
-def cuda_source_module(filename: str) -> str | None:
-    """The wrapper module whose library builds the CUDA source `filename`
-    (a header: the module of the sources that include it), by the
-    wrappers' own source lists; None for a file none of them builds."""
-    from rust_renderer_tpu_torch.ops import raster_binned, traversal
-
-    for module, sources in ((traversal, [*traversal.SOURCES.values(), traversal.COMMON]),
-                            (raster_binned, [raster_binned.SOURCE])):
-        if filename in {os.path.basename(src) for src in sources}:
-            return module.__name__
-    return None
 
 
 class DirectoryWatcher:
@@ -69,17 +57,14 @@ class DirectoryWatcher:
 
     @staticmethod
     def module_name_for(path: str) -> str | None:
-        """The dotted module to reload for a file inside the package: a
-        Python file's own module, a CUDA source's wrapper module
-        (`cuda_source_module`); None for anything else."""
+        """The dotted module of a Python file inside the package; None for
+        anything else."""
         path = os.path.abspath(path)
         marker = PACKAGE + os.sep
         idx = path.rfind(marker)
         if idx < 0:
             return None
         rel = path[idx:]
-        if rel.endswith((".cu", ".cuh")):
-            return cuda_source_module(os.path.basename(rel))
         if not rel.endswith(".py"):
             return None
         return rel.removesuffix(".py").replace(os.sep, ".").removesuffix(".__init__")

@@ -40,17 +40,17 @@ from rust_renderer_tpu.utils import math3d as jax_math3d
 from rust_renderer_tpu.utils.profiler import Profiler as JaxProfiler
 from rust_renderer_tpu.utils.watcher import DirectoryWatcher as JaxWatcher
 
+from rust_renderer_tpu_torch import native
 from rust_renderer_tpu_torch.app import main as port_main
 from rust_renderer_tpu_torch.app import viewer
 from rust_renderer_tpu_torch.app.main import Application
 from rust_renderer_tpu_torch.app.ui import Ui
 from rust_renderer_tpu_torch.input import Input
 from rust_renderer_tpu_torch.models import create_cornell_box_scene
-from rust_renderer_tpu_torch.ops import raster_binned, traversal
+from rust_renderer_tpu_torch.ops import bvh as bvh_ops, traversal
 from rust_renderer_tpu_torch.scene import ModelLoader
 from rust_renderer_tpu_torch.settings import RenderGraphMode, RenderSettings, StaticConfig
 from rust_renderer_tpu_torch.utils import fps_timer, hud, image_io, math3d
-from rust_renderer_tpu_torch.utils import watcher as watcher_mod
 from rust_renderer_tpu_torch.utils.profiler import PROFILER, Profiler
 from rust_renderer_tpu_torch.utils.watcher import DirectoryWatcher
 from test_torch_host import ensure_jax_native_sah
@@ -227,27 +227,67 @@ def test_watcher_maps_modules_and_cuda_sources(tmp_path):
     assert path == str(pkg / "csrc" / "traverse_wide.cu")
     _touch(pkg / "csrc" / "traverse_wide.cu", now + 1)
     assert w.check_if_modification() is None  # within the debounce
-    assert DirectoryWatcher.module_name_for(path) == "rust_renderer_tpu_torch.ops.traversal"
+    # A CUDA source names no module: the app hands it to native.invalidate.
+    assert DirectoryWatcher.module_name_for(path) is None
     names = {f: DirectoryWatcher.module_name_for(str(pkg / f)) for f in (
         "ops/foo.py", "renderers/__init__.py", "csrc/traverse_common.cuh",
         "csrc/raster_binned.cu", "csrc/unknown.cu", "notes.txt")}
     assert names == {"ops/foo.py": "rust_renderer_tpu_torch.ops.foo",
                      "renderers/__init__.py": "rust_renderer_tpu_torch.renderers",
-                     "csrc/traverse_common.cuh": "rust_renderer_tpu_torch.ops.traversal",
-                     "csrc/raster_binned.cu": "rust_renderer_tpu_torch.ops.raster_binned",
+                     "csrc/traverse_common.cuh": None, "csrc/raster_binned.cu": None,
                      "csrc/unknown.cu": None, "notes.txt": None}
     # Python modules map as in the JAX package, under the port's name.
     assert JaxWatcher.module_name_for(str(jpkg / "ops" / "foo.py")) == "rust_renderer_tpu.ops.foo"
     assert DirectoryWatcher.module_name_for(str(tmp_path / "elsewhere.py")) is None
 
 
-def test_watcher_covers_every_cuda_source():
-    """Each file of csrc/ maps to the wrapper module that builds it."""
-    csrc = os.path.join(os.path.dirname(traversal.__file__), os.pardir, "csrc")
-    got = {f: watcher_mod.cuda_source_module(f) for f in os.listdir(csrc)}
-    assert got == {f: raster_binned.__name__ if f == "raster_binned.cu"
-                   else traversal.__name__ for f in os.listdir(csrc)}
-    assert watcher_mod.cuda_source_module("unknown.cu") is None
+def test_watcher_covers_every_cuda_source(tmp_path, monkeypatch):
+    """Every file of csrc/ is a source or header of a declared library, and
+    `native.invalidate` of it drops exactly the libraries built from it (a
+    header shared by the traversal and seed libraries drops all of them).
+    With g++ libraries in a registry of their own: after an edit, the
+    libraries built from the edited file load its new code, the others keep
+    their handle."""
+    csrc = os.path.join(os.path.dirname(native.__file__), os.pardir, "csrc")
+    for f in os.listdir(csrc):
+        path = os.path.join(csrc, f)
+        for lib in native.LIBRARIES.values():
+            monkeypatch.setattr(lib, "_lib", object())
+        built_from = {lib.name for lib in native.LIBRARIES.values()
+                      if f in map(os.path.basename, (*lib.sources, *lib.deps))}
+        assert built_from, f"{f} is built into no declared library"
+        assert set(native.invalidate(path)) == built_from
+        assert {lib.name for lib in native.LIBRARIES.values() if lib._lib is None} == built_from
+        if f == "traverse_common.cuh":
+            assert built_from == {traversal.WIDE.name, traversal.Q32.name, traversal.DRAIN.name,
+                                  traversal.BINARY.name, traversal.LQ.name, traversal.MULTI.name,
+                                  bvh_ops.SEED.name}
+
+    monkeypatch.setattr(native, "LIBRARIES", {})
+    monkeypatch.setattr(native, "BUILD_DIR", str(tmp_path / "build"))
+    cmd = ["g++", "-x", "c", "-O1", "-shared", "-fPIC"]
+    files = {"shared.h": "#define BASE {v}\n",
+             "a.c": '#include "shared.h"\nint version(void) {{ return BASE + {v}; }}\n',
+             "b.c": '#include "shared.h"\nint version(void) {{ return 2 * BASE + {v}; }}\n',
+             "c.c": "int version(void) {{ return {v}; }}\n"}
+    for name, text in files.items():
+        (tmp_path / name).write_text(text.format(v=10))
+    libs = {name: native.declare(f"hot_{name[0]}", [str(tmp_path / name)], {"version": []},
+                                 deps=(str(tmp_path / "shared.h"),) if name != "c.c" else (),
+                                 command=cmd)
+            for name in ("a.c", "b.c", "c.c")}
+    built_from = {"shared.h": {"a.c", "b.c"}, "a.c": {"a.c"}, "b.c": {"b.c"}, "c.c": {"c.c"}}
+    for v, (edited, want) in enumerate(built_from.items(), start=20):
+        handles = {name: lib.library() for name, lib in libs.items()}
+        versions = {name: h.version() for name, h in handles.items()}
+        (tmp_path / edited).write_text(files[edited].format(v=v))
+        assert set(native.invalidate(str(tmp_path / edited))) == {libs[n].name for n in want}
+        for name, lib in libs.items():
+            if name in want:
+                assert lib.library() is not handles[name]
+                assert lib.library().version() != versions[name], (edited, name)
+            else:
+                assert lib.library() is handles[name]
 
 
 def test_profiler_scopes_and_report_match_jax(tmp_path):

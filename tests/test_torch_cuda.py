@@ -1055,7 +1055,7 @@ def test_cuda_library_reloads_a_changed_source(cuda_device, tmp_path, monkeypatc
             'extern "C" int run(void* out) {\n'
             "  write_version<<<1, 1>>>(static_cast<int*>(out));\n"
             "  return static_cast<int>(cudaGetLastError());\n}\n")
-        lib = native.load_library("hot_version", [str(src)], traversal.nvcc_command())
+        lib = native.load_library("hot_version", [str(src)], native.nvcc_command())
         lib.run.restype = ctypes.c_int
         lib.run.argtypes = [ctypes.c_void_p]
         assert lib.run(out.data_ptr()) == 0

@@ -31,7 +31,7 @@ import pytest
 import torch
 
 from rust_renderer_tpu_torch.camera import Camera
-from rust_renderer_tpu_torch.ops import deferred, pbr, shadow, traversal
+from rust_renderer_tpu_torch.ops import deferred, pbr, shadow
 from rust_renderer_tpu_torch.settings import RenderSettings
 
 TOGGLES = ("ibl_enabled", "shadows_enabled", "raytracing_supported", "cascade_debug",
@@ -195,7 +195,8 @@ def test_the_source_declares_the_kernel_and_its_launch_check():
     """The kernel is a `__global__` of csrc/deferred.cu, built as the
     `deferred_shade` library; its launch returns cudaGetLastError; and the
     wrapper's ctypes mirror names DeferredArgs's fields in their order."""
-    with open(traversal.SOURCES["deferred_shade"], encoding="utf-8") as f:
+    (source,) = deferred.SHADE.sources
+    with open(source, encoding="utf-8") as f:
         src = f.read()
     assert re.search(r"__global__ void __launch_bounds__\(DEFERRED_THREADS\)\s*"
                      r"deferred_shade_kernel\(", src)
@@ -377,7 +378,7 @@ def test_the_launch_block_holds_every_input(monkeypatch):
                 (ctypes.c_char * ctypes.sizeof(deferred._Args)).from_address(address)))
             return 0
 
-    monkeypatch.setattr(traversal, "library", lambda name: FakeLibrary())
+    monkeypatch.setattr(deferred.SHADE, "library", lambda: FakeLibrary())
     monkeypatch.setattr(torch.cuda, "current_stream", lambda dev: types.SimpleNamespace(
         cuda_stream=0))
     before = deferred.DEFERRED_LAUNCHES.copy()
@@ -413,7 +414,7 @@ def test_the_launch_block_refuses_a_copy(monkeypatch, wrong):
     wrapper never makes a device copy of it."""
     camera, scene, p = _cpu_inputs()
     view = _view(camera, 10, (1,) * 5, "cpu")
-    monkeypatch.setattr(traversal, "library", lambda name: pytest.fail("launched"))
+    monkeypatch.setattr(deferred.SHADE, "library", lambda: pytest.fail("launched"))
     if wrong == "float64_table":
         scene.light_spot = scene.light_spot.double()
     elif wrong == "strided_plane":

@@ -547,7 +547,7 @@ def test_have_native_is_false_where_the_builder_does_not_build(monkeypatch):
     def fail():
         raise RuntimeError("no g++")
 
-    monkeypatch.setattr(native, "_bvh_lib", fail)
+    monkeypatch.setattr(native.BVH_BUILDER, "library", fail)
     assert native.have_native() is False
 
 

@@ -80,7 +80,7 @@ def test_raster_gbuffer_pass_matches_jax(inputs):
     want = jg.render(scene, view)
     g = Graph(device="cpu")
     setup_gbuffer_pass(g, None, SIZE, SIZE, use_raycast=False)
-    assert g.passes[0].host_sync is None  # the binning reads nothing back to the host
+    assert g.capture_unsupported_reason() is None  # the binning reads nothing back
     got = g.render(port_scene, port_view)
     for name in ("gbuffer_position", "gbuffer_normal", "gbuffer_albedo", "gbuffer_pbr",
                  "gbuffer_depth"):
@@ -98,7 +98,7 @@ def test_raster_minimal_forward_matches_jax(inputs):
     want = jg.render(scene, view)
     g = Graph(device="cpu")
     build_minimal_forward_render_graph(g, StaticConfig(**SMALL), cam, None, SUN)
-    assert [p.host_sync for p in g.passes] == [None, None, None]
+    assert g.capture_unsupported_reason() is None
     got = g.render(port_scene, port_view)
     for name in ("forward_output", "gbuffer_depth"):
         _assert_close(got[name], want[name])

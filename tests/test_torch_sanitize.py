@@ -13,6 +13,8 @@ on the card (tests/test_torch_cuda.py).
 """
 
 import logging
+import os
+import re
 import subprocess
 import sys
 
@@ -313,6 +315,24 @@ def test_recompile_all_shaders_reloads_the_ops():
         "assert g._generation == 1; print('ok')")
 
 
+def test_declared_deps_are_the_included_headers():
+    """Each declared library's `deps` (hashed into its file's name, and the
+    headers whose edit drops its binding) are exactly the headers its
+    sources include by `#include "..."`."""
+    from rust_renderer_tpu_torch.ops import atmosphere, bvh, deferred, raster_binned, traversal
+
+    assert {traversal.WIDE, bvh.SEED, atmosphere.SKY, deferred.SHADE,
+            raster_binned.RASTER} <= set(native.LIBRARIES.values())
+    for lib in native.LIBRARIES.values():
+        included = set()
+        for src in lib.sources:
+            with open(src, encoding="utf-8") as f:
+                included |= {os.path.realpath(os.path.join(os.path.dirname(src), h))
+                             for h in re.findall(r'^\s*#\s*include\s*"([^"]+)"', f.read(),
+                                                 re.M)}
+        assert {os.path.realpath(d) for d in lib.deps} == included, lib.name
+
+
 def test_native_library_reloads_a_changed_source(tmp_path, monkeypatch):
     """A changed source builds a library of another name, so loading it
     again runs the new code (the dynamic loader would return the old handle
@@ -331,14 +351,26 @@ def test_native_library_reloads_a_changed_source(tmp_path, monkeypatch):
     assert len(list((tmp_path / "build").glob("libhot_version-*.so"))) == 2
 
 
-def test_traversal_reload_rebinds_its_library():
-    """`recompile_shader` of the traversal wrapper module (the module a
-    csrc/*.cu edit maps to) gives it a fresh library cache, so its next
-    launch builds and loads the library of the sources as they stand."""
-    _in_subprocess(
-        "from rust_renderer_tpu_torch.ops import traversal; "
-        "from rust_renderer_tpu_torch.graph import Graph; "
-        "old = traversal.library; "
-        "assert Graph(device='cpu').recompile_shader(traversal.__name__); "
-        "assert traversal.library is not old and traversal.library.cache_info().currsize == 0; "
-        "print('ok')")
+def test_traversal_reload_rebinds_its_library(monkeypatch):
+    """An edited CUDA source that the app's watcher reports goes through
+    `Application._check_hot_reload` to `native.invalidate`: the libraries
+    built from it (K1's and K3 wide's for traverse_wide.cu; the traversal
+    and seed libraries for traverse_common.cuh) lose their binding, so their
+    next launch builds and loads the sources as they stand; the others keep
+    theirs; the graph drops its captured loop."""
+    from rust_renderer_tpu_torch.ops import bvh, traversal
+
+    app = Application(8, 8, RenderGraphMode.PATH_TRACED, device="cpu")
+    traversing = {traversal.WIDE, traversal.Q32, traversal.DRAIN, traversal.BINARY,
+                  traversal.LQ, traversal.MULTI}
+    for f, want in (("traverse_wide.cu", {traversal.WIDE}),
+                    ("traverse_common.cuh", traversing | {bvh.SEED})):
+        for lib in native.LIBRARIES.values():
+            monkeypatch.setattr(lib, "_lib", object())
+        app.graph._loop = object()
+        generation = app.graph._generation
+        path = os.path.join(app.watcher.root, "csrc", f)
+        monkeypatch.setattr(app.watcher, "check_if_modification", lambda: path)
+        app._check_hot_reload()
+        assert {lib for lib in native.LIBRARIES.values() if lib._lib is None} == want
+        assert app.graph._loop is None and app.graph._generation == generation + 1
