@@ -8,13 +8,15 @@
     python3 chip_smoke.py --sky   # the sky kernel alone (`sky_alone`)
     python3 chip_smoke.py --k4    # K4 alone on the Sponza-scale cascades (`k4_alone`)
     python3 chip_smoke.py --deferred # the deferred kernel alone (`deferred_alone`)
+    python3 chip_smoke.py --ssao  # the SSAO kernels alone (`ssao_alone`)
 
 Builds every library the port's modules declare (`native.LIBRARIES`: the
 traversal kernels of ops/traversal.py, the seed kernel of ops/bvh.py, the
 sky kernel of ops/atmosphere.py, the deferred kernel of ops/deferred.py,
-K4 / K5 of ops/raster_binned.py, all from rust_renderer_tpu_torch/csrc/ with
-nvcc, and the BVH builder with g++) into rust_renderer_tpu_torch/build/, one
-compiler per library, started together; then:
+the SSAO kernels of ops/ssao.py, K4 / K5 of ops/raster_binned.py, all from
+rust_renderer_tpu_torch/csrc/ with nvcc, and the BVH builder with g++) into
+rust_renderer_tpu_torch/build/, one compiler per library, started together;
+then:
 
 1. device: versions, the card's name and power limit, build times;
 2. PT main path: Application(1920, 1080, PATH_TRACED) on the default scene,
@@ -101,7 +103,12 @@ compiler per library, started together; then:
    against the plain body under every toggle with 0, 3 and 10 lights
    (every channel within 1e-5 x max(1, |plain|)), its device time against
    its byte bound, the plain body's ms, its registers and spills, one
-   launch a host frame and a kernel record a replay;
+   launch a host frame and a kernel record a replay; then the SSAO kernels
+   (`ssao_phase`) on the inputs of the same scene's 1080p SSAO pass:
+   against the plain body with the pass's select off, 0 and 1 (bit for
+   bit), the call's device time and each kernel's against its operations
+   bound, the plain body's ms, registers and spills, two launches a host
+   frame and two kernel records a replay;
 15. MINIMAL main path: the same at 1920x1080, its device loop as
    RASTERIZED's; then the pass uniforms
    (`uniforms_phase`): the RASTERIZED (marching cubes on) and MINIMAL
@@ -180,8 +187,9 @@ compiler per library, started together; then:
 Each main path is driven with every launch count set to 0 just before it
 and read just after; the sky kernel's is checked too (2 a RASTERIZED
 frame, 5 an exact-sky PT frame, none on a cubemap-sky PT or MINIMAL frame;
-the environment's capture, once an app, apart), and the deferred kernel's
-(1 a RASTERIZED frame, none on a PT or MINIMAL frame). Every failed check raises. The last log line gives
+the environment's capture, once an app, apart), the deferred kernel's
+(1 a RASTERIZED frame, none on a PT or MINIMAL frame) and the SSAO
+kernels' (2 a RASTERIZED frame, none on a PT or MINIMAL frame). Every failed check raises. The last log line gives
 the script's total seconds. Exits non-zero, printing no
 result, when torch sees no GPU. The last line is {"ok": true, ...}.
 """
@@ -226,6 +234,8 @@ SOURCES = {
     "sky": (f"{CSRC}/atmosphere.cu", "rust_renderer_tpu/ops/atmosphere.py:104"),
     # No TPU kernel: XLA fused the deferred pass's tensor code.
     "deferred": (f"{CSRC}/deferred.cu", "rust_renderer_tpu/renderers/passes.py:308"),
+    # No TPU kernel: XLA fused ssao_stencil's tensor code.
+    "ssao": (f"{CSRC}/ssao.cu", "rust_renderer_tpu/ops/ssao.py:150"),
     "k4": (f"{CSRC}/raster_binned.cu", "rust_renderer_tpu/ops/raster_binned.py:258"),
     "k5": (f"{CSRC}/raster_binned.cu", "rust_renderer_tpu/ops/raster_binned.py:304"),
 }
@@ -311,6 +321,26 @@ DEFERRED_TOGGLES = ("ibl_enabled", "shadows_enabled", "raytracing_supported",
                     "cascade_debug", "ssao_enabled")
 # The deferred phase's rows planted with positions in every cascade.
 DEFERRED_PLANTED_ROWS = slice(700, 764)
+# The SSAO kernels' operations a pixel (csrc/ssao.cu), counted in the code,
+# every sample taken (a "tiny" one skips 24 of its operations, atan2f, log2f
+# and a division): 96 float32 operations, 2 sqrtf and 8 divisions before the
+# samples (view-space position and normal, the TBN, the pixel's NDC); 32
+# samples of 95 operations (the sample point 21, its NDC 26, the offset and
+# radius 8, the sector, ring and tap 24, the range check 16), 3 divisions, a
+# sqrtf, an atan2f and a log2f each; 4 after. A library call counts as its
+# instruction sequence: sqrtf and a correctly rounded division 8 each, log2f
+# 16, atan2f 24.
+SSAO_LIB_OPS = {"sqrtf": 8, "div": 8, "log2f": 16, "atan2f": 24}
+SSAO_OPS_PER_PIXEL = (
+    96 + 2 * SSAO_LIB_OPS["sqrtf"] + 8 * SSAO_LIB_OPS["div"]
+    + 32 * (95 + 3 * SSAO_LIB_OPS["div"] + SSAO_LIB_OPS["sqrtf"] + SSAO_LIB_OPS["atan2f"]
+            + SSAO_LIB_OPS["log2f"])
+    + 4)
+# Their bytes a pixel: the depth kernel reads the position (16 B) and
+# writes the view depth (4 B); the occlusion kernel reads the position and
+# the normal (32 B), the depth plane once from memory (4 B; its 32 taps a
+# pixel hit in L2) and writes the occlusion (4 B).
+SSAO_BYTES_PER_PIXEL = 16 + 4 + 32 + 4 + 4
 # The raster cells' view (bench_torch/configs/raster_rtshadows_sponza_1080p.json).
 SKY_VIEWPOINT, SKY_TARGET = [-10.28, 2.10, -0.18], [0.0, 0.5, 0.0]
 # The bench's Sponza-scale configuration (bench.py:101-105).
@@ -417,9 +447,10 @@ class Launches:
     environment's capture makes (ibl.capture_environment_cubemap, once when
     a RASTERIZED or cubemap-sky PT app first reads the cubemaps: set-up, not
     a frame's work) is counted apart and left out. The deferred kernel's
-    ("deferred") is one a RASTERIZED frame. A port without the sky or the
-    deferred kernel's counter (a parent checkout under `--raster`) reads no
-    "sky" or no "deferred"."""
+    ("deferred") is one a RASTERIZED frame, the SSAO kernels' ("ssao")
+    RASTER_SSAO. A port without the sky, the deferred or the SSAO kernels'
+    counter (a parent checkout under `--raster`) reads no "sky", "deferred"
+    or "ssao"."""
 
     K3_VARIANTS = ("binary", "binary_ordered", "wide", "wide_ordered", "wide_dual",
                    "wide_lq", "wide_multi")
@@ -434,6 +465,8 @@ class Launches:
             self.deferred = deferred.DEFERRED_LAUNCHES
         except ImportError:
             self.deferred = None
+        from rust_renderer_tpu_torch.ops import ssao
+        self.ssao = getattr(ssao, "SSAO_LAUNCHES", None)
         if self.sky is not None and not hasattr(ibl.capture_environment_cubemap, "sky"):
             ibl.capture_environment_cubemap = Launches._counting_capture(
                 ibl.capture_environment_cubemap, self.sky)
@@ -465,6 +498,8 @@ class Launches:
             self.capture.sky = 0
         if self.deferred is not None:
             self.deferred.clear()
+        if self.ssao is not None:
+            self.ssao.clear()
 
     def read(self) -> dict:
         t = self.traversal
@@ -480,17 +515,20 @@ class Launches:
             got["sky"] = self.sky["launches"] - self.capture.sky
         if self.deferred is not None:
             got["deferred"] = self.deferred["launches"]
+        if self.ssao is not None:
+            got["ssao"] = self.ssao["launches"]
         return got
 
     @staticmethod
     def frame_want(k1_closest: int, k1_any_hit: int, k4: int, k5: int, seed: int = 0,
-                   sky: int = 0, deferred: int = 0) -> dict:
+                   sky: int = 0, deferred: int = 0, ssao: int = 0) -> dict:
         """Per-frame counts of a frame: K1, K4, K5, the seed kernel, the sky
-        kernel and the deferred kernel as given, 0 on every other kernel."""
+        kernel, the deferred kernel and the SSAO kernels as given, 0 on every
+        other kernel."""
         want = dict.fromkeys(
             ("k1q", "k2_sd", "k2_sdd", *(f"k3_{v}" for v in Launches.K3_VARIANTS)), 0)
         want.update(k1_closest=k1_closest, k1_any_hit=k1_any_hit, k4=k4, k5=k5, seed=seed,
-                    sky=sky, deferred=deferred)
+                    sky=sky, deferred=deferred, ssao=ssao)
         return want
 
 
@@ -501,6 +539,12 @@ class Launches:
 # the cubemap sky (SPONZA_CFG, MC_CFG), a MINIMAL frame and the furnace
 # test launch it never.
 RASTER_SKY, PT_SKY = 2, BOUNCES
+# The SSAO kernels' launches a RASTERIZED frame: the depth plane, then the
+# occlusion.
+RASTER_SSAO = 2
+# A RASTERIZED frame's launches of the seed, sky, deferred and SSAO kernels
+# (K1, K4 and K5 apart).
+RASTER_FRAME = dict(seed=1, sky=RASTER_SKY, deferred=1, ssao=RASTER_SSAO)
 
 
 # Config 5's launches a frame: K1 on the scene's tree and on the dynamic tree
@@ -1431,6 +1475,125 @@ def deferred_alone() -> int:
     return 0
 
 
+def ssao_phase(native) -> dict:
+    """The SSAO kernels on the inputs of the Sponza-scale scene's 1920x1080
+    SSAO pass (a RASTERIZED frame): against the plain body on the same CUDA
+    inputs with the pass's select off (`enabled` None), 0 and 1, bit for bit
+    (or the share of pixels off, printed, then raised); two launches and
+    every pixel counted a call; the call's device time (the depth kernel,
+    the occlusion kernel and the normal matrix's inverse) against its bound
+    (SSAO_OPS_PER_PIXEL at F32_OPS, SSAO_BYTES_PER_PIXEL at 3.35 TB/s), each
+    kernel's own device ms (torch.profiler), the plain body's ms by events;
+    the kernels' registers and spills; their launches in host frames, and
+    their kernel records in captured replays. Returns the kernels line's
+    fields and the phase's launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rust_renderer_tpu_torch.app.main import Application
+    from rust_renderer_tpu_torch.models import create_sponza_scale_scene
+    from rust_renderer_tpu_torch.ops import ssao
+    from rust_renderer_tpu_torch.settings import RenderGraphMode
+
+    start = ssao.SSAO_LAUNCHES["launches"]
+    app = Application(WIDTH, HEIGHT, RenderGraphMode.RASTERIZED, device="cuda")
+    app.create_scene(create_sponza_scale_scene)
+    seen = []
+    stencil = ssao.ssao_stencil
+
+    def record(*args, **kw):
+        seen.append((args, kw))
+        return stencil(*args, **kw)
+
+    ssao.ssao_stencil = record
+    try:
+        app.run(1)
+    finally:
+        ssao.ssao_stencil = stencil
+    (args, kw), = seen
+    args = [a.clone() for a in args]
+    n = WIDTH * HEIGHT
+    off = {}
+    for enabled in (None, 0, 1):
+        select = {} if enabled is None else {
+            "enabled": torch.full_like(kw["enabled"], enabled)}
+        before = ssao.SSAO_LAUNCHES.copy()
+        got = ssao.ssao_stencil(*args, **select)
+        moved = dict(ssao.SSAO_LAUNCHES - before)
+        if moved != {"launches": RASTER_SSAO, "pixels": n}:
+            raise AssertionError(f"ssao: a call moved the counter by {moved}")
+        want = ssao.ssao_stencil_plain(*args, **select)
+        differ = got != want
+        off[enabled] = (int(differ.sum()), float((got - want).abs().max()))
+        if enabled != 0 and not float(got.min()) < 0.5:
+            raise AssertionError(f"ssao: no occlusion on the frame ({float(got.min())})")
+    select = {"enabled": kw["enabled"]}
+    kernel = lambda: ssao.ssao_stencil(*args, **select)
+    ms = min(device_ms(kernel, TIMING_REPS) for _ in range(TIMING_ROUNDS))
+    plain_ms = cuda_ms(lambda: ssao.ssao_stencil_plain(*args, **select), 1)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TIMING_REPS):
+            kernel()
+        torch.cuda.synchronize()
+    device_us = lambda e: e.device_time_total
+    own = {name: sum(device_us(e) for e in prof.key_averages() if name in e.key)
+           / TIMING_REPS / 1e3 for name in ("ssao_depth_kernel", "ssao_occlusion_kernel")}
+    call_ms = sum(device_us(e) for e in prof.key_averages()
+                  if e.count >= TIMING_REPS) / TIMING_REPS / 1e3
+    ops_bound = n * SSAO_OPS_PER_PIXEL / F32_OPS * 1e3
+    bytes_bound = n * SSAO_BYTES_PER_PIXEL / HBM_BYTES_S * 1e3
+    bound = max(ops_bound, bytes_bound)
+    usage = {name: ptxas_usage(f"{native.BUILD_DIR}/libssao.so.log", name)
+             for name in ("ssao_depth_kernel", "ssao_occlusion_kernel")}
+
+    before = ssao.SSAO_LAUNCHES["launches"]
+    app.run(2)
+    host = ssao.SSAO_LAUNCHES["launches"] - before
+    app.run_on_device(FRAMES)  # the eager frame, the capture, FRAMES - 1 replays
+    captured = ssao.SSAO_LAUNCHES["launches"] - before - host
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        app.run_on_device(FRAMES)  # FRAMES replays
+        torch.cuda.synchronize()
+    replayed = sum(e.count for e in prof.key_averages() if "ssao_" in e.key
+                   and "_kernel" in e.key)
+    if host != 2 * RASTER_SSAO or captured != 2 * RASTER_SSAO or \
+            replayed != FRAMES * RASTER_SSAO:
+        raise AssertionError(f"ssao: {host} launches in 2 host frames, {captured} in a "
+                             f"captured call, {replayed} kernel records in {FRAMES} replays")
+    log(f"ssao kernels on the Sponza-scale {WIDTH}x{HEIGHT} SSAO pass: pixels off the plain "
+        f"body (count, largest gap) by select None / 0 / 1: {off[None]} / {off[0]} / "
+        f"{off[1]}; call device ms {ms:.4f} (best of {TIMING_ROUNDS} rounds of "
+        f"{TIMING_REPS}; profiled {call_ms:.4f}: depth kernel "
+        f"{own['ssao_depth_kernel']:.4f}, occlusion kernel {own['ssao_occlusion_kernel']:.4f}, "
+        f"the rest the normal matrix's inverse); bound {bound:.4f} ms (operations "
+        f"{ops_bound:.4f}: {SSAO_OPS_PER_PIXEL} a pixel; bytes {bytes_bound:.4f}: "
+        f"{SSAO_BYTES_PER_PIXEL} B a pixel; {ms / bound:.2f}x); plain body {plain_ms:.2f} ms by "
+        f"events; registers, spill stores / loads: " + ", ".join(
+            f"{name} {u['registers']} / {u['spill_stores']} B / {u['spill_loads']} B"
+            for name, u in usage.items())
+        + f"; launches: {host} in 2 host frames, {captured} in run_on_device({FRAMES}) (eager "
+        f"frame + capture), {replayed} kernel records in {FRAMES} replays")
+    if any(count for count, _ in off.values()):
+        raise AssertionError(f"ssao: the kernels are not bit-equal to the plain body: {off}")
+    occlusion = usage["ssao_occlusion_kernel"]
+    return {"launches": ssao.SSAO_LAUNCHES["launches"] - start, "max_abs_err": 0.0,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "operations" if ops_bound >= bytes_bound else "bytes",
+            "depth_ms": own["ssao_depth_kernel"],
+            "occlusion_ms": own["ssao_occlusion_kernel"], **occlusion}
+
+
+def ssao_alone() -> int:
+    """`--ssao`: the kernels built, then the SSAO phase; no kernels line, and
+    the last line {"ok": true, "card": ...}."""
+    from rust_renderer_tpu_torch import native
+
+    card = build_kernels()
+    ssao_phase(native)
+    log(f"chip_smoke --ssao total {time.perf_counter() - START:.1f} s")
+    print(json.dumps({"ok": True, "card": card}))
+    return 0
+
+
 def sky_alone() -> int:
     """`--sky`: the kernels built, the sky phase, then a RASTERIZED app of
     the default scene at 1920x1080 (marching cubes off): FRAMES host frames
@@ -1446,7 +1609,7 @@ def sky_alone() -> int:
     app = Application(WIDTH, HEIGHT, RenderGraphMode.RASTERIZED, device="cuda")
     app.create_scene()
     run_frames("RASTERIZED", app, Launches(traversal, raster_binned, bvh_ops),
-               Launches.frame_want(2, 1, 4, 0, seed=1, sky=RASTER_SKY, deferred=1))
+               Launches.frame_want(2, 1, 4, 0, **RASTER_FRAME))
     pass_times("RASTERIZED", app)
     log(f"chip_smoke --sky total {time.perf_counter() - START:.1f} s")
     print(json.dumps({"ok": True, "card": card}))
@@ -2030,7 +2193,7 @@ def raster_gbuffer_phase(Application, StaticConfig, Graph, setup_gbuffer_pass, l
 # Frames compared and turns timed a mode; frames in the profiled window (a
 # host and device trace of a 1080p raster frame takes ~8 s to process).
 UNIFORM_FRAMES, UNIFORM_TURNS, UNIFORM_PROFILED = 3, 6, 1
-UNIFORM_WANT = {"RASTERIZED": Launches.frame_want(2, 1, 4, 1, seed=1, sky=RASTER_SKY, deferred=1),
+UNIFORM_WANT = {"RASTERIZED": Launches.frame_want(2, 1, 4, 1, **RASTER_FRAME),
                 "MINIMAL": Launches.frame_want(1, 0, 4, 0)}
 # The values changed between builds (the defaults: radius 0.3, threshold 0.45).
 UNIFORM_CHANGED = {"radius": 1.5, "fxaa_threshold": 2.0}
@@ -2400,7 +2563,7 @@ def scene_phase(Application, StaticConfig, RenderGraphMode, models, launches, co
          Launches.frame_want(BOUNCES, BOUNCES, 0, 0)),
         ("cube RASTERIZED", models.create_cube_scene, RenderGraphMode.RASTERIZED, (CUBE_SIZE,) * 2,
          StaticConfig(**raster_cfg),
-         Launches.frame_want(2, 1, 4, 0, seed=1, sky=RASTER_SKY, deferred=1)),
+         Launches.frame_want(2, 1, 4, 0, **RASTER_FRAME)),
         ("128-light PT", models.create_restir_many_lights_scene, pt, (WIDTH, HEIGHT),
          StaticConfig(**SPONZA_CFG), Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0,
                                                          seed=BOUNCES)),
@@ -2512,7 +2675,7 @@ APP_GIZMO_MOVE = np.float32([0.6, -0.5, 1.2])
 # seed a frame; RASTERIZED 2 + 1 K1, 4 K4, 1 seed (K5 draws the isosurface
 # alone); MINIMAL 1 K1, 4 K4; RTIOW (no light, no triangle) 5 + 5 K1.
 APP_WANT = {"pt": Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0, seed=BOUNCES, sky=PT_SKY),
-            "raster": Launches.frame_want(2, 1, 4, 0, seed=1, sky=RASTER_SKY, deferred=1),
+            "raster": Launches.frame_want(2, 1, 4, 0, **RASTER_FRAME),
             "minimal": Launches.frame_want(1, 0, 4, 0)}
 APP_RTIOW_WANT = Launches.frame_want(BOUNCES, BOUNCES, 0, 0, sky=PT_SKY)
 
@@ -2847,7 +3010,7 @@ TILES_RANKS, TILES_FRAMES = (2, 4), 2
 TILES_ATOL = TILES_RASTER_ATOL = 0.0
 FLAGSHIP_WANT = Launches.frame_want(1 + BOUNCES, BOUNCES, 0, 0, seed=BOUNCES, sky=PT_SKY)
 TILES_GRAPHS = {"PATH_TRACED": (FLAGSHIP_WANT, TILES_ATOL),
-                "RASTERIZED": (Launches.frame_want(2, 1, 4, 1, seed=1, sky=RASTER_SKY, deferred=1),
+                "RASTERIZED": (Launches.frame_want(2, 1, 4, 1, **RASTER_FRAME),
                                TILES_RASTER_ATOL),
                 "MINIMAL": (Launches.frame_want(1, 0, 4, 0), TILES_RASTER_ATOL)}
 # The row-sharded apps whose device loop the tiles phase runs.
@@ -3214,7 +3377,7 @@ def raster_alone() -> int:
     launches = Launches(traversal, raster_binned, bvh_ops)
     for label, mode, want in (
             ("RASTERIZED", RenderGraphMode.RASTERIZED,
-             Launches.frame_want(2, 1, 4, 1, seed=1, sky=RASTER_SKY, deferred=1)),
+             Launches.frame_want(2, 1, 4, 1, **RASTER_FRAME)),
             ("MINIMAL", RenderGraphMode.MINIMAL, Launches.frame_want(1, 0, 4, 0))):
         app = Application(WIDTH, HEIGHT, mode, device="cuda")
         app.view = app.view.replace(marching_cubes_enabled=np.int32(label == "RASTERIZED"))
@@ -3223,6 +3386,8 @@ def raster_alone() -> int:
             del want["sky"]
         if launches.deferred is None:  # a port before the deferred kernel
             del want["deferred"]
+        if launches.ssao is None:  # a port before the SSAO kernels
+            del want["ssao"]
         run_frames(label, app, launches, want)
         times = {}
         for _ in range(RASTER_ALONE_ROUNDS):
@@ -3267,6 +3432,8 @@ def main() -> int:
         return k4_alone()
     if sys.argv[1:] == ["--deferred"]:
         return deferred_alone()
+    if sys.argv[1:] == ["--ssao"]:
+        return ssao_alone()
     if sys.argv[1:]:
         print(f"chip_smoke: unknown arguments {sys.argv[1:]}", file=sys.stderr)
         return 2
@@ -3368,15 +3535,16 @@ def main() -> int:
     app.view = app.view.replace(marching_cubes_enabled=np.int32(1))
     app.create_scene()
     counted.update(run_frames("RASTERIZED", app, launches,
-                              Launches.frame_want(2, 1, 4, 1, seed=1, sky=RASTER_SKY, deferred=1))[0])
+                              Launches.frame_want(2, 1, 4, 1, **RASTER_FRAME))[0])
     gbuffer_depth = pass_times("RASTERIZED", app)["gbuffer"]["gbuffer_depth"]
     k4 = k4_phase(app, raster, raster_binned, shadow)
     k5 = k5_phase(app, raster, raster_binned, marching_cubes, gbuffer_depth)
     log(f"RASTERIZED peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     raster_loop("RASTERIZED", app, launches, counted,
-                Launches.frame_want(2, 1, 4, 1, seed=1, sky=RASTER_SKY, deferred=1))
+                Launches.frame_want(2, 1, 4, 1, **RASTER_FRAME))
     del app, gbuffer_depth
     shade = deferred_phase(native)
+    occlusion = ssao_phase(native)
 
     # MINIMAL.
     app = Application(WIDTH, HEIGHT, RenderGraphMode.MINIMAL, device="cuda")
@@ -3419,9 +3587,11 @@ def main() -> int:
                  seeds["default"]),
                 ("k4", counted["k4"], k4), ("k5", counted["k5"], k5),
                 ("sky", counted["sky"] + sky["launches"], sky),
-                ("deferred", counted["deferred"] + shade["launches"], shade)]
+                ("deferred", counted["deferred"] + shade["launches"], shade),
+                ("ssao", counted["ssao"] + occlusion["launches"], occlusion)]
     names = {"k1": "k1_traverse_wide", "k4": "k4_depth_binned", "k5": "k5_vis_binned",
-             "seed": "seed_occlusion", "sky": "sky_scatter", "deferred": "deferred_shade"}
+             "seed": "seed_occlusion", "sky": "sky_scatter", "deferred": "deferred_shade",
+             "ssao": "ssao_occlusion"}
     line = []
     for key, launched, stats in kernels:
         source, replaces = SOURCES[key]
@@ -3437,7 +3607,9 @@ def main() -> int:
                          "dynamic_bound_ms": dyn_k1["primary"]["bound_ms"]}
                         if key == "k1" else {}),
                      **({k: stats[k] for k in ("registers", "spill_stores", "spill_loads")}
-                        if key == "deferred" else {})})
+                        if key in ("deferred", "ssao") else {}),
+                     **({k: stats[k] for k in ("depth_ms", "occlusion_ms")}
+                        if key == "ssao" else {})})
         if launched == 0:
             raise AssertionError(f"{key} was never launched on a main path")
     log(f"chip_smoke total {time.perf_counter() - START:.1f} s")

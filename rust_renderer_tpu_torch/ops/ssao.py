@@ -9,7 +9,13 @@ sky (position cleared to (1,1,1)) is unoccluded. Two forms:
 - `ssao_stencil`, the one the SSAO pass uses: each sample's projected tap is
   snapped to the nearest of 8 directions x 6 log2-spaced rings of static
   pixel offsets (edge-clamped), exactly as the JAX package's stencil form
-  does; the raster goldens of the reference are blessed against it.
+  does; the raster goldens of the reference are blessed against it. It
+  takes, for CPU tensors, the plain body (`ssao_stencil_plain`, the eager
+  tensor code the CPU tests hold the JAX package to) and, for CUDA tensors,
+  the SSAO kernels (``csrc/ssao.cu``: the view-depth plane, then the same
+  float32 operations in the same order, one thread a pixel), or raises.
+  `SSAO_LAUNCHES` counts the kernels' launches and the pixels they shaded;
+  nothing else changes it.
 
 `ssao_blur` is the reference's box blur, which its graph never wires in
 (renderers/ssao.rs:34-36); no pass calls it here either.
@@ -22,9 +28,13 @@ that the edge clamp (or wrap) holds only at the image's top and bottom.
 
 from __future__ import annotations
 
+import collections
+import ctypes
+
 import numpy as np
 import torch
 
+from rust_renderer_tpu_torch import native
 from rust_renderer_tpu_torch.ops.constants import device_constant
 from rust_renderer_tpu_torch.ops.rays import apply_rows, cross, dot
 
@@ -32,6 +42,17 @@ KERNEL_SIZE = 32
 STRENGTH = 1.6
 _DIRS = 8
 _RINGS = (1, 2, 4, 8, 16, 32)
+
+# The kernels' launches (the depth plane's and the occlusion's, two a call)
+# and the pixels they shaded.
+SSAO_LAUNCHES: collections.Counter = collections.Counter()  # "launches", "pixels"
+# The SSAO kernels' library (no TPU kernel: XLA fused the JAX package's
+# stencil form). Each function takes the SsaoArgs block and the stream.
+SSAO = native.declare("ssao", ["ssao.cu"], {
+    "ssao_depth": [ctypes.c_void_p] * 2,
+    "ssao_occlusion": [ctypes.c_void_p] * 2,
+    "ssao_args_size": [],
+})
 
 
 def _make_kernel(n: int = KERNEL_SIZE, seed: int = 17) -> np.ndarray:
@@ -131,10 +152,39 @@ def ssao_blur(occlusion: torch.Tensor, radius: int = 2, band=None) -> torch.Tens
     return out if band is None else out[band.offset:band.offset + band.rows]
 
 
+def _stencil() -> tuple:
+    """The static (dy, dx) pixel offsets: ring r along direction d (screen x
+    right, y down) at index d * len(_RINGS) + r."""
+    offsets = []
+    for d in range(_DIRS):
+        ang = 2.0 * np.pi * d / _DIRS
+        ux, uy = np.cos(ang), np.sin(ang)
+        offsets += [(int(round(uy * r)), int(round(ux * r))) for r in _RINGS]
+    return tuple(offsets)
+
+
+_STENCIL = _stencil()
+
+
 def ssao_stencil(gbuffer_position, gbuffer_normal, view_matrix, projection,
-                 radius: float, bias: float, band=None) -> torch.Tensor:
+                 radius, bias, band=None, *, enabled=None) -> torch.Tensor:
     """(H, W) occlusion in [0, 1] (1 = unoccluded); the planes and the
-    result are `band`'s rows of the image where given."""
+    result are `band`'s rows of the image where given. With `enabled` (the
+    pass's int32 `ssao_enabled`), 1 wherever it is not 1. CPU tensors take
+    the plain body, CUDA tensors the kernels."""
+    dev = gbuffer_position.device
+    args = (gbuffer_position, gbuffer_normal, view_matrix, projection, radius, bias, band)
+    if dev.type == "cpu":
+        return ssao_stencil_plain(*args, enabled=enabled)
+    if dev.type == "cuda":
+        return ssao_stencil_cuda(*args, enabled=enabled)
+    raise ValueError(f"no SSAO stencil for device {dev}")
+
+
+def ssao_stencil_plain(gbuffer_position, gbuffer_normal, view_matrix, projection,
+                       radius, bias, band=None, *, enabled=None) -> torch.Tensor:
+    """`ssao_stencil`'s plain version: the eager tensor code, the function
+    the kernels compute."""
     h, w = gbuffer_position.shape[:2]
     is_sky, pos_view, normal_view, t, b, vz = _view_frame(gbuffer_position, gbuffer_normal,
                                                           view_matrix)
@@ -142,14 +192,8 @@ def ssao_stencil(gbuffer_position, gbuffer_normal, view_matrix, projection,
         h, vz = band.full_height, band.gather(vz)
 
     # The view depth shifted by every static offset: plane d * RINGS + r is
-    # ring r along direction d (screen x right, y down).
-    planes = []
-    for d in range(_DIRS):
-        ang = 2.0 * np.pi * d / _DIRS
-        ux, uy = np.cos(ang), np.sin(ang)
-        for r in _RINGS:
-            planes.append(shifted(vz, int(round(uy * r)), int(round(ux * r)), band))
-    planes = torch.stack(planes)
+    # ring r along direction d.
+    planes = torch.stack([shifted(vz, dy, dx, band) for dy, dx in _STENCIL])
     ndc_c = _to_ndc_xy(pos_view, projection)
 
     n_rings = len(_RINGS)
@@ -175,4 +219,97 @@ def ssao_stencil(gbuffer_position, gbuffer_normal, view_matrix, projection,
         occlusion = occlusion + torch.where(
             tiny, 0.0, _occlusion(pos_view, sample_depth, sample_view[..., 2], radius, bias))
     result = 1.0 - (occlusion / KERNEL_SIZE) * STRENGTH
-    return torch.where(is_sky, 1.0, result)
+    result = torch.where(is_sky, 1.0, result)
+    return result if enabled is None else torch.where(enabled == 1, result, 1.0)
+
+
+class _Args(ctypes.Structure):
+    """csrc/ssao.cu's `SsaoArgs`, field for field."""
+
+    _fields_ = [(name, ctypes.c_void_p) for name in (
+        "position", "normal", "depth", "depth_full", "out", "view_matrix", "normal_matrix",
+        "projection", "radius", "bias", "enabled")]
+    _fields_ += [("kernel", ctypes.c_float * (KERNEL_SIZE * 3)),
+                 ("offset", ctypes.c_int * (2 * _DIRS * len(_RINGS)))]
+    _fields_ += [(name, ctypes.c_float) for name in (
+        "half_w", "half_h", "sector_scale", "log_r0", "tiny", "strength", "inv_kernel_size")]
+    _fields_ += [(name, ctypes.c_int) for name in (
+        "nm_row", "nm_col", "rows", "width", "full_height", "row_offset")]
+
+
+def _on_device(name: str, x, dtype, shape, dev) -> torch.Tensor:
+    """x as the kernels read it in place: a contiguous tensor of `dtype` on
+    `dev` of `shape`, or, for an int `shape`, of that many elements. A wrong
+    type, device, shape or layout raises: nothing is copied."""
+    if not isinstance(x, torch.Tensor):
+        raise ValueError(f"the SSAO kernels read {name} from a tensor on {dev}, "
+                         f"got {type(x).__name__}")
+    if isinstance(shape, int):
+        if x.numel() != shape:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {shape} elements")
+        shape = x.shape
+    native.check(name, x, dtype, shape, dev)
+    return x
+
+
+def ssao_stencil_cuda(gbuffer_position, gbuffer_normal, view_matrix, projection,
+                      radius, bias, band=None, *, enabled=None) -> torch.Tensor:
+    """Launch the SSAO kernels (``csrc/ssao.cu``) on CUDA planes;
+    `ssao_stencil`'s arguments, `radius`, `bias` and `enabled` as one-element
+    device tensors. The view-depth plane of the rows, gathered to full height
+    on a row band, then the occlusion. The matrices and uniforms are read
+    from device memory, so a captured launch replays with the values they
+    hold then."""
+    dev = gbuffer_position.device
+    f32 = torch.float32
+    rows, width = gbuffer_position.shape[0], gbuffer_position.shape[1]
+    full_height, row_offset = (rows, 0) if band is None else (band.full_height, band.offset)
+    if band is not None and band.rows != rows:
+        raise ValueError(f"the band has {band.rows} rows, the planes {rows}")
+    if full_height * width >= 2 ** 31:
+        raise ValueError(f"{full_height} x {width} pixels exceed one SSAO kernel launch")
+    t = dict(
+        position=_on_device("gbuffer_position", gbuffer_position, f32, (rows, width, 4), dev),
+        normal=_on_device("gbuffer_normal", gbuffer_normal, f32, (rows, width, 4), dev),
+        view_matrix=_on_device("view_matrix", view_matrix, f32, (4, 4), dev),
+        projection=_on_device("projection", projection, f32, (4, 4), dev),
+        radius=_on_device("radius", radius, f32, 1, dev),
+        bias=_on_device("bias", bias, f32, 1, dev))
+    if enabled is not None:
+        t["enabled"] = _on_device("enabled", enabled, torch.int32, 1, dev)
+    for name in ("position", "normal"):
+        if t[name].data_ptr() % 16:
+            raise ValueError(f"the SSAO kernels read gbuffer_{name} as float4: it must be "
+                             "16-byte aligned")
+    out = torch.empty((rows, width), dtype=f32, device=dev)
+    if not rows or not width:
+        return out
+    lib = SSAO.library()
+    if lib.ssao_args_size() != ctypes.sizeof(_Args):
+        raise RuntimeError(f"csrc/ssao.cu's SsaoArgs holds {lib.ssao_args_size()} bytes, "
+                           f"_Args {ctypes.sizeof(_Args)}")
+    # The pass's normal matrix, bit for bit: inv_ex, the inverse without its
+    # singularity check (which would read back to the host), read at the
+    # transpose's strides.
+    normal_matrix = torch.linalg.inv_ex(t["view_matrix"]).inverse.T
+    depth = torch.empty((rows, width), dtype=f32, device=dev)
+    args = _Args(**{name: x.data_ptr() for name, x in t.items()}, depth=depth.data_ptr(),
+                 depth_full=depth.data_ptr(), out=out.data_ptr(),
+                 normal_matrix=normal_matrix.data_ptr(), nm_row=normal_matrix.stride(0),
+                 nm_col=normal_matrix.stride(1), half_w=0.5 * width,
+                 half_h=0.5 * full_height, sector_scale=_DIRS / (2.0 * np.pi),
+                 log_r0=float(np.log2(_RINGS[0])), tiny=0.5 * _RINGS[0], strength=STRENGTH,
+                 inv_kernel_size=1.0 / KERNEL_SIZE, rows=rows, width=width,
+                 full_height=full_height, row_offset=row_offset)
+    args.kernel[:] = [float(k) for k in _KERNEL.reshape(-1)]
+    args.offset[:] = [v for tap in _STENCIL for v in tap]
+    SSAO.launch("ssao_depth", "the SSAO depth kernel", dev, ctypes.addressof(args))
+    SSAO_LAUNCHES["launches"] += 1
+    if band is not None:
+        full = band.gather(depth)
+        args.depth_full = _on_device("the gathered depth plane", full, f32,
+                                     (full_height, width), dev).data_ptr()
+    SSAO.launch("ssao_occlusion", "the SSAO occlusion kernel", dev, ctypes.addressof(args))
+    SSAO_LAUNCHES["launches"] += 1
+    SSAO_LAUNCHES["pixels"] += rows * width
+    return out

@@ -220,10 +220,9 @@ def setup_ssao_pass(graph: Graph, width: int, height: int, radius: float = 0.3,
     band = graph.band
 
     def render(res, scene, view, u):
-        occ = ssao_ops.ssao_stencil(res["gbuffer_position"], res["gbuffer_normal"],
-                                    view.view, view.projection, u["radius"], u["bias"],
-                                    band=band)
-        return {"ssao_output": torch.where(_on(view.ssao_enabled), occ, 1.0)}
+        return {"ssao_output": ssao_ops.ssao_stencil(
+            res["gbuffer_position"], res["gbuffer_normal"], view.view, view.projection,
+            u["radius"], u["bias"], band=band, enabled=view.ssao_enabled)}
 
     (graph.add_pass("ssao").read("gbuffer_position").read("gbuffer_normal")
      .write("ssao_output").uniforms("radius", np.float32(radius))
