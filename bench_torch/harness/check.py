@@ -2,14 +2,30 @@
 seed, recomputed by the plain reference (``bench_torch/rrt_reference``).
 
 The configuration names the reference module that renders its frames
-(its `reference` key); the module's `Reference(config, device, size)`
-builds its own scene, tree and environment. The check replays the run's
-host side unit by unit on it (the input path and the camera, with no
-frame rendered) up to each checked unit, renders that unit from the
-persistent state the program's unit started from (teacher forcing, as a
-served model's tokens are fed back; a frame without such state takes
-none), and compares what it presents, and any persistent state the unit
-left, with the program's.
+(its `reference` key). The check replays the run unit by unit on it, from
+the warm-up (unit -1) to the last checked unit, and calls, in this order:
+
+- `Reference(config, device, size)`, once: the module builds its own
+  scene, tree and environment (`size`: the tests' tiny sizes, or None);
+- for each unit of the host loop, `ref.input.begin_frame()`, the unit's
+  input into `ref.input` (none in the warm-up), then `ref.step_camera()`;
+- for each unit of either loop, `ref.begin_unit(unit)`, a `Unit`: its
+  index, its frame count and the seeded clock at its first frame, drawn
+  from the seed by `traffic.clock_for` as the program's clock is. A frame
+  that reads the clock takes frame k's time from `unit.time(k)` (a
+  device-loop mix whose graph would fall back to the host loop is refused
+  at the warm-up, `session.Program.warm_up`), and a
+  reference that keeps state across units (an accumulation, a sample
+  count) keeps its own from this replay;
+- for each checked unit, inside `with ref.lower_precision(control):`,
+  `ref.render(before)`: `before` is the persistent state the program's
+  unit started from (teacher forcing, as a served model's tokens are fed
+  back; a frame without such state reads none). It returns a dict of what
+  the unit presents (`image`) and any persistent state it left, by the
+  state's names, which the check compares with the program's.
+
+The check hands the reference only what the harness owns (the seed, the
+traffic's input and clock); it reads nothing of the program's app.
 
 A control stands in for the program where asked: the reference itself
 one precision below float32 with TF32 off, by its `lower_precision`:
@@ -17,11 +33,31 @@ one precision below float32 with TF32 off, by its `lower_precision`:
 
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 import numpy as np
 
 from harness import traffic
+
+
+@dataclasses.dataclass(frozen=True)
+class Unit:
+    """One unit as the harness drives it: `index` (-1 the warm-up, then 0,
+    1, ... in the window's order), the `frames` it renders, the seeded
+    clock's `elapsed_seconds()` at its first frame (`t0`, float64) and the
+    clock's step a frame (`step`, the device loop's `tstep` too)."""
+
+    index: int
+    frames: int
+    t0: float
+    step: float
+
+    def time(self, k: int) -> np.float32:
+        """Frame k's `view.time` as the program's float32 arithmetic gives
+        it: the unit's first time rounded to float32, plus k steps added in
+        float32 (a call of the device loop adds `k * tstep` on the device)."""
+        return np.float32(np.float32(self.t0) + np.float32(k) * np.float32(self.step))
 
 
 def outputs(image, state: dict) -> dict:
@@ -34,7 +70,8 @@ def outputs(image, state: dict) -> dict:
 
 def reference(cell, seed: int, checked: list, device, size=None,
               control: str | None = None) -> list[dict]:
-    """The reference's outputs of each checked unit (in `checked`'s order)."""
+    """The reference's outputs of each checked unit (in `checked`'s order),
+    from a replay of every unit up to the last checked one."""
     module = importlib.import_module(cell.config["reference"])
     ref = module.Reference(cell.config, device, size)
     t = cell.traffic
@@ -42,6 +79,8 @@ def reference(cell, seed: int, checked: list, device, size=None,
     path = (traffic.orbit_inputs(t, cell.config["viewpoint"], cell.config["target"])
             if host_loop else None)
     mouse = [0.0, 0.0]
+    clock = traffic.clock_for(seed, t)
+    frames = traffic.frames_per_unit(t)
     by_unit = {c.unit: c for c in checked}
     results = {}
     # Unit -1 is the warm-up: a host frame with no input, or one call.
@@ -51,9 +90,11 @@ def reference(cell, seed: int, checked: list, device, size=None,
             if u >= 0:
                 traffic.apply_input(ref.input, next(path), mouse)
             ref.step_camera()
+        ref.begin_unit(Unit(u, frames, clock.elapsed_seconds(), clock.step))
         if u in by_unit:
             with ref.lower_precision(control):
                 results[u] = ref.render(by_unit[u].before)
+        clock.advance(frames)
     return [results[c.unit] for c in checked]
 
 

@@ -98,7 +98,7 @@ class Program:
         self.app.fps_timer = self.clock
         t = cell.traffic
         self.host_loop = t["loop"] == "host"
-        self.per_unit = 1 if self.host_loop else int(t["frames_per_call"])
+        self.per_unit = traffic.frames_per_unit(t)
         self.path = (traffic.orbit_inputs(t, cell.config["viewpoint"], cell.config["target"])
                      if self.host_loop else None)
         self.mouse = [0.0, 0.0]
@@ -113,7 +113,7 @@ class Program:
                 traffic.apply_input(app.input, next(self.path), self.mouse)
             img = app.render_frame()["present_output"]
         else:
-            img = app.run_on_device(self.per_unit)
+            img = app.run_on_device(self.per_unit, tstep=self.clock.step)
         self.bad.add_(torch.isfinite(img).logical_not().any().to(torch.int64))
         out = app.present(img)
         self.clock.advance(self.per_unit)
@@ -126,9 +126,19 @@ class Program:
     def warm_up(self) -> None:
         """The warm-up unit: every kernel this cell's frames launch is built
         and loaded, the environment captured where the mode reads it, and
-        the device loop captured."""
+        the device loop captured.
+
+        Refuses a device-loop mix whose graph the device loop cannot run:
+        `run_on_device` would render its frames through the host loop, all
+        at the unit's first time (the seeded clock advances a unit at a
+        time), and no reference could follow them by `check.Unit.time`."""
         self.unit(warm_up=True)
         self.sync()
+        if not self.host_loop:
+            reason = self.app.graph.device_loop_unsupported_reason()
+            if reason is not None:
+                raise RuntimeError(f"the device loop falls back to the host loop ({reason}): "
+                                   "its frames would not follow the seeded clock")
 
     def window(self, seconds: float, units: int | None = None) -> Window:
         """Units until `seconds` have passed (or, for tests, `units` units),

@@ -62,6 +62,12 @@ def clock_for(seed: int, traffic: dict) -> SeededClock:
                        traffic.get("clock_step_s", 1.0 / 60.0))
 
 
+def frames_per_unit(traffic: dict) -> int:
+    """The frames one unit of the mix renders: 1 in the host loop, and
+    `frames_per_call` in the device loop."""
+    return 1 if traffic["loop"] == "host" else int(traffic["frames_per_call"])
+
+
 @dataclasses.dataclass(frozen=True)
 class FrameInput:
     """What the user does in one frame of the host loop."""

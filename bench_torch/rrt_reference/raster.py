@@ -71,6 +71,10 @@ class Reference:
         """One frame of the camera rig under the current input."""
         self.camera.update(self.input)
 
+    def begin_unit(self, unit) -> None:
+        """The unit's clock and frame count change nothing: the raster frame
+        reads no clock and keeps no state from one frame to the next."""
+
     @contextlib.contextmanager
     def lower_precision(self, kind: str | None):
         """The frame one precision below float32 with TF32 off: "tf32"
