@@ -9,7 +9,15 @@ accumulation protocol with linear->sRGB output (:130-144).
 
 Every bounce intersects the whole (H, W) front; masks replace thread
 divergence, and finished lanes get a zero direction, which the traversal
-retires on entry.
+retires on entry. A lane whose scattered direction is zero or not finite
+ends at that bounce, absorbed: no miss shader sees it (the sky of a zero
+direction is NaN). The JAX package sends such a lane on, so this is the
+port's one departure from it.
+
+Each frame adds to two device counters of the profiler: `pt/rays`, the
+rays traced (the sum `rays_traced` holds, exact in int64; its peak the
+largest front of one traversal), and `pt/ended`, the lanes the rule above
+ends.
 """
 
 from __future__ import annotations
@@ -23,6 +31,7 @@ from rust_renderer_tpu_torch.ops import rays as rayops
 from rust_renderer_tpu_torch.ops import restir as restirops
 from rust_renderer_tpu_torch.ops import rng as rngmod
 from rust_renderer_tpu_torch.ops.colors import linear_to_srgb
+from rust_renderer_tpu_torch.utils.profiler import PROFILER
 
 
 class PathTraceResult(NamedTuple):
@@ -146,6 +155,8 @@ def path_trace(scene, view, cfg, accumulation: torch.Tensor,
 
     pixel_color = torch.zeros((height, width, 3), dtype=torch.float32, device=dev)
     rays_traced = torch.zeros((), dtype=torch.float32, device=dev)
+    front_max = torch.zeros((), dtype=torch.int64, device=dev)
+    ended_lanes = torch.zeros((), dtype=torch.int64, device=dev)
 
     for _s in range(cfg.samples_per_frame):
         rng_state, jx = rngmod.random_float(rng_state)
@@ -158,10 +169,14 @@ def path_trace(scene, view, cfg, accumulation: torch.Tensor,
         throughput = torch.ones((height, width, 3), dtype=torch.float32, device=dev)
         active = torch.ones((height, width), dtype=torch.bool, device=dev)
         rays_traced = torch.zeros((), dtype=torch.float32, device=dev)
+        rays_count = torch.zeros((), dtype=torch.int64, device=dev)
 
         for _bounce in range(cfg.num_bounces):
             live = rayops.dot(direction, direction) > 0.0
             rays_traced = rays_traced + live.to(torch.float32).sum()
+            front = live.sum()
+            rays_count = rays_count + front
+            front_max = torch.maximum(front_max, front)
             hit = closest_hit(scene, origin, direction)
             missed = ~hit.is_hit
 
@@ -190,6 +205,13 @@ def path_trace(scene, view, cfg, accumulation: torch.Tensor,
             radiance = radiance + torch.where(terminated[..., None], throughput, 0.0)
             active = active & ~terminated
 
+            # A zero or non-finite scattered direction ends the lane here,
+            # adding nothing.
+            ended = active & ((sc.direction == 0.0).all(dim=-1)
+                              | ~torch.isfinite(sc.direction).all(dim=-1))
+            ended_lanes = ended_lanes + ended.sum()
+            active = active & ~ended
+
             # Advance (reference.rgen:59-61); finished lanes get a zero
             # direction, which the traversal retires on entry.
             new_origin = rayops.offset_ray(surf.position, surf.normal)
@@ -200,6 +222,9 @@ def path_trace(scene, view, cfg, accumulation: torch.Tensor,
                                        throughput, active, radiance, reservoirs,
                                        px, full_width)
             rays_traced = rays_traced + 2.0 * active.to(torch.float32).sum()
+            front = 2 * active.sum()
+            rays_count = rays_count + front
+            front_max = torch.maximum(front_max, front)
 
         pixel_color = pixel_color + radiance
 
@@ -211,5 +236,7 @@ def path_trace(scene, view, cfg, accumulation: torch.Tensor,
     accumulated = torch.where(within, accumulated + pixel_color, accumulated)
     denom = torch.minimum(view.total_samples, limit).to(torch.float32)
     out = linear_to_srgb(accumulated / torch.clamp_min(denom, 1.0))
+    PROFILER.count("pt/rays", rays_count, front_max)
+    PROFILER.count("pt/ended", ended_lanes, ended_lanes)
     return PathTraceResult(output=out, accumulation=accumulated,
                            rays_traced=rays_traced)
