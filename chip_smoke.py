@@ -126,9 +126,11 @@ then:
    global row) pairs the boxes cull; and K5 on the marching-cubes front at
    1920x1080 over the gbuffer depth, with its plan and box pairs; times on
    the device alone and by events, global-list lengths, longest segments
-   and bounds; the binning of each cascade and of the marching-cubes front
-   (`tri_rows` + `bin_triangles`) on the device alone and by events, and
-   the bytes of the static tables it makes a call;
+   and bounds; the binning of each cascade and of the marching-cubes front,
+   the library's (csrc/raster_bin.cu) against its plain version (`tri_rows`
+   + `bin_triangles`): every field of the Bins bit for bit, K4 over both
+   bit-equal, each one's device ms alone and by events and records a
+   call, and the bytes of the static tables it makes a call;
 17. raster parity: one small RASTERIZED frame with marching cubes on the CPU
    (brute rasterizer, plain walk) and on the card (K4, K5, K1, the seed
    kernel);
@@ -448,9 +450,10 @@ class Launches:
     a RASTERIZED or cubemap-sky PT app first reads the cubemaps: set-up, not
     a frame's work) is counted apart and left out. The deferred kernel's
     ("deferred") is one a RASTERIZED frame, the SSAO kernels' ("ssao")
-    RASTER_SSAO. A port without the sky, the deferred or the SSAO kernels'
-    counter (a parent checkout under `--raster`) reads no "sky", "deferred"
-    or "ssao"."""
+    RASTER_SSAO; the binning library's ("bin") BIN_CALL a K4 or K5 call. A port
+    without the sky, the deferred or the SSAO kernels' or the binning's
+    counter (a parent checkout under `--raster`) reads no "sky", "deferred",
+    "ssao" or "bin"."""
 
     K3_VARIANTS = ("binary", "binary_ordered", "wide", "wide_ordered", "wide_dual",
                    "wide_lq", "wide_multi")
@@ -459,6 +462,7 @@ class Launches:
         from rust_renderer_tpu_torch.ops import atmosphere, ibl
 
         self.traversal, self.raster_binned, self.bvh_ops = traversal, raster_binned, bvh_ops
+        self.bin = hasattr(raster_binned, "BIN_LAUNCHES")
         self.sky = getattr(atmosphere, "SKY_LAUNCHES", None)
         try:
             from rust_renderer_tpu_torch.ops import deferred
@@ -492,6 +496,8 @@ class Launches:
             counter.clear()
         self.raster_binned.K4_LAUNCHES = 0
         self.raster_binned.K5_LAUNCHES = 0
+        if self.bin:
+            self.raster_binned.BIN_LAUNCHES = 0
         self.bvh_ops.SEED_LAUNCHES = 0
         if self.sky is not None:
             self.sky.clear()
@@ -511,6 +517,8 @@ class Launches:
             got[f"k2_{variant}"] = t.K2_LAUNCHES[variant]
         for variant in Launches.K3_VARIANTS:
             got[f"k3_{variant}"] = t.K3_LAUNCHES[variant]
+        if self.bin:
+            got["bin"] = self.raster_binned.BIN_LAUNCHES
         if self.sky is not None:
             got["sky"] = self.sky["launches"] - self.capture.sky
         if self.deferred is not None:
@@ -523,12 +531,12 @@ class Launches:
     def frame_want(k1_closest: int, k1_any_hit: int, k4: int, k5: int, seed: int = 0,
                    sky: int = 0, deferred: int = 0, ssao: int = 0) -> dict:
         """Per-frame counts of a frame: K1, K4, K5, the seed kernel, the sky
-        kernel, the deferred kernel and the SSAO kernels as given, 0 on every
-        other kernel."""
+        kernel, the deferred kernel and the SSAO kernels as given, the binning
+        library's BIN_CALL a K4 or K5 call, 0 on every other kernel."""
         want = dict.fromkeys(
             ("k1q", "k2_sd", "k2_sdd", *(f"k3_{v}" for v in Launches.K3_VARIANTS)), 0)
-        want.update(k1_closest=k1_closest, k1_any_hit=k1_any_hit, k4=k4, k5=k5, seed=seed,
-                    sky=sky, deferred=deferred, ssao=ssao)
+        want.update(k1_closest=k1_closest, k1_any_hit=k1_any_hit, k4=k4, k5=k5,
+                    bin=BIN_CALL * (k4 + k5), seed=seed, sky=sky, deferred=deferred, ssao=ssao)
         return want
 
 
@@ -542,6 +550,9 @@ RASTER_SKY, PT_SKY = 2, BOUNCES
 # The SSAO kernels' launches a RASTERIZED frame: the depth plane, then the
 # occlusion.
 RASTER_SSAO = 2
+# The binning library's launches a K4 or K5 call: setup, hist, colscan,
+# tilescan, fill.
+BIN_CALL = 5
 # A RASTERIZED frame's launches of the seed, sky, deferred and SSAO kernels
 # (K1, K4 and K5 apart).
 RASTER_FRAME = dict(seed=1, sky=RASTER_SKY, deferred=1, ssao=RASTER_SSAO)
@@ -1656,32 +1667,92 @@ def k4_plan_stats(raster_binned, bins) -> dict:
             "global_culled": 1.0 - int(tiles.sum()) / pairs if pairs else 0.0}
 
 
+def bins_differ(got, want) -> list[str]:
+    """The fields in which two Bins differ (the table compared bit for
+    bit); empty where they are equal."""
+    off = [name for name in ("g_base", "nx", "ny") if getattr(got, name) != getattr(want, name)]
+    if got.table.shape != want.table.shape or not torch.equal(
+            got.table.view(torch.int32), want.table.view(torch.int32)):
+        off.append("table")
+    for name in ("starts", "counts", "g_count", "row_tile"):
+        a, b = getattr(got, name), getattr(want, name)
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            off.append(name)
+    off += [f"row_box {i}" for i, (a, b) in enumerate(zip(got.row_box, want.row_box))
+            if a.dtype != b.dtype or not torch.equal(a, b)]
+    return off
+
+
+def device_records(fn) -> int:
+    """The records on the card of one call of fn: kernels, copies and sets
+    (torch.profiler, CUDA only)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA for e in prof.events())
+
+
 def binning_stats(raster_binned, clip, indices, width: int, height: int, vis: bool) -> dict:
     """The binning of one raster call as `rasterize_depth_binned` /
-    `rasterize_binned` run it before K4 / K5 (`tri_rows`, then
-    `bin_triangles`: static shapes, no host read): its ms on the device
-    alone and by events, and the bytes of the tables it makes (the table,
-    the rows' tiles and pixel boxes, the tile lists), with the table's
-    slots beside the rows the walks read. A call is ~250 launches, so the
-    device time is the median of TIMING_ROUNDS single calls behind the
-    spin: several calls' launches overflow the stream's queue of pending
-    launches, and the host then waits for the spin."""
-    call = lambda: raster_binned.bin_triangles(
+    `rasterize_binned` run it before K4 / K5: on CUDA tensors the binning
+    library (`binned_rows`, csrc/raster_bin.cu), held to its plain version
+    (`tri_rows`, then `bin_triangles`) bit for bit in every field. For each:
+    its ms on the device alone and by events, and its launches a call (the
+    library's by its counter, the plain version's as its records on the
+    card); the bytes of the tables a call makes (the table, the rows' tiles
+    and pixel boxes, the tile lists), with the table's slots beside the
+    rows the walks read, and the time those bytes take at HBM_BYTES_S. The
+    plain version's call is ~420 launches, so device times are the median
+    of TIMING_ROUNDS single calls behind the spin: several calls' launches
+    overflow the stream's queue of pending launches, and the host then
+    waits for the spin. A port without the library (a parent checkout)
+    times the plain version alone. Returns the stats, with the library's
+    Bins ("bins", the plain version's where there is none) and the plain
+    version's ("plain_bins")."""
+    plain = lambda: raster_binned.bin_triangles(
         raster_binned.tri_rows(clip, indices, width, height, vis=vis), width, height)
-    bins = call()
+    calls = {"plain": plain}
+    if hasattr(raster_binned, "bins_cuda"):
+        calls["library"] = lambda: raster_binned.binned_rows(clip, indices, width, height, vis)
+    out = {"plain_bins": plain()}
+    launches = {}
+    if "library" in calls:
+        before = raster_binned.BIN_LAUNCHES
+        out["bins"] = calls["library"]()
+        launches["library"] = raster_binned.BIN_LAUNCHES - before
+    else:
+        out["bins"] = out["plain_bins"]
+    off = bins_differ(out["bins"], out["plain_bins"])
+    if off:
+        raise AssertionError(f"the binning library's Bins differ from the plain version's in {off}")
+    bins = out["bins"]
     nbytes = sum(t.numel() * t.element_size()
                  for t in (bins.table, bins.row_tile, *bins.row_box, bins.starts, bins.counts))
-    alone = sorted(device_ms(call, 1) for _ in range(TIMING_ROUNDS))
-    return {"ms": alone[len(alone) // 2], "events_ms": cuda_ms(call, TIMING_REPS),
-            "bytes": nbytes, "table_bytes": bins.table.numel() * 4,
-            "slots": bins.table.shape[0], "live": int(bins.counts.sum()) + int(bins.g_count)}
+    out.update(bytes=nbytes, bytes_ms=nbytes / HBM_BYTES_S * 1e3,
+               table_bytes=bins.table.numel() * 4, slots=bins.table.shape[0],
+               live=int(bins.counts.sum()) + int(bins.g_count))
+    launches["plain"] = device_records(plain)
+    for name, call in calls.items():
+        alone = sorted(device_ms(call, 1) for _ in range(TIMING_ROUNDS))
+        out[name] = {"ms": alone[len(alone) // 2], "events_ms": cuda_ms(call, TIMING_REPS),
+                     "launches": launches[name]}
+    return out
 
 
 def binning_line(stats: dict) -> str:
-    return (f"binning (tri_rows + bin_triangles) {stats['ms']:.4f} ms on the device alone "
-            f"(events {stats['events_ms']:.4f}), tables {stats['bytes'] / 1e6:.1f} MB a call "
-            f"(the table {stats['table_bytes'] / 1e6:.1f} MB), {stats['slots']} slots of which "
-            f"{stats['live']} live")
+    line = ", ".join(
+        f"{name} {stats[name]['ms']:.4f} ms on the device alone (events "
+        f"{stats[name]['events_ms']:.4f}) in {stats[name]['launches']} launches a call"
+        for name in ("library", "plain") if name in stats)
+    if "library" in stats:
+        line += "; bit-equal Bins"
+    return (f"binning: {line}; tables {stats['bytes'] / 1e6:.1f} MB a call "
+            f"({stats['bytes_ms']:.4f} ms at {HBM_BYTES_S / 1e12:.2f} TB/s; the table "
+            f"{stats['table_bytes'] / 1e6:.1f} MB), "
+            f"{stats['slots']} slots of which {stats['live']} live")
 
 
 def exact_gap(raster_binned, got, clip, indices, size: int) -> dict:
@@ -1704,7 +1775,8 @@ def k4_phase(app, raster, raster_binned, shadow, check_exact: bool = True) -> di
     alone (its wrapper's clear and plan included) and by events around
     back-to-back calls (the host's enqueueing included), the plain
     version's by events; the binning's device ms and table bytes beside it
-    (`binning_stats`)."""
+    (`binning_stats`: the library's Bins held to the plain version's bit for
+    bit, and K4 over them to K4 over the plain version's)."""
     cfg, scene = app.cfg, app.scene
     size = cfg.shadow_map_size
     matrices, _ = shadow.cascade_matrices(
@@ -1713,8 +1785,8 @@ def k4_phase(app, raster, raster_binned, shadow, check_exact: bool = True) -> di
     k4_ms, plain_ms, bounds, err = [], [], [], 0.0
     for i, m in enumerate(torch.as_tensor(matrices, device=app.device)):
         clip = raster.transform_vertices(scene.positions, m)
-        bins = raster_binned.bin_triangles(
-            raster_binned.tri_rows(clip, scene.indices, size, size), size, size)
+        binning = binning_stats(raster_binned, clip, scene.indices, size, size, vis=False)
+        bins = binning["bins"]
         k4 = lambda: raster_binned.depth_binned_cuda(bins, size, size)
         plain = lambda: raster_binned.depth_binned_plain(bins, size, size)
         got, want = k4(), plain()
@@ -1722,6 +1794,11 @@ def k4_phase(app, raster, raster_binned, shadow, check_exact: bool = True) -> di
         if not torch.equal(got, want):
             raise AssertionError(f"K4 cascade {i}: depth differs from the plain version on "
                                  f"{int((got != want).sum())} texels")
+        if not torch.equal(got, raster_binned.depth_binned_cuda(binning["plain_bins"], size,
+                                                                size)):
+            raise AssertionError(f"K4 cascade {i}: depth over the library's Bins differs from "
+                                 "K4 over the plain version's")
+        del binning["plain_bins"]
         err = max(err, float((got - want).abs().max()))
         exact = exact_gap(raster_binned, got, clip, scene.indices, size)
         log(f"K4 cascade {i} against the float64 interpolation: {exact}")
@@ -1738,8 +1815,7 @@ def k4_phase(app, raster, raster_binned, shadow, check_exact: bool = True) -> di
         if not k4_ms[-1] < plain_ms[-1]:
             raise AssertionError(f"K4 cascade {i}: {k4_ms[-1]:.4f} ms, not faster than its plain "
                                  f"version ({plain_ms[-1]:.3f} ms)")
-        log(f"cascade {i}: " + binning_line(
-            binning_stats(raster_binned, clip, scene.indices, size, size, vis=False)))
+        log(f"cascade {i}: " + binning_line(binning))
         log(f"kernel K4 cascade={i} {size}x{size} slots={bins.table.shape[0]} "
             f"global={int(bins.g_count)} longest_segment={int(bins.counts.max())} "
             f"items={plan['items']} longest_item={plan['longest_item']} rows "
@@ -1768,8 +1844,11 @@ def mc_bins(app, raster, raster_binned, marching_cubes):
     clip = raster.transform_vertices(result.positions.reshape(-1, 3),
                                      view.projection @ view.view)
     idx = torch.arange(3 * t, dtype=torch.int32, device=dev).reshape(-1, 3)
-    bins = raster_binned.bin_triangles(
-        raster_binned.tri_rows(clip, idx, WIDTH, HEIGHT, vis=True), WIDTH, HEIGHT)
+    if hasattr(raster_binned, "binned_rows"):
+        bins = raster_binned.binned_rows(clip, idx, WIDTH, HEIGHT, vis=True)
+    else:  # a port before the binning library
+        bins = raster_binned.bin_triangles(
+            raster_binned.tri_rows(clip, idx, WIDTH, HEIGHT, vis=True), WIDTH, HEIGHT)
     return result, bins, t, (clip, idx)
 
 
@@ -1792,8 +1871,11 @@ def k5_phase(app, raster, raster_binned, marching_cubes, gbuffer_depth) -> dict:
     per pixel, written and read, are its design's own traffic, shown
     beside it."""
     result, bins, t, (clip, idx) = mc_bins(app, raster, raster_binned, marching_cubes)
-    log("marching-cubes front: " + binning_line(
-        binning_stats(raster_binned, clip, idx, WIDTH, HEIGHT, vis=True)))
+    binning = binning_stats(raster_binned, clip, idx, WIDTH, HEIGHT, vis=True)
+    if bins_differ(bins, binning["plain_bins"]):
+        raise AssertionError("K5's Bins differ from the plain version's")
+    del binning["plain_bins"], binning["bins"]
+    log("marching-cubes front: " + binning_line(binning))
     got = raster_binned.vis_binned_cuda(bins, WIDTH, HEIGHT)
     want = raster_binned.vis_binned_plain(bins, WIDTH, HEIGHT)
     torch.cuda.synchronize()
@@ -3388,6 +3470,8 @@ def raster_alone() -> int:
             del want["deferred"]
         if launches.ssao is None:  # a port before the SSAO kernels
             del want["ssao"]
+        if not launches.bin:  # a port before the binning library
+            del want["bin"]
         run_frames(label, app, launches, want)
         times = {}
         for _ in range(RASTER_ALONE_ROUNDS):

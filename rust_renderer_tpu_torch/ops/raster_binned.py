@@ -20,9 +20,11 @@ and the plain PyTorch version of each (the port of
    a stable sort, so each tile's segment lists its triangles by (span slot,
    triangle id). The table a kernel reads is [SPAN_X * SPAN_Y * 2T segment
    slots | 2T global slots], rows contiguous: (R, 16) f32 for depth,
-   (R, 24) f32 for the visibility buffer. The global list's length is a
+   (R, 28) f32 for the visibility buffer. The global list's length is a
    device int32 (`Bins.g_count`), which the plan kernel turns into the
-   kernels' `gmeta`.
+   kernels' `gmeta`. On CUDA tensors `binned_rows` makes the same Bins, bit
+   for bit, with the binning library of ``csrc/raster_bin.cu``
+   (`bins_cuda`); `tri_rows` and `bin_triangles` are its plain version.
 3. A tile walks the global list in triangle-id order, then its own segment.
    K4 keeps the running minimum depth from a clear of 1.0; K5 keeps
    (depth, triangle, u, v) and takes a triangle where it is inside, z <=
@@ -30,9 +32,11 @@ and the plain PyTorch version of each (the port of
 
 `rasterize_depth_binned` / `rasterize_binned` launch K4 / K5 on CUDA
 tensors and take the plain versions on CPU tensors; any other device
-raises. `K4_LAUNCHES` and `K5_LAUNCHES` count kernel launches; nothing else
-changes them. K4 and K5 test each row only on its pixel box (`row_boxes`)
-and take their work in items of at most `K4_ITEM_ROWS` rows of one tile
+raises. `K4_LAUNCHES` and `K5_LAUNCHES` count the calls of K4 and K5,
+`BIN_LAUNCHES` the binning library's kernel launches (`BIN_KERNELS` a
+call); nothing else changes them. K4 and K5 test each row only on its
+pixel box (`row_boxes`) and take their work in items of at most
+`K4_ITEM_ROWS` rows of one tile
 (`depth_plan`, `depth_plan_items`), so that a crowded tile is spread over
 the card; K5 then decodes each pixel's least key, the key its plain
 version reduces. On CUDA tensors `depth_plan` launches the plan kernel of
@@ -81,8 +85,22 @@ RASTER = native.declare("k45_raster_binned", ["raster_binned.cu"], {
     for fn, n_in, n_ints, n_out in (("raster_plan", 2, 1, 2), ("k4_depth_binned", 9, 4, 1),
                                     ("k5_vis_binned", 9, 5, 5))})
 
+# The binning library (`bins_cuda`): pieces of a pair row (raster_bin.cu),
+# and the most tiles its counters take in shared memory.
+BIN_CHUNK = 4096
+BIN_MAX_TILES = 49152
+# Its kernels (setup, hist, colscan, tilescan, fill), each launched once a call.
+BIN_KERNELS = 5
+# Its one function's arguments: pointers in (clip, indices), then ints
+# (triangles, width, height, row stride), then the scratch (rows, boxes,
+# work) and the outputs (table, starts, counts, g_count, row_tile, the four
+# box columns) and the stream.
+BIN = native.declare("raster_bin", ["raster_bin.cu"], {
+    "raster_bin": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 13})
+
 K4_LAUNCHES = 0
 K5_LAUNCHES = 0
+BIN_LAUNCHES = 0
 
 
 class TriRows(NamedTuple):
@@ -192,6 +210,65 @@ def dead_row(stride: int, device) -> torch.Tensor:
     if stride == VIS_STRIDE:
         row[VIS_ORIG] = -1.0
     return device_constant(tuple(row), torch.device(device))
+
+
+def binned_rows(clip, indices, width: int, height: int, vis: bool = False) -> Bins:
+    """The triangles' rows, binned: the binning library on CUDA tensors
+    (`bins_cuda`), `tri_rows` then `bin_triangles` on CPU tensors; any other
+    device raises."""
+    dev = clip.device
+    if dev.type == "cuda":
+        return bins_cuda(clip, indices, width, height, vis)
+    if dev.type != "cpu":
+        raise ValueError(f"no binning for device {dev}")
+    return bin_triangles(tri_rows(clip, indices, width, height, vis), width, height)
+
+
+def bins_cuda(clip, indices, width: int, height: int, vis: bool = False) -> Bins:
+    """`tri_rows`, then `bin_triangles`, as the library of
+    ``csrc/raster_bin.cu``: the same Bins bit for bit, in `BIN_KERNELS`
+    launches and with no read back to the host. clip (V, 4) f32 and indices (T, 3) i32
+    (each in [0, V): the card reads them unchecked), T > 0, contiguous CUDA
+    tensors on one device; raises on anything else, and where a table slot,
+    the pair rows' counters or the tile grid would overflow the kernels'
+    int32 offsets or shared memory."""
+    global BIN_LAUNCHES
+    dev = clip.device
+    if clip.dim() != 2 or indices.dim() != 2:
+        raise ValueError("clip is (V, 4) and indices (T, 3)")
+    t = indices.shape[0]
+    native.check("clip", clip, torch.float32, (clip.shape[0], 4), dev)
+    native.check("indices", indices, torch.int32, (t, 3), dev)
+    if t == 0 or width <= 0 or height <= 0:
+        raise ValueError("nothing to bin: no triangles or an empty image")
+    nx, ny = -(-width // TILE_W), -(-height // TILE_H)
+    if nx * ny > BIN_MAX_TILES:
+        raise ValueError(f"{nx * ny} tiles: the binning library takes at most {BIN_MAX_TILES}")
+    t2 = 2 * t
+    slots = (SPAN_X * SPAN_Y + 1) * t2
+    n_chunks = -(-t2 // BIN_CHUNK)
+    n_rows = SPAN_X * SPAN_Y * n_chunks
+    work = t2 + n_rows * nx * ny + n_rows + 2 * n_chunks + 1
+    if slots >= 2 ** 31 or work >= 2 ** 31:
+        raise ValueError("too many triangles for the binning library's int32 offsets")
+    if dev.type != "cuda":
+        raise ValueError(f"the binning library runs on CUDA tensors, got {dev}")
+    stride = VIS_STRIDE if vis else DEPTH_STRIDE
+    i32 = dict(dtype=torch.int32, device=dev)
+    scratch = (torch.empty((t2, stride), dtype=torch.float32, device=dev),
+               torch.empty((t2, 4), **i32), torch.empty(work, **i32))
+    bins = Bins(
+        table=torch.empty((slots, stride), dtype=torch.float32, device=dev),
+        starts=torch.empty(nx * ny, **i32), counts=torch.empty(nx * ny, **i32),
+        g_base=SPAN_X * SPAN_Y * t2, g_count=torch.empty((), **i32), nx=nx, ny=ny,
+        row_tile=torch.empty(slots, dtype=torch.int64, device=dev),
+        row_box=tuple(torch.empty(slots, dtype=torch.int64, device=dev) for _ in range(4)))
+    BIN.launch("raster_bin", "the binning", dev, clip.data_ptr(), indices.data_ptr(), t, width,
+               height, stride, *(x.data_ptr() for x in scratch), bins.table.data_ptr(),
+               bins.starts.data_ptr(), bins.counts.data_ptr(), bins.g_count.data_ptr(),
+               bins.row_tile.data_ptr(), *(b.data_ptr() for b in bins.row_box))
+    BIN_LAUNCHES += BIN_KERNELS
+    return bins
 
 
 def bin_triangles(tr: TriRows, width: int, height: int) -> Bins:
@@ -537,11 +614,11 @@ def rasterize_depth_binned(clip, indices, width: int, height: int,
 
 
 def depth_bins(clip, indices, width: int, height: int) -> Bins | None:
-    """The depth rows of the triangles, binned (`tri_rows`, then
-    `bin_triangles`); None where there are no triangles."""
+    """The depth rows of the triangles, binned (`binned_rows`); None where
+    there are no triangles."""
     if indices.shape[0] == 0:
         return None
-    return bin_triangles(tri_rows(clip, indices, width, height), width, height)
+    return binned_rows(clip, indices, width, height)
 
 
 def depth_binned(bins: Bins, width: int, height: int) -> torch.Tensor:
@@ -562,7 +639,7 @@ def rasterize_binned(clip, indices, width: int, height: int,
     _check_interpret(interpret, dev)
     if indices.shape[0] == 0:
         return init if init is not None else clear_visibility(height, width, dev)
-    bins = bin_triangles(tri_rows(clip, indices, width, height, vis=True), width, height)
+    bins = binned_rows(clip, indices, width, height, vis=True)
     if dev.type == "cuda":
         vis = vis_binned_cuda(bins, width, height)
     else:

@@ -45,6 +45,7 @@ the seed kernel.
 """
 
 import ctypes
+import re
 
 import numpy as np
 import pytest
@@ -610,9 +611,9 @@ def test_k1_phase_stats_count_its_walk(cuda_device, front, any_hit):
         is None
 
 
-def _raster_bins(device, vis, n=20000, width=1920, height=1080, seed=21):
+def _raster_soup(device, n=20000, width=1920, height=1080, seed=21):
     """A soup of small triangles plus one screen-wide triangle (the global
-    list), perspective-projected, binned on `device`."""
+    list), perspective-projected: (clip, indices) on `device`."""
     rng = np.random.default_rng(seed)
     tris = rng.uniform(-1.3, 1.3, (n, 1, 3)) + rng.normal(0, 0.03, (n, 3, 3))
     tris = np.concatenate([tris, [[[-9.0, -9.0, 0.4], [9.0, -9.0, 0.4], [0.0, 9.0, 0.4]]]])
@@ -621,8 +622,224 @@ def _raster_bins(device, vis, n=20000, width=1920, height=1080, seed=21):
     clip = np.stack([v[:, 0], v[:, 1] * width / height, 0.55 * z - 0.1, z], -1)
     clip = torch.tensor(clip, dtype=torch.float32, device=device)
     idx = torch.arange(3 * (n + 1), dtype=torch.int32, device=device).reshape(-1, 3)
+    return clip, idx
+
+
+def _raster_bins(device, vis, n=20000, width=1920, height=1080, seed=21):
+    """`_raster_soup` binned on `device` by the plain version."""
+    clip, idx = _raster_soup(device, n, width, height, seed)
     rows = raster_binned.tri_rows(clip, idx, width, height, vis=vis)
     return raster_binned.bin_triangles(rows, width, height), width, height
+
+
+def _assert_bins_equal(got, want):
+    """Every field of two Bins equal, the table bit for bit."""
+    assert (got.g_base, got.nx, got.ny) == (want.g_base, want.nx, want.ny)
+    assert got.table.shape == want.table.shape
+    assert torch.equal(got.table.view(torch.int32), want.table.view(torch.int32))
+    for name in ("starts", "counts", "g_count", "row_tile"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+    for a, b in zip(got.row_box, want.row_box, strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_binning_library_declaration_matches_its_source():
+    """`raster_bin` of csrc/raster_bin.cu, as the module declares it: its
+    parameters' kinds in order (pointers, the four ints by name, the stream
+    last), the compile-time sizes the module's, and every kernel of the
+    file launched once by it (`BIN_KERNELS`), which returns
+    cudaGetLastError."""
+    (source,) = raster_binned.BIN.sources
+    with open(source, encoding="utf-8") as f:
+        src = f.read()
+    launch = src[src.index('extern "C" int raster_bin('):]
+    params = [p.strip() for p in launch[launch.index("(") + 1:launch.index(")")].split(",")]
+    assert params[-1] == "void* stream"
+    kinds = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+    assert kinds == raster_binned.BIN.functions["raster_bin"]
+    assert [p.split()[-1] for p in params if "*" not in p] == [
+        "t_count", "width", "height", "stride"]
+    for name, value in (("BIN_CHUNK", raster_binned.BIN_CHUNK),
+                        ("BIN_MAX_TILES", raster_binned.BIN_MAX_TILES),
+                        ("BIN_TILE_W", raster_binned.TILE_W), ("BIN_TILE_H", raster_binned.TILE_H),
+                        ("BIN_SPAN_X", raster_binned.SPAN_X), ("BIN_SPAN_Y", raster_binned.SPAN_Y)):
+        assert re.search(rf"#define {name} {value}\b", src), name
+    launch = launch[:launch.index("\n}")]
+    kernels = re.findall(r"__global__ void __launch_bounds__\(\w+\)\s*(\w+)\(", src)
+    assert len(kernels) == raster_binned.BIN_KERNELS
+    assert all(launch.count(f"{k}<<<") == 1 for k in kernels)
+    assert launch.rstrip().endswith("return static_cast<int>(cudaGetLastError());")
+
+
+@pytest.mark.parametrize("wrong", ["float64_clip", "clip_of_3", "int64_indices", "strided_clip",
+                                   "indices_elsewhere", "no_triangles", "too_many_tiles",
+                                   "cpu_tensors"])
+def test_binning_library_refuses_what_it_cannot_take(wrong, monkeypatch):
+    """An input of another type, shape, layout or device, an empty call, a
+    grid of more tiles than its counters take, or CPU tensors raise before
+    the library is built or launched."""
+    monkeypatch.setattr(raster_binned.BIN, "library", lambda: pytest.fail("library built"))
+    clip, idx = _raster_soup("cpu", n=50, width=300, height=70)
+    width, height, match = 300, 70, {
+        "float64_clip": "dtype", "clip_of_3": "shape", "int64_indices": "dtype",
+        "strided_clip": "contiguous", "indices_elsewhere": "is on meta",
+        "no_triangles": "nothing to bin", "too_many_tiles": "tiles",
+        "cpu_tensors": "CUDA tensors"}[wrong]
+    if wrong == "float64_clip":
+        clip = clip.double()
+    elif wrong == "clip_of_3":
+        clip = clip[:, :3].contiguous()
+    elif wrong == "int64_indices":
+        idx = idx.long()
+    elif wrong == "strided_clip":
+        clip = torch.cat([clip, clip], 1)[:, ::2]
+    elif wrong == "indices_elsewhere":
+        idx = idx.to("meta")
+    elif wrong == "no_triangles":
+        idx = idx[:0]
+    elif wrong == "too_many_tiles":
+        width, height = raster_binned.TILE_W * 300, raster_binned.TILE_H * 200
+    before = raster_binned.BIN_LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        raster_binned.bins_cuda(clip, idx, width, height)
+    assert raster_binned.BIN_LAUNCHES == before
+
+
+@pytest.mark.parametrize("vis", [False, True])
+def test_cpu_tensors_take_the_plain_binning(vis, monkeypatch):
+    """On CPU tensors `binned_rows`, and the rasterizers through it, run
+    `tri_rows` and `bin_triangles`: the library is never built and its
+    counter stays where it was."""
+    monkeypatch.setattr(raster_binned.BIN, "library", lambda: pytest.fail("library built"))
+    before = raster_binned.BIN_LAUNCHES
+    w, h = 300, 70
+    clip, idx = _raster_soup("cpu", n=200, width=w, height=h)
+    want = raster_binned.bin_triangles(raster_binned.tri_rows(clip, idx, w, h, vis), w, h)
+    _assert_bins_equal(raster_binned.binned_rows(clip, idx, w, h, vis), want)
+    if vis:
+        got = raster_binned.rasterize_binned(clip, idx, w, h)
+        assert torch.equal(got.tri, raster_binned.vis_binned_plain(want, w, h).tri)
+    else:
+        got = raster_binned.rasterize_depth_binned(clip, idx, w, h)
+        assert torch.equal(got, raster_binned.depth_binned_plain(want, w, h))
+    assert raster_binned.BIN_LAUNCHES == before
+
+
+def test_other_devices_have_no_binning():
+    clip, idx = _raster_soup("cpu", n=10, width=300, height=70)
+    with pytest.raises(ValueError, match="no binning"):
+        raster_binned.binned_rows(clip.to("meta"), idx.to("meta"), 300, 70)
+
+
+def _binning_cases(device, width: int, height: int, seed: int = 41):
+    """(clip, indices) on `device`: a soup of small perspective triangles
+    whose depths cross the near plane (pieces clipped to one and to two,
+    and triangles behind the camera, in bulk), and one or more of each
+    case the binning decides: spans of 1 x 1, 2 x 1, 1 x 4 and 2 x 4 tiles
+    (binned) and of one more tile either way (global), a screen-wide
+    triangle, triangles in the last, partial column and row of tiles,
+    across the image's edges, off it on each side, degenerate (collinear,
+    one point), clipped by the near plane to one and to two pieces, behind
+    the camera (clip z and w below 0) and with w below 0 alone."""
+    tw, th = raster_binned.TILE_W, raster_binned.TILE_H
+
+    def screen(pts, z=0.5):
+        x, y = np.asarray(pts, np.float64).T
+        return np.stack([2 * x / width - 1, 1 - 2 * y / height, np.full(3, z), np.ones(3)], -1)
+
+    cases = [
+        screen([(10, 3), (2 * tw - 12, 3), (10, 4 * th - 3)]),
+        screen([(tw + 5, th + 2), (tw + 30, th + 2), (tw + 5, th + 20)]),
+        screen([(tw - 20, 5), (tw + 20, 5), (tw, 25)]),
+        screen([(40, 2), (60, 4 * th - 2), (30, 60)]),
+        screen([(10, 3), (2 * tw + 12, 3), (10, 40)]),
+        screen([(10, 3), (40, 3), (10, 4 * th + 5)]),
+        screen([(-50, -50), (3 * width, -40), (-40, 3 * height)], z=0.9),
+        screen([(width - 3, height - 2), (width - 1, height - 30), (width - 40, height - 1)]),
+        screen([(-30, 10), (20, 15), (-10, 40)]),
+        screen([(width - 10, -20), (width + 30, 10), (width - 5, 12)]),
+        screen([(-50, 10), (-5, 20), (-30, 30)]),
+        screen([(width + 1, 10), (width + 50, 20), (width + 5, 30)]),
+        screen([(100, -40), (140, -2), (120, -30)]),
+        screen([(100, height + 1), (140, height + 40), (120, height + 5)]),
+        screen([(100, 50), (150, 60), (200, 70)]),
+        screen([(100, 50), (100, 50), (100, 50)]),
+        [[-0.5, -0.5, -0.2, 0.3], [0.5, -0.4, 0.6, 1.0], [0.0, 0.5, 0.4, 0.8]],
+        [[-0.5, -0.5, -0.2, 0.3], [0.5, -0.4, -0.1, 0.4], [0.0, 0.5, 0.4, 0.8]],
+        [[-0.5, -0.5, -0.2, -0.3], [0.5, -0.4, -0.1, -0.4], [0.0, 0.5, -0.4, -0.8]],
+        [[-0.5, -0.5, 0.2, -0.3], [0.5, -0.4, 0.1, -0.4], [0.0, 0.5, 0.4, -0.8]],
+    ]
+    rng = np.random.default_rng(seed)
+    n, n_near = 3000, 600
+    c = rng.uniform(-1.3, 1.3, (n, 1, 3)) + rng.normal(0, 0.05, (n, 3, 3))
+    near = (rng.uniform([-0.15, -0.15, 0.12], [0.15, 0.15, 0.26], (n_near, 1, 3))
+            + rng.normal(0, [0.01, 0.01, 0.03], (n_near, 3, 3)))
+    c = np.concatenate([c + [0.0, 0.0, 1.0], near])  # view depth; the near plane at 0.18
+    soup = np.stack([c[..., 0], c[..., 1] * width / height, 0.55 * c[..., 2] - 0.1, c[..., 2]],
+                    -1)
+    tris = np.concatenate([np.asarray(cases), soup]).astype(np.float32)
+    clip = torch.tensor(tris.reshape(-1, 4), device=device)
+    idx = torch.arange(clip.shape[0], dtype=torch.int32, device=device).reshape(-1, 3)
+    return clip, idx
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vis", [False, True])
+@pytest.mark.parametrize("size", [(1024, 256), (1000, 270)])
+def test_binning_library_matches_plain_on_card(cuda_device, size, vis):
+    """The library's Bins equal `tri_rows` + `bin_triangles` on the card in
+    every field, bit for bit, on `_binning_cases` (an image a whole number
+    of tiles, and one that is not), for depth rows and visibility rows; a
+    call moves its counter by its launches, and `binned_rows` on CUDA
+    tensors goes through it."""
+    width, height = size
+    clip, idx = _binning_cases(cuda_device, width, height)
+    tr = raster_binned.tri_rows(clip, idx, width, height, vis=vis)
+    want = raster_binned.bin_triangles(tr, width, height)
+    t = idx.shape[0]
+    assert int(tr.valid[t:].sum()) > 20  # second pieces of the near clip
+    assert int((tr.valid & ~tr.is_global & (tr.span_w == 2) & (tr.span_h == 4)).sum()) >= 1
+    assert int(want.g_count) >= 4 and int(want.counts[-1]) >= 1
+    before = raster_binned.BIN_LAUNCHES
+    got = raster_binned.bins_cuda(clip, idx, width, height, vis)
+    assert raster_binned.BIN_LAUNCHES == before + raster_binned.BIN_KERNELS
+    _assert_bins_equal(got, want)
+    _assert_bins_equal(raster_binned.binned_rows(clip, idx, width, height, vis), want)
+    assert raster_binned.BIN_LAUNCHES == before + 2 * raster_binned.BIN_KERNELS
+
+
+@pytest.mark.cuda
+def test_binning_library_on_the_sponza_cascades_on_card(cuda_device):
+    """The Sponza-scale scene's four 4096² cascades (259,932 triangles) at
+    the default camera and sun: the library's Bins are the plain version's
+    bit for bit, and so is K4's depth over them."""
+    from rust_renderer_tpu_torch.camera import Camera
+    from rust_renderer_tpu_torch.models import create_sponza_scale_scene
+    from rust_renderer_tpu_torch.ops import shadow
+    from rust_renderer_tpu_torch.renderer import Renderer
+
+    cam = Camera([-10.28, 2.10, -0.18], [0.0, 0.5, 0.0], fov_degrees=60.0,
+                 aspect_ratio=1920 / 1080, z_near=0.01, z_far=1000.0)
+    scene = Renderer()
+    create_sponza_scale_scene(scene, cam)
+    packed = scene.pack_numpy()
+    positions = torch.tensor(packed["positions"], device=cuda_device)
+    indices = torch.tensor(packed["indices"], device=cuda_device)
+    mats, _ = shadow.cascade_matrices(cam.get_view(), cam.get_projection(),
+                                      cam.get_near_plane(), cam.get_far_plane(),
+                                      np.array([0.0, 0.90631, 0.42262], np.float32))
+    size = 4096
+    for m in torch.tensor(mats, device=cuda_device):
+        clip = raster.transform_vertices(positions, m)
+        want = raster_binned.bin_triangles(raster_binned.tri_rows(clip, indices, size, size),
+                                           size, size)
+        got = raster_binned.bins_cuda(clip, indices, size, size)
+        assert int(want.counts.sum()) > 200000
+        _assert_bins_equal(got, want)
+        depth = raster_binned.depth_binned_cuda(got, size, size)
+        assert torch.equal(depth, raster_binned.depth_binned_cuda(want, size, size))
+        assert int((depth < 1.0).sum()) > 0
 
 
 def test_k45_wrappers_refuse_cpu_tensors_and_oversized_grids():
@@ -808,12 +1025,14 @@ def test_raster_frames_on_card_match_cpu(cuda_device, mode):
         return app.render_frame()["present_output"].cpu().numpy()
 
     traversal.K1_LAUNCHES.clear()
-    raster_binned.K4_LAUNCHES = raster_binned.K5_LAUNCHES = 0
+    raster_binned.K4_LAUNCHES = raster_binned.K5_LAUNCHES = raster_binned.BIN_LAUNCHES = 0
     got = render(cuda_device)
     raster = mode == "RASTERIZED"
     assert dict(traversal.K1_LAUNCHES) == (
         {"closest": 2, "any_hit": 1} if raster else {"closest": 1})
     assert (raster_binned.K4_LAUNCHES, raster_binned.K5_LAUNCHES) == (4, int(raster))
+    # each raster call's binning
+    assert raster_binned.BIN_LAUNCHES == raster_binned.BIN_KERNELS * (4 + int(raster))
     diff = np.abs(got - render("cpu"))
     assert (diff.max(axis=-1) <= 1e-3).mean() >= 0.99
     assert diff.mean() <= 1e-3
