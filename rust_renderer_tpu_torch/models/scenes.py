@@ -212,6 +212,17 @@ def create_sponza_scale_scene(renderer: Renderer, camera: Camera) -> None:
         )
 
 
+def create_sponza_scale_mc_scene(renderer: Renderer, camera: Camera) -> None:
+    """The Sponza-scale scene framed for the animated marching-cubes
+    isosurface (bench config 5): the camera inside the atrium at (2, 3, 1),
+    looking up over the +z wall at (10, 12, 10), toward the surface's box
+    and torus in the [0,32]^3 domain (the pulsing sphere above them stays
+    behind the torus). From the Sponza viewpoint the wall hides the
+    surface."""
+    create_sponza_scale_scene(renderer, camera)
+    camera.set_position_target([2.0, 3.0, 1.0], [10.0, 12.0, 10.0])
+
+
 def create_atrium_standin(renderer: Renderer, columns: int = 6,
                           sphere_detail: int = 24,
                           clutter_count: int = 12,

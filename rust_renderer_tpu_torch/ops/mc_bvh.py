@@ -44,6 +44,7 @@ from rust_renderer_tpu_torch.ops.gather import row_gather
 from rust_renderer_tpu_torch.ops.intersect import HIT_DYNAMIC, Hit
 from rust_renderer_tpu_torch.ops.constants import device_constant
 from rust_renderer_tpu_torch.ops.marching_cubes import MAX_TRIS_PER_VOXEL
+from rust_renderer_tpu_torch.utils.profiler import PROFILER
 
 _BIG = 3.0e37
 CELLS_PER_ROW = 2  # Morton-adjacent cells sharing one leaf row
@@ -317,24 +318,30 @@ def build_dynamic_scene(mc_result, grid: int, material_id: int) -> DynamicScene:
 def dyn_traverse(dyn: DynamicScene, origin, direction, t_min, t_max, any_hit: bool = False):
     """The walk of the dynamic tree, with the JAX package's `_dyn_traverse`
     options: on CUDA tensors K1 (raises if `select_kernel` named another
-    kernel), on CPU tensors the plain walk. Returns (t, prim, u, v)."""
+    kernel), on CPU tensors the plain walk. Returns (t, prim, u, v). Inside
+    the span `mc/walk`, which a pass's span encloses, so that a captured
+    frame's replays time it too."""
     if origin.device.type == "cuda":
         kernel = traversal.select_kernel(dyn.bvh, any_hit, **_WALK)
         if kernel != "k1":
             raise RuntimeError(f"the dynamic tree's walk selected {kernel}, not K1")
-    return traversal.traverse(dyn.bvh, origin, direction, t_min, t_max, any_hit=any_hit,
-                              drain_first=any_hit, **_WALK)
+    with PROFILER.scope("mc/walk", device=origin.device):
+        return traversal.traverse(dyn.bvh, origin, direction, t_min, t_max, any_hit=any_hit,
+                                  drain_first=any_hit, **_WALK)
 
 
 def combine_closest_hit(base_closest, dyn: DynamicScene):
-    """closest_hit that also walks the dynamic tree; the nearer hit wins.
-    Dynamic hits carry kind HIT_DYNAMIC and prim = the slot-major MC
-    triangle index."""
+    """closest_hit that also walks the dynamic tree; the nearer hit wins (a
+    tie goes to the scene). Dynamic hits carry kind HIT_DYNAMIC and prim =
+    the slot-major MC triangle index. Each query adds its lanes that the
+    surface won to the device counter `mc/hits`, its peak one query's."""
 
     def closest_hit(scene, origin, direction, t_min=1e-3, t_max=1e4) -> Hit:
         base = base_closest(scene, origin, direction, t_min, t_max)
         t, prim, u, v = dyn_traverse(dyn, origin, direction, t_min, t_max)
         closer = t < base.t
+        won = closer.sum()
+        PROFILER.count("mc/hits", won, won)
         return Hit(
             t=torch.where(closer, t, base.t),
             kind=torch.where(closer, HIT_DYNAMIC, base.kind).to(torch.int32),

@@ -43,6 +43,7 @@ from rust_renderer_tpu_torch.renderers.passes import (
     setup_shadow_pass,
     setup_ssao_pass,
 )
+from rust_renderer_tpu_torch.utils.profiler import PROFILER
 
 __all__ = [
     "build_render_graph",
@@ -163,7 +164,8 @@ def build_path_tracing_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_di
     marching_cubes_enabled adds the animated isosurface to the traced scene
     (bench config 5), the analog of the reference's per-frame TLAS rebuild
     (marching_cubes.rs:63-135, raytracing.rs:400-459): two isolated passes
-    at the head of the graph extract the surface (`mc_extract`) and refit
+    at the head of the graph extract the surface (`mc_extract`, which adds
+    its live triangles to the device counter `mc/triangles`) and refit
     its tree (`mc_refit`, ``ops/mc_bvh.py``) into four table resources;
     the gbuffer and reference_pt passes read them and walk that tree beside
     the scene's. The refit reads view.marching_cubes_enabled on the device,
@@ -214,6 +216,8 @@ def build_path_tracing_render_graph(graph: Graph, cfg, camera, scene_bvh, sun_di
             # The fixed [0,32]^3 world domain (the reference's feature
             # region) at any tessellation.
             result = mc_ops.marching_cubes(grid=grid, voxel_size=32.0 / grid, time=view.time)
+            live = result.valid.sum()
+            PROFILER.count("mc/triangles", live, live)
             return {"mc_positions": result.positions, "mc_normals": result.normals,
                     "mc_valid": result.valid.to(torch.int32),
                     "marching_cubes_draw_count": result.vertex_count[None]}
